@@ -12,14 +12,40 @@ Phases, each synchronised with the card, none catching its own failure:
 3. hold the march kernel against its plain torch version at 32^3 / 64^2,
    orthographic and perspective, unshaded with ERT off and at 0.95, and
    with the diffuse tap (kd 0.6);
-4. drive the main path, rung 5's forward render (``fwd_v3.render_float``),
-   at full width: the 256^3 synthetic volume, 1024^2 rays, the benchmark's
-   zoomed orthographic pose, ERT off, unshaded. The launch counter is reset
-   just before and read just after. The image is held against the plain
-   march, and the kernel, the plain march and the whole render are timed;
+4. drive the serving path, rung 5's forward render
+   (``fwd_v3.render_float``), at full width: the 256^3 synthetic volume,
+   1024^2 rays, the benchmark's zoomed orthographic pose, ERT off,
+   unshaded. The launch counter is reset just before and read just after.
+   The image is held against the plain march, and the kernel, the plain
+   march and the whole render are timed;
 5. render the CLI's default look (diffuse, ERT 0.95, angles 30 20 0) at
    512^2 to a PNG in the temporary directory and check it is neither black
-   nor uniform.
+   nor uniform;
+6. hold the backward kernel and the one-launch L2 step against their plain
+   torch versions and against autograd through the plain torch march
+   (``render_diff_image``) at 32^3 / 64^2, in phase 3's modes, with a
+   seeded non-zero target and cotangent, and check that a leaf that needs
+   no gradient gets zeros while the other's is unchanged;
+7. drive the training path's step at full width: ``bench_diff_step(256,
+   1024)`` through the forward and backward kernels under autograd, then
+   through the one-launch kernel, the launch counters reset before each
+   and read after; hold the one-launch gradients against the plain version
+   at full width; time both kernels and their plain versions;
+8. run the trainer: ``cli fit --fused --train both`` at 256^3 / 1024^2 for
+   8 steps, ``cli fit`` through autograd at 64^3 / 128^2, and ``cli
+   bench``. A fit cycles through four views whose losses differ by a
+   factor of two, so "the loss falls" is read as: the mean over the second
+   pass through the views is below the mean over the first. Both fits run
+   at ``--lr 0.02``: at the default 0.05 the first steps from a flat TF
+   overshoot (at 64^3 the second pass comes out above the first, in the
+   plain torch march as well).
+
+Each kernel's ``bound_ms`` is the least time the card could take for the
+same work: the larger of the bytes it must move (each input read once, each
+output written once, the zero-fill of a gradient counted as a write) over
+3.35 TB/s and its f32 operations, counted by hand from
+``volrt_torch/csrc/march_common.cuh`` per composited sample of this run's
+rays, over 67 TFLOP/s (the published peaks of an H100 SXM at 700 W).
 
 Prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -33,8 +59,11 @@ import sys
 # some); the run must add no jax module and nothing of the JAX package.
 _MODULES_AT_START = set(sys.modules)
 
+import contextlib
+import io
 import json
 import os
+import re
 import struct
 import subprocess
 import tempfile
@@ -46,12 +75,16 @@ import torch
 
 from volrt_torch import _build, cli
 from volrt_torch.bench.harness import (
-    bench_fwd_step, bench_pose, synthetic_volume, time_cuda)
+    bench_diff_step, bench_fwd_step, bench_pose, diff_bench_scene,
+    synthetic_volume, time_cuda)
+from volrt_torch.core.tf import default_transfer_fn
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
-from volrt_torch.renderers import fwd_v3
+from volrt_torch.diff.render import render_diff_image, scene_from_volume
+from volrt_torch.renderers import diff_v3, fwd_v3
 from volrt_torch.renderers.cuda.march import (
-    march_fwd, march_fwd_plain)
+    l2_step, l2_step_plain, march_bwd, march_bwd_plain, march_fwd,
+    march_fwd_plain, max_steps)
 
 # Kernel against plain version. The kernel rounds every f32 multiply and add
 # on its own, as torch does, so unshaded the two should agree to the bit;
@@ -60,6 +93,32 @@ from volrt_torch.renderers.cuda.march import (
 # reduces in its own order: the shade-tap class, 2e-3.
 ATOL_UNSHADED = 1e-5
 ATOL_DIFFUSE = 2e-3
+# Gradients, as a share of the largest entry of the gradient they are held
+# to. The kernels sum with atomics in an order that changes from run to
+# run, and the plain versions with index_add_ in another: f32 sums of up to
+# a few thousand terms, 2e-5 of the largest entry. Against autograd the
+# analytic backward also differs by its suffix sums (G - P, a difference of
+# near-equal numbers late in an opaque ray): 1e-4. With the diffuse tap the
+# kernel's light direction differs from torch's in the last bit, which
+# moves the tap's weights: the shade-tap class, 2e-3.
+RTOL_GRAD = 2e-5
+# dTF at 1024^2 rays: each entry sums up to 1e8 terms, in the kernel as
+# 4096 blocks' f32 partial sums of about 1e5 terms each, in the plain
+# version in f64.
+RTOL_DTF_WIDE = 1e-4
+RTOL_GRAD_AUTOGRAD = 1e-4
+RTOL_GRAD_DIFFUSE = 2e-3
+# Published peaks of one H100 SXM at its full 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# f32 operations per composited sample, counted by hand from
+# csrc/march_common.cuh. Forward: the position 8, three axes' taps 15, seven
+# lerps of the trilinear sample 28, the TF coordinate and its lerps 20, the
+# composite 9. Replay: the forward without its three colour composites 74,
+# the cotangent chain 20, the TF rows' weights and adds 17, the TF slope
+# and the eight voxels' weights and adds 35.
+FLOPS_FWD = 80
+FLOPS_BWD = 146
 SMALL_MODES = (  # (label, light_kd, ray_threshold, atol)
     ("unshaded, ERT off", 0.0, 2.0, ATOL_UNSHADED),
     ("unshaded, ERT 0.95", 0.0, 0.95, ATOL_UNSHADED),
@@ -108,9 +167,11 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load()
     print(f"[build] {lib} ready in {time.perf_counter() - t0:.2f} s")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    log = (lib.parent / "build.log").read_text()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+    print(f"[build] {len(regs)} kernel variants, {min(regs)} to {max(regs)} "
+          f"registers, {max(spills)} bytes spilled at most")
 
 
 def phase_small(dev: torch.device) -> None:
@@ -137,6 +198,32 @@ def phase_small(dev: torch.device) -> None:
             assert torch.isfinite(got).all(), "non-finite kernel output"
             assert got[:, 3].max().item() > 0.5, "empty small render"
             assert err <= atol, f"kernel disagrees with plain: {err}"
+
+
+def _n_samples(args, kw) -> int:
+    """Samples this run's rays composite with ERT off: k0 + i*step <= kfar,
+    at most max_steps a ray."""
+    _, _, k0, kfar, alive = args[:5]
+    n = torch.floor((kfar - k0) / kw["ray_step"]) + 1
+    n = n.clamp(0, max_steps(kw["ray_step"])) * alive
+    return int(n.sum().item())
+
+
+def _bound(args, kw, flops_per_sample: int, images: int,
+           grads: bool) -> dict:
+    """``bound_ms`` and ``bound_by`` of one kernel call on these inputs.
+    ``images`` counts the f32[N, 4] tensors beside the ray tensors (the
+    output, a target, a cotangent); ``grads`` adds the two gradients, each
+    zero-filled and then written."""
+    o, d, k0, kfar, alive, density, tf, scal = args
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes += images * o.shape[0] * 16
+    if grads:
+        nbytes += 2 * (density.numel() + tf.numel()) * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = _n_samples(args, kw) * flops_per_sample / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_main(dev: torch.device) -> dict:
@@ -168,21 +255,24 @@ def phase_main(dev: torch.device) -> dict:
     for which in ("plain", "kernel", "kernel", "plain"):
         fn = march_fwd if which == "kernel" else march_fwd_plain
         runs[which] += time_cuda(lambda: fn(*args, **kw),
-                                 50 if which == "kernel" else 2)
+                                 25 if which == "kernel" else 1)
     kernel_ms = float(np.median(runs["kernel"]))
     plain_ms = float(np.median(runs["plain"]))
     bench = bench_fwd_step(256, 1024, iters=100, device=dev)
+    bound = _bound(args, kw, FLOPS_FWD, images=1, grads=False)
     print(f"[main] march kernel median {kernel_ms:.4f} ms over "
           f"{len(runs['kernel'])} calls (min {min(runs['kernel']):.4f}, max "
           f"{max(runs['kernel']):.4f}); plain torch march median "
           f"{plain_ms:.2f} ms over {len(runs['plain'])} calls "
-          f"({plain_ms / kernel_ms:.1f}x the kernel)")
+          f"({plain_ms / kernel_ms:.1f}x the kernel); bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} for "
+          f"{_n_samples(args, kw)} samples")
     print(f"[main] bench_fwd_step (render_float whole): median "
           f"{bench['ms']:.4f} ms, p90 {bench['ms_p90']:.4f} ms over "
           f"{bench['iters']} calls, {bench['ray_steps_per_s']:.6g} "
           f"rays*steps/s, {bench['rays_per_s']:.6g} rays/s")
     return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def phase_cli() -> None:
@@ -201,6 +291,262 @@ def phase_cli() -> None:
     assert levels > 16, "uniform frame"
 
 
+def _hold(tag: str, what: str, got: torch.Tensor, want: torch.Tensor,
+          rtol: float) -> float:
+    """Assert ``max|got - want| <= rtol * max|want|`` and print both."""
+    assert torch.isfinite(got).all(), f"{tag}: non-finite {what}"
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    print(f"{tag} {what}: max|diff| = {err:.3g}, max|ref| = {top:.3g} "
+          f"(tol {rtol:g} of it = {rtol * top:.3g})")
+    assert top > 0, f"{tag}: the reference {what} is all zero"
+    assert err <= rtol * top, f"{tag}: {what} disagrees: {err}"
+    return err
+
+
+def phase_small_grads(dev: torch.device) -> None:
+    rng = np.random.default_rng(11)
+    target = torch.tensor(rng.uniform(0, 1, (64, 64, 4)).astype(np.float32),
+                          device=dev)
+    cot = torch.tensor(rng.normal(size=(64 * 64, 4)).astype(np.float32),
+                       device=dev)
+    for persp in (False, True):
+        cam = Camera(dims=(64, 64), perspective=persp)
+        cam.toggle_perspective(update_mode=True)
+        cam.set_camera_position((30.0, 20.0, 0.0))
+        view = cam.view(dev)
+        for label, kd, thr, _ in SMALL_MODES:
+            shaded = kd > 0
+            rtol = RTOL_GRAD_DIFFUSE if shaded else RTOL_GRAD
+            rtol_ag = RTOL_GRAD_DIFFUSE if shaded else RTOL_GRAD_AUTOGRAD
+            tag = f"[grads] 32^3/64^2 {'persp' if persp else 'ortho'}, {label}:"
+            scene = scene_from_volume(synthetic_volume(32),
+                                      default_transfer_fn(dev), 0.06,
+                                      device=dev)
+            leaves = [scene.density, scene.tf_base]
+            kw_r = dict(ray_threshold=thr, light_kd=kd, shaded=shaded)
+
+            # The backward kernel against its plain version, on a random
+            # cotangent of the forward kernel's image.
+            with torch.no_grad():
+                args, kw = fwd_v3.ray_args(
+                    view, scene.density, scene.premult_tf(), scene.ray_step,
+                    thr, kd, loss_scale=2.0 / (64 * 64 * 4))
+                out = march_fwd(*args, **kw)
+                before = march_bwd.launches
+                got = march_bwd(*args, out, cot, **kw)
+                _sync()
+                assert march_bwd.launches == before + 1, "no launch"
+                want = march_bwd_plain(*args, out, cot, **kw)
+            _hold(tag, "march_bwd d_density vs plain", got[0], want[0], rtol)
+            _hold(tag, "march_bwd d_premult_tf vs plain", got[1], want[1],
+                  rtol)
+
+            # Both kernels under autograd against autograd through the
+            # plain torch march.
+            loss_k = torch.mean(
+                (diff_v3.render_image_v3(scene, view, **kw_r) - target) ** 2)
+            g_two = torch.autograd.grad(loss_k, leaves)
+            loss_a = torch.mean(
+                (render_diff_image(scene, view, **kw_r) - target) ** 2)
+            g_auto = torch.autograd.grad(loss_a, leaves)
+            _sync()
+            assert abs(loss_k.item() - loss_a.item()) <= (
+                (2e-3 if shaded else 1e-5) * loss_a.item())
+            _hold(tag, "MarchFunction d_density vs autograd", g_two[0],
+                  g_auto[0], rtol_ag)
+            _hold(tag, "MarchFunction d_tf_base vs autograd", g_two[1],
+                  g_auto[1], rtol_ag)
+
+            # The one-launch step against its plain version, and against
+            # the two-kernel route.
+            with torch.no_grad():
+                tgt = target.reshape(-1, 4)
+                before = l2_step.launches
+                got = l2_step(*args, tgt, **kw)
+                _sync()
+                assert l2_step.launches == before + 1, "no launch"
+                want = l2_step_plain(*args, tgt, **kw)
+            err = (got[0] - want[0]).abs().max().item()
+            atol = ATOL_DIFFUSE if shaded else ATOL_UNSHADED
+            print(f"{tag} l2_step image vs plain: max|diff| = {err:.3g} "
+                  f"(atol {atol:g})")
+            assert err <= atol
+            _hold(tag, "l2_step d_density vs plain", got[1], want[1], rtol)
+            _hold(tag, "l2_step d_premult_tf vs plain", got[2], want[2], rtol)
+            loss_1, g_one = diff_v3.l2_loss_grads_v3_onepass(
+                scene, view, target, **kw_r)
+            _sync()
+            rel = abs(loss_1.item() - loss_k.item()) / loss_k.item()
+            print(f"{tag} one-launch loss {loss_1.item():.8g} vs two-kernel "
+                  f"{loss_k.item():.8g}: rel {rel:.3g} (rtol 1e-6)")
+            assert rel <= 1e-6
+            _hold(tag, "one-launch d_density vs two-kernel",
+                  g_one["density"], g_two[0], rtol)
+            _hold(tag, "one-launch d_tf_base vs two-kernel",
+                  g_one["tf_base"], g_two[1], rtol)
+
+            # A leaf that needs no gradient gets zeros; the other's stays.
+            _, g_no_tf = diff_v3.l2_loss_grads_v3_onepass(
+                scene, view, target, need_dtf=False, **kw_r)
+            _, g_no_vol = diff_v3.l2_loss_grads_v3_onepass(
+                scene, view, target, need_dvol=False, **kw_r)
+            _sync()
+            assert not g_no_tf["tf_base"].any(), "need_dtf=False left a dTF"
+            assert not g_no_vol["density"].any(), "need_dvol=False left a dVol"
+            _hold(tag, "need_dtf=False d_density", g_no_tf["density"],
+                  g_one["density"], rtol)
+            _hold(tag, "need_dvol=False d_tf_base", g_no_vol["tf_base"],
+                  g_one["tf_base"], rtol)
+
+
+def _spread(times: list) -> str:
+    return (f"median {np.median(times):.4f} ms over {len(times)} calls "
+            f"(min {min(times):.4f}, max {max(times):.4f})")
+
+
+def phase_step(dev: torch.device) -> dict:
+    """The training step at 256^3 / 1024^2 -> the two kernels' entries."""
+    counters = (march_fwd, march_bwd, l2_step)
+    for fn in counters:
+        fn.launches = 0
+    two = bench_diff_step(256, 1024, iters=10, fused=True, onepass=False,
+                          device=dev)
+    _sync()
+    n_fwd, n_bwd, n_l2 = (fn.launches for fn in counters)
+    print(f"[step] two-kernel route: {n_fwd} march_fwd, {n_bwd} march_bwd, "
+          f"{n_l2} l2_step launches over 10 + 1 steps; median "
+          f"{two['ms']:.4f} ms, p90 {two['ms_p90']:.4f} ms, "
+          f"{two['ray_steps_per_s']:.6g} rays*steps/s, loss {two['loss']:.8g}")
+    assert (n_fwd, n_bwd, n_l2) == (11, 11, 0), "wrong launches per step"
+    bwd_launches = n_bwd
+
+    for fn in counters:
+        fn.launches = 0
+    one = bench_diff_step(256, 1024, iters=20, fused=True, onepass=True,
+                          device=dev)
+    _sync()
+    n_fwd, n_bwd, n_l2 = (fn.launches for fn in counters)
+    print(f"[step] one-launch route: {n_fwd} march_fwd, {n_bwd} march_bwd, "
+          f"{n_l2} l2_step launches over 20 + 1 steps; median "
+          f"{one['ms']:.4f} ms, p90 {one['ms_p90']:.4f} ms, "
+          f"{one['ray_steps_per_s']:.6g} rays*steps/s, loss {one['loss']:.8g}")
+    assert (n_fwd, n_bwd, n_l2) == (0, 0, 21), "not one launch per step"
+    assert np.isfinite(one["loss"]) and one["loss"] > 0
+    assert abs(one["loss"] - two["loss"]) <= 1e-6 * two["loss"]
+
+    # The bench's inputs again, for the kernels alone.
+    scene, view, target = diff_bench_scene(256, 1024, device=dev)
+    with torch.no_grad():
+        args, kw = fwd_v3.ray_args(
+            view, scene.density, scene.premult_tf(), scene.ray_step,
+            2.0, 0.0, loss_scale=2.0 / (1024 * 1024 * 4))
+        tgt = target.reshape(-1, 4)
+        out, d_vol, d_tf = l2_step(*args, tgt, **kw)
+        g = out * args[7][6]
+        b_vol, b_tf = march_bwd(*args, out, g, **kw)
+        _sync()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        p_out, p_vol, p_tf = l2_step_plain(*args, tgt, **kw)
+        end.record()
+        _sync()
+        l2_plain_ms = start.elapsed_time(end)
+        tag = "[step] 256^3/1024^2"
+        err_img = (out - p_out).abs().max().item()
+        print(f"{tag} l2_step image vs plain: max|diff| = {err_img:.3g} "
+              f"(atol {ATOL_UNSHADED:g})")
+        assert err_img <= ATOL_UNSHADED
+        err_l2 = max(
+            _hold(tag, "l2_step d_density vs plain", d_vol, p_vol, RTOL_GRAD),
+            _hold(tag, "l2_step d_premult_tf vs plain", d_tf, p_tf,
+                  RTOL_DTF_WIDE))
+        err_bwd = max(
+            _hold(tag, "march_bwd d_density vs plain", b_vol, p_vol,
+                  RTOL_GRAD),
+            _hold(tag, "march_bwd d_premult_tf vs plain", b_tf, p_tf,
+                  RTOL_DTF_WIDE))
+        bwd_plain = time_cuda(
+            lambda: march_bwd_plain(*args, out, g, **kw), 1)
+        t_bwd = time_cuda(lambda: march_bwd(*args, out, g, **kw), 20)
+        t_l2 = time_cuda(lambda: l2_step(*args, tgt, **kw), 20)
+        t_fwd = time_cuda(lambda: march_fwd(*args, **kw), 20)
+        t_no_tf = time_cuda(
+            lambda: l2_step(*args, tgt, need_dtf=False, **kw), 10)
+        t_no_vol = time_cuda(
+            lambda: l2_step(*args, tgt, need_dvol=False, **kw), 10)
+        t_zero = time_cuda(lambda: torch.zeros_like(args[5]), 20)
+    bound_bwd = _bound(args, kw, FLOPS_BWD, images=2, grads=True)
+    bound_l2 = _bound(args, kw, FLOPS_FWD + FLOPS_BWD, images=2, grads=True)
+    print(f"[step] march_bwd (zero-fill and kernel) {_spread(t_bwd)}; plain "
+          f"{bwd_plain[0]:.2f} ms; bound {bound_bwd['bound_ms']:.4f} ms by "
+          f"{bound_bwd['bound_by']}")
+    print(f"[step] l2_step (zero-fill and kernel) {_spread(t_l2)}; plain "
+          f"{l2_plain_ms:.2f} ms; bound {bound_l2['bound_ms']:.4f} ms by "
+          f"{bound_l2['bound_by']}")
+    print(f"[step] beside them, same inputs: march_fwd {_spread(t_fwd)}; "
+          f"l2_step need_dtf=False {_spread(t_no_tf)}; need_dvol=False "
+          f"{_spread(t_no_vol)}; the 64 MiB zero-fill {_spread(t_zero)}")
+    return {
+        "march_bwd": {"launches": bwd_launches, "max_abs_err": err_bwd,
+                      "ms": float(np.median(t_bwd)),
+                      "plain_ms": bwd_plain[0], **bound_bwd,
+                      "library_ms": None},
+        "l2_step": {"launches": n_l2, "max_abs_err": err_l2,
+                    "ms": float(np.median(t_l2)), "plain_ms": l2_plain_ms,
+                    **bound_l2, "library_ms": None},
+    }
+
+
+def _cli_fit(argv: list) -> list:
+    """Run ``cli fit`` for two passes through its four views and return
+    the losses it logged, one per step."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(["fit", *argv, "--steps", "8", "--lr", "0.02",
+                         "--device", "cuda"])
+    _sync()
+    assert code == 0, f"cli fit returned {code}"
+    losses = [float(x) for x in
+              re.findall(r"fit step \d+: loss ([0-9.eE+-]+|nan|inf)",
+                         buf.getvalue())]
+    assert len(losses) == 8, buf.getvalue()
+    assert np.isfinite(losses).all(), losses
+    assert np.mean(losses[4:]) < np.mean(losses[:4]), (
+        f"the second pass did not come out below the first: {losses}")
+    return losses
+
+
+def phase_trainer() -> None:
+    l2_step.launches = 0
+    t0 = time.perf_counter()
+    losses = _cli_fit(["--fused", "--train", "both", "--synthetic", "256",
+                       "-s", "1024", "1024"])
+    print(f"[fit] fused, 256^3/1024^2, train both: losses {losses} in "
+          f"{time.perf_counter() - t0:.1f} s with targets, "
+          f"{l2_step.launches} l2_step launches")
+    assert l2_step.launches == 8, "the fused fit is not one launch per step"
+
+    for fn in (march_fwd, march_bwd, l2_step):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = _cli_fit(["--train", "both", "--synthetic", "64",
+                       "-s", "128", "128"])
+    print(f"[fit] autograd, 64^3/128^2, train both: losses {losses} in "
+          f"{time.perf_counter() - t0:.1f} s with targets")
+    assert not any(fn.launches for fn in (march_fwd, march_bwd, l2_step))
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(["bench", "--iters", "10"])
+    _sync()
+    assert code == 0, f"cli bench returned {code}"
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[bench] {json.dumps(line)}")
+    assert line["metric"] == "diff_fwd_bwd_ray_steps_per_s"
+    assert line["value"] > 0 and line["fwd_ray_steps_per_s"] > line["value"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -211,20 +557,28 @@ def main() -> int:
     phase_card()
     phase_build()
     phase_small(dev)
-    main_path = phase_main(dev)
+    fwd = phase_main(dev)
     phase_cli()
+    phase_small_grads(dev)
+    step = phase_step(dev)
+    phase_trainer()
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
     print(f"[done] all phases in {time.perf_counter() - t0:.1f} s, "
           "no jax module imported")
-    print(json.dumps({"kernels": [{
-        "name": "march_fwd",
-        "route": "cuda",
-        "source": "volrt_torch/csrc/march_fwd.cu",
-        "replaces": "volrt/renderers/pallas/diff_v3.py:1128",
-        **main_path,
-    }]}))
+    pallas = "volrt/renderers/pallas/diff_v3.py"
+    print(json.dumps({"kernels": [
+        {"name": "march_fwd", "route": "cuda",
+         "source": "volrt_torch/csrc/march_fwd.cu",
+         "replaces": f"{pallas}:1128", **fwd},
+        {"name": "march_bwd", "route": "cuda",
+         "source": "volrt_torch/csrc/march_bwd.cu",
+         "replaces": f"{pallas}:1435", **step["march_bwd"]},
+        {"name": "l2_step", "route": "cuda",
+         "source": "volrt_torch/csrc/l2_step.cu",
+         "replaces": f"{pallas}:2397", **step["l2_step"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,8 @@ from volrt_torch.core import types as ttypes
 from volrt_torch.core import view as tview
 
 ATOL = 1e-6
+# The port's entry points default to the card; the tests ask for the CPU.
+CPU = "cpu"
 
 
 def _np(x):
@@ -38,7 +40,7 @@ def test_constants_are_volrts():
 
 
 def test_default_tf_and_premultiply():
-    base = ttf.default_transfer_fn()
+    base = ttf.default_transfer_fn(CPU)
     np.testing.assert_array_equal(_np(base), _np(jtf.default_transfer_fn()))
     rng = np.random.default_rng(3)
     tf = rng.uniform(0, 1, (tc.TF_SIZE, 4)).astype(np.float32)
@@ -51,11 +53,11 @@ def test_load_tf(tmp_path):
     path = str(tmp_path / "tf.npy")
     tf = np.random.default_rng(4).uniform(0, 1, (tc.TF_SIZE, 4))
     jtf.save_tf(path, tf)
-    np.testing.assert_array_equal(_np(ttf.load_tf(path)),
+    np.testing.assert_array_equal(_np(ttf.load_tf(path, CPU)),
                                   _np(jtf.load_tf(path)))
     np.save(path, tf[:5])
     with pytest.raises(ValueError):
-        ttf.load_tf(path)
+        ttf.load_tf(path, CPU)
 
 
 @pytest.mark.parametrize("dims", [(16, 16, 16), (32, 24, 20), (256, 256, 256)])
@@ -72,7 +74,7 @@ def test_camera_view(angles, persp):
         cam = mod.Camera(dims=(40, 24), perspective=persp)
         cam.toggle_perspective(update_mode=True)
         cam.set_camera_position(angles, 2.5)
-        views.append(cam.view())
+        views.append(cam.view(CPU) if mod is tview else cam.view())
     jv, tv = views
     for f in ("origin", "direction", "right_plane", "up_plane", "light_pos"):
         np.testing.assert_array_equal(_np(getattr(tv, f)),
@@ -81,12 +83,12 @@ def test_camera_view(angles, persp):
 
 
 def test_default_view_and_zoom():
-    np.testing.assert_array_equal(_np(ttypes.View.default().right_plane),
+    np.testing.assert_array_equal(_np(ttypes.View.default(CPU).right_plane),
                                   _np(jtypes.View.default().right_plane))
     jcam, tcam = jview.Camera(dims=(64, 64)), tview.Camera(dims=(64, 64))
     jcam.zoom(-1.0)
     tcam.zoom(-1.0)
-    np.testing.assert_array_equal(_np(tcam.view().up_plane),
+    np.testing.assert_array_equal(_np(tcam.view(CPU).up_plane),
                                   _np(jcam.view().up_plane))
 
 
@@ -99,7 +101,7 @@ def test_get_rays_and_intersect(angles, persp):
     jv = jcam.view()
     tv = ttypes.View.from_arrays(
         _np(jv.origin), _np(jv.direction), _np(jv.right_plane),
-        _np(jv.up_plane), _np(jv.light_pos), jv.dims, jv.perspective)
+        _np(jv.up_plane), _np(jv.light_pos), jv.dims, jv.perspective, CPU)
     jo, jd = jrays.get_rays(jv)
     to, td = trays.get_rays(tv)
     assert to.shape == (20, 33, 3)
@@ -180,12 +182,12 @@ def test_volume_and_make_raycaster():
     from tests.conftest import synthetic_volume
 
     vol = synthetic_volume(16)
-    tvol = ttypes.Volume.from_numpy(vol[:, :12, :10])
+    tvol = ttypes.Volume.from_numpy(vol[:, :12, :10], CPU)
     assert tvol.dims == (10, 12, 16) and tvol.data.dtype == torch.uint8
     with pytest.raises(ValueError):
-        ttypes.Volume.from_numpy(vol[0])
+        ttypes.Volume.from_numpy(vol[0], CPU)
     jrc = jtypes.make_raycaster(jtypes.Volume.from_numpy(vol))
-    trc = ttypes.make_raycaster(ttypes.Volume.from_numpy(vol))
+    trc = ttypes.make_raycaster(ttypes.Volume.from_numpy(vol, CPU))
     np.testing.assert_array_equal(_np(trc.transfer_fn), _np(jrc.transfer_fn))
     assert trc.ray_step == jrc.ray_step
     assert trc.ray_threshold == pytest.approx(float(jrc.ray_threshold))
@@ -193,3 +195,34 @@ def test_volume_and_make_raycaster():
     assert (trc.esl, trc.shading, trc.view.dims) == (
         jrc.esl, jrc.shading, jrc.view.dims)
     assert trc.device == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """With no ``device`` every constructor resolves to ``cuda:0``, with no
+    probing and no fallback: where torch has no CUDA the call raises from
+    torch itself instead of quietly building on the CPU."""
+    from volrt_torch.core.device import default_device, resolve_device
+    from volrt_torch.diff.render import scene_from_arrays, scene_from_volume
+
+    assert default_device() == torch.device("cuda", 0)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert ttypes.View.default().origin.device == default_device()
+        return
+    vol = np.zeros((4, 4, 4), np.uint8)
+    tf = np.zeros((tc.TF_SIZE, 4), np.float32)
+    calls = [
+        lambda: ttypes.Volume.from_numpy(vol),
+        lambda: ttypes.View.default(),
+        lambda: ttypes.View.from_arrays(*[[0.0, 0.0, 1.0]] * 5, (4, 4), False),
+        lambda: tview.Camera(dims=(4, 4)).view(),
+        lambda: ttf.default_transfer_fn(),
+        lambda: ttypes.raycaster_from_arrays(
+            vol, tf, *[[0.0, 0.0, 1.0]] * 5, (4, 4), False, 0.1, 0.95, 0.6),
+        lambda: scene_from_volume(vol, tf, 0.1),
+        lambda: scene_from_arrays(vol.astype(np.float32), tf, 0.1),
+    ]
+    for call in calls:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+            call()

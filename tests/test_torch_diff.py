@@ -1,0 +1,271 @@
+"""The port's differentiable render against ``volrt``: the autograd oracle,
+the analytic backward and the one-launch L2 step.
+
+Scenes, views and targets are made with numpy from a seed and handed to
+both packages (``scene_from_arrays``, ``View.from_arrays``); the port runs
+on the CPU, where the kernels' wrappers take their plain torch versions.
+The JAX kernels run in Pallas interpret mode, as ``tests/test_diff_v3.py``
+runs them. Tolerances are that file's: images 2e-4, gradients of the
+mean-square loss 5e-6 on both leaves (``test_diff_v3.py:62-82``), the
+one-pass loss rtol 1e-6.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.conftest import synthetic_volume
+from volrt.core.tf import default_transfer_fn as j_default_tf
+from volrt.core.view import Camera as JCamera
+from volrt.diff import render as jrender
+from volrt.renderers.pallas import diff_v3 as jdiff_v3
+from volrt_torch.core.types import View
+from volrt_torch.diff import fused as tfused
+from volrt_torch.diff import render as trender
+from volrt_torch.renderers import diff_v3 as tdiff_v3
+from volrt_torch.renderers import fwd_v3
+from volrt_torch.renderers.cuda import march
+
+CPU = "cpu"
+ATOL_IMG = 2e-4
+ATOL_GRAD = 5e-6
+STEP = 0.12
+
+
+def _pair(dims=(32, 32), persp=False, angles=(30.0, 20.0, 0.0), n=16,
+          tf_base=None, seed=0):
+    """One scene, view and seeded target for both packages:
+    ``(jscene, jview, jtarget), (tscene, tview, ttarget)``."""
+    cam = JCamera(dims=dims, perspective=persp)
+    cam.toggle_perspective(update_mode=True)
+    cam.set_camera_position(angles)
+    jview = cam.view()
+    density = synthetic_volume(n).astype(np.float32) / 255.0
+    tf_base = (np.asarray(j_default_tf()) if tf_base is None
+               else tf_base).astype(np.float32)
+    target = np.random.default_rng(seed).uniform(
+        0, 1, (dims[1], dims[0], 4)).astype(np.float32)
+    jscene = jrender.DiffScene(density=jnp.asarray(density),
+                               tf_base=jnp.asarray(tf_base), ray_step=STEP)
+    tscene = trender.scene_from_arrays(density, tf_base, STEP, device=CPU)
+    tview = View.from_arrays(
+        np.asarray(jview.origin), np.asarray(jview.direction),
+        np.asarray(jview.right_plane), np.asarray(jview.up_plane),
+        np.asarray(jview.light_pos), jview.dims, jview.perspective, CPU)
+    return ((jscene, jview, jnp.asarray(target)),
+            (tscene, tview, torch.from_numpy(target)))
+
+
+def _jax_loss_grads(render, jscene, jview, jtarget, **kw):
+    def loss(s):
+        return jnp.mean((render(s, jview, **kw) - jtarget) ** 2)
+
+    val, g = jax.value_and_grad(loss)(jscene)
+    return float(val), np.asarray(g.density), np.asarray(g.tf_base)
+
+
+def _torch_loss_grads(render, tscene, tview, ttarget, **kw):
+    img = render(tscene, tview, **kw)
+    loss = torch.mean((img - ttarget) ** 2)
+    gd, gt = torch.autograd.grad(loss, [tscene.density, tscene.tf_base])
+    return img.detach().numpy(), loss.item(), gd.numpy(), gt.numpy()
+
+
+def _close(got, want, atol, what):
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0, err_msg=what)
+
+
+ORACLE_CASES = {
+    "unshaded-ert": dict(kd=0.0, thr=0.95),
+    "unshaded-no_ert": dict(kd=0.0, thr=2.0),
+    "diffuse-ert": dict(kd=0.6, thr=0.95),
+    "diffuse-no_ert": dict(kd=0.6, thr=2.0),
+    "diffuse-ert-persp": dict(kd=0.6, thr=0.95, persp=True),
+    "unshaded-ert-nonsquare": dict(kd=0.0, thr=0.95, dims=(40, 24)),
+}
+
+
+@pytest.mark.parametrize("case", list(ORACLE_CASES))
+def test_render_diff_image_matches_jax(case):
+    """(a) The autograd oracle against ``volrt``'s XLA autodiff march:
+    image, loss and both gradients."""
+    c = ORACLE_CASES[case]
+    jside, tside = _pair(dims=c.get("dims", (32, 32)),
+                         persp=c.get("persp", False))
+    kw = dict(ray_threshold=c["thr"], light_kd=c["kd"], shaded=c["kd"] > 0)
+    want_img = np.asarray(jrender.render_diff_image(*jside[:2], **kw))
+    want_loss, want_gd, want_gt = _jax_loss_grads(
+        jrender.render_diff_image, *jside, **kw)
+    img, loss, gd, gt = _torch_loss_grads(trender.render_diff_image, *tside,
+                                          **kw)
+    assert img.shape == want_img.shape and img[..., 3].max() > 0.5
+    _close(img, want_img, ATOL_IMG, "image")
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    _close(gd, want_gd, ATOL_GRAD, "d_density")
+    _close(gt, want_gt, ATOL_GRAD, "d_tf_base")
+    assert np.linalg.norm(gd) > 1e-4 and np.linalg.norm(gt) > 1e-4
+
+
+@pytest.mark.parametrize("persp", [False, True])
+@pytest.mark.parametrize("thr", [0.95, 2.0])
+@pytest.mark.parametrize("kd", [0.0, 0.6])
+def test_march_function_matches_the_ports_oracle(kd, thr, persp):
+    """(b) The analytic backward (``march_bwd_plain`` through
+    ``MarchFunction``) against autograd through the plain torch march. The
+    images are the same ops; the gradients differ by the suffix sums'
+    rounding, 1e-4 of the largest entry at most."""
+    _, tside = _pair(dims=(40, 24), persp=persp)
+    kw = dict(ray_threshold=thr, light_kd=kd, shaded=kd > 0)
+    img, loss, gd, gt = _torch_loss_grads(tdiff_v3.render_image_v3, *tside,
+                                          **kw)
+    w_img, w_loss, w_gd, w_gt = _torch_loss_grads(
+        trender.render_diff_image, *tside, **kw)
+    _close(img, w_img, 1e-6, "image")
+    assert loss == pytest.approx(w_loss, rel=1e-6)
+    _close(gd, w_gd, 1e-4 * np.abs(w_gd).max(), "d_density")
+    _close(gt, w_gt, 1e-4 * np.abs(w_gt).max(), "d_tf_base")
+    # The same route by its other names.
+    img2 = tfused.render_image_fused(*tside[:2], ray_threshold=thr,
+                                     shaded=kd > 0, light_kd=kd)
+    np.testing.assert_array_equal(img2.detach().numpy(), img)
+    img3, ovf = tdiff_v3.render_image_v3_with_ovf(*tside[:2], **kw)
+    np.testing.assert_array_equal(img3.detach().numpy(), img)
+    assert ovf == 0.0
+
+
+def test_march_function_matches_jax_v3_kernels():
+    """(b) The analytic backward against ``volrt``'s own, the v3 Pallas
+    kernels behind ``render_image_v3``, with the diffuse tap and ERT."""
+    jside, tside = _pair()
+    kw = dict(ray_threshold=0.95, light_kd=0.6, shaded=True)
+    want_img = np.asarray(jdiff_v3.render_image_v3(*jside[:2], **kw))
+    want_loss, want_gd, want_gt = _jax_loss_grads(
+        jdiff_v3.render_image_v3, *jside, **kw)
+    img, loss, gd, gt = _torch_loss_grads(tdiff_v3.render_image_v3, *tside,
+                                          **kw)
+    # 2e-3: the shade-tap class (the TPU kernel normalises the light
+    # direction with rsqrt).
+    _close(img, want_img, 2e-3, "image")
+    assert loss == pytest.approx(want_loss, rel=1e-4)
+    _close(gd, want_gd, ATOL_GRAD, "d_density")
+    _close(gt, want_gt, ATOL_GRAD, "d_tf_base")
+
+
+def _onepass(tside, **kw):
+    loss, g = tdiff_v3.l2_loss_grads_v3_onepass(*tside, **kw)
+    return loss.item(), g["density"].numpy(), g["tf_base"].numpy()
+
+
+@pytest.mark.parametrize("shaded", [False, True])
+def test_onepass_matches_jax_onepass(shaded):
+    """(c) ``l2_loss_grads_v3_onepass`` against ``volrt``'s one-kernel L2
+    step and against the port's own two-kernel route."""
+    jside, tside = _pair()
+    kw = dict(ray_threshold=0.95, shaded=shaded, light_kd=0.6)
+    want_loss, want_g = jdiff_v3.l2_loss_grads_v3_onepass(*jside, **kw)
+    loss, gd, gt = _onepass(tside, **kw)
+    # Unshaded the two marches are the same f32 ops: rtol 1e-6. The
+    # diffuse tap's light direction is the shade-tap class.
+    assert loss == pytest.approx(float(want_loss),
+                                 rel=1e-4 if shaded else 1e-6)
+    _close(gd, np.asarray(want_g.density), ATOL_GRAD, "d_density")
+    _close(gt, np.asarray(want_g.tf_base), ATOL_GRAD, "d_tf_base")
+
+    _, two_loss, two_gd, two_gt = _torch_loss_grads(
+        tdiff_v3.render_image_v3, *tside, ray_threshold=0.95,
+        light_kd=0.6 if shaded else 0.0, shaded=shaded)
+    assert loss == pytest.approx(two_loss, rel=1e-6)
+    _close(gd, two_gd, 1e-9, "d_density vs two-kernel")
+    _close(gt, two_gt, 1e-7, "d_tf_base vs two-kernel")
+    assert not tside[0].density.grad and not tside[0].tf_base.grad
+
+
+def test_onepass_skips_a_leaf_that_needs_no_gradient():
+    _, tside = _pair()
+    _, gd, gt = _onepass(tside)
+    _, gd_only, zero_gt = _onepass(tside, need_dtf=False)
+    _, zero_gd, gt_only = _onepass(tside, need_dvol=False)
+    assert not zero_gt.any() and not zero_gd.any()
+    np.testing.assert_array_equal(gd_only, gd)
+    np.testing.assert_array_equal(gt_only, gt)
+    # Under autograd a leaf that does not require grad is skipped too.
+    scene, view, target = tside
+    scene.tf_base.requires_grad_(False)
+    loss = torch.mean((tdiff_v3.render_image_v3(scene, view) - target) ** 2)
+    (g,) = torch.autograd.grad(loss, [scene.density])
+    _close(g.numpy(), gd, 1e-9, "d_density with a frozen TF")
+
+
+def test_opaque_sample_takes_the_references_guard():
+    """(d) A TF whose upper half is fully opaque puts samples with
+    ``1 - c.a`` within 1e-6 of 0 on most rays. With ERT off the march
+    goes on behind them, and the suffix-sum backward would divide by
+    ``1 - c.a``; the reference guards the division
+    (``diff_v3.py:1913-1915``) and the port must give its numbers, finite,
+    not autograd's."""
+    tf_base = np.asarray(j_default_tf()).copy()
+    tf_base[48:, 3] = 1.0
+    jside, tside = _pair(tf_base=tf_base)
+    want_loss, want_g = jdiff_v3.l2_loss_grads_v3_onepass(
+        *jside, ray_threshold=2.0)
+    loss, gd, gt = _onepass(tside, ray_threshold=2.0)
+    assert np.isfinite(gd).all() and np.isfinite(gt).all()
+    assert loss == pytest.approx(float(want_loss), rel=1e-6)
+    _close(gd, np.asarray(want_g.density), ATOL_GRAD, "d_density")
+    _close(gt, np.asarray(want_g.tf_base), ATOL_GRAD, "d_tf_base")
+    # The guard did fire: some sample's colour is opaque to within 1e-6.
+    scene, view, _ = tside
+    args, kw = fwd_v3.ray_args(view, scene.density.detach(),
+                               scene.premult_tf().detach(), STEP, 2.0, 0.0)
+    assert (scene.premult_tf()[:, 3] > 1 - 1e-6).any()
+    out = march.march_fwd(*args, **kw)
+    assert (out[:, 3] > 1 - 1e-6).any()
+
+
+def test_grad_wrappers_on_cpu_take_plain_path_and_check_inputs():
+    _, (scene, view, target) = _pair(dims=(16, 16))
+    with torch.no_grad():
+        args, kw = fwd_v3.ray_args(view, scene.density, scene.premult_tf(),
+                                   STEP, 0.95, 0.6, loss_scale=1e-3)
+        tgt = target.reshape(-1, 4)
+        out, gd, gt = march.l2_step(*args, tgt, **kw)
+        p_out, p_gd, p_gt = march.l2_step_plain(*args, tgt, **kw)
+        g = (out - tgt) * 1e-3
+        b_gd, b_gt = march.march_bwd(*args, out, g, **kw)
+    for a, b in ((out, p_out), (gd, p_gd), (gt, p_gt)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    # The one-launch step is the forward, the cotangent and the backward.
+    torch.testing.assert_close(b_gd, gd, atol=1e-9, rtol=0)
+    torch.testing.assert_close(b_gt, gt, atol=1e-7, rtol=0)
+    assert (march.march_fwd.launches, march.march_bwd.launches,
+            march.l2_step.launches) == (0, 0, 0)
+    with pytest.raises(ValueError):
+        march.l2_step(*args, tgt[:-1], **kw)
+    with pytest.raises(TypeError):
+        march.march_bwd(*args, out, g.double(), **kw)
+    with pytest.raises(ValueError):
+        march.march_bwd(*args, out.t().contiguous().t(), g, **kw)
+    zeros = march.march_bwd(*args, out, g, need_dtf=False, need_dvol=False,
+                            **kw)
+    assert not zeros[0].any() and not zeros[1].any()
+
+
+def test_unported_arguments_raise():
+    """(f) What the differentiable path has not ported yet says so."""
+    _, (scene, view, target) = _pair(dims=(8, 8))
+    o = torch.zeros((1, 3))
+    for kw in (dict(esl=True), dict(phong=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trender.render_diff_image(scene, view, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trender.render_diff(scene, o, o, **kw)
+    for kw in (dict(esl=True), dict(phong=True), dict(fast=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdiff_v3.render_image_v3(scene, view, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdiff_v3.l2_loss_grads_v3_onepass(scene, view, target, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tfused.l2_loss_fused(scene, view, target, **kw)
+    with pytest.raises(NotImplementedError, match="rows 6-9"):
+        tfused.render_image_fused(scene, view, blocked=True)

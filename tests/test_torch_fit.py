@@ -1,0 +1,236 @@
+"""The port's trainer, step benchmark and CLI against ``volrt``.
+
+The same initial scene, view and target (rendered once by ``volrt`` from
+the ground-truth scene) go to ``volrt.train.fit.fit`` and to the port's
+``fit`` on the CPU, through numpy.
+
+Tolerances of the trajectories. Adam divides each gradient by the root of
+its running square, so an entry whose gradient is rounding noise moves by a
+full ``lr`` in whichever direction the noise points, and the two packages
+round differently. The tests therefore start from a scene whose gradients
+are real on both leaves (a constant density under a non-flat TF), take 5
+steps at ``lr = 0.02``, hold the losses to rtol 1e-4 (measured: 5e-6), and
+hold the trained parameters to 1e-3 only on entries whose first gradient
+exceeds 1e-7 in magnitude. Against ``volrt``'s fused route, which stores
+the volume in bf16, the losses are held to 2e-2.
+"""
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from tests.test_torch_diff import CPU, STEP, _pair
+from volrt.diff import render as jrender
+from volrt.train.fit import fit as jfit
+from volrt_torch import cli
+from volrt_torch.bench import harness
+from volrt_torch.diff import render as trender
+from volrt_torch.renderers import diff_v3 as tdiff_v3
+from volrt_torch.train import fit as tfit_mod
+
+LR = 0.02
+STEPS = 5
+GRAD_FLOOR = 1e-7
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """Both packages' view, the target image and the ground truth."""
+    (jscene, jview, _), (_, tview, _) = _pair()
+    target = np.array(jrender.render_diff_image(jscene, jview))
+    return dict(jview=jview, tview=tview, target=target,
+                density=np.asarray(jscene.density),
+                tf_base=np.asarray(jscene.tf_base))
+
+
+def _init(problem, train):
+    """Density fits start from a constant, TF fits from a flattened copy
+    of the true TF (not flat: see the module docstring)."""
+    density = (problem["density"] if train == "tf"
+               else np.full(problem["density"].shape, 0.3, np.float32))
+    tf_base = ((0.5 * problem["tf_base"] + 0.25).astype(np.float32)
+               if train in ("tf", "both") else problem["tf_base"])
+    return density, tf_base
+
+
+def _flags(train):
+    return dict(train_density=train in ("density", "both"),
+                train_tf=train in ("tf", "both"))
+
+
+def _jax_fit(problem, train, **kw):
+    density, tf_base = _init(problem, train)
+    scene = jrender.DiffScene(density=jnp.asarray(density),
+                              tf_base=jnp.asarray(tf_base), ray_step=STEP)
+    scene, losses = jfit(
+        scene, [(problem["jview"], jnp.asarray(problem["target"]))],
+        steps=STEPS, lr=LR, **_flags(train), **kw)
+    return np.asarray(scene.density), np.asarray(scene.tf_base), losses
+
+
+def _torch_fit(problem, train, **kw):
+    density, tf_base = _init(problem, train)
+    scene = trender.scene_from_arrays(density, tf_base, STEP, device=CPU)
+    target = torch.from_numpy(problem["target"])
+    _, first = tdiff_v3.l2_loss_grads_v3_onepass(
+        scene, problem["tview"], target, **kw.get("first_kw", {}))
+    kw.pop("first_kw", None)
+    out, losses = tfit_mod.fit(scene, [(problem["tview"], target)],
+                               steps=STEPS, lr=LR, **_flags(train), **kw)
+    assert out is scene
+    assert scene.density.requires_grad and scene.tf_base.requires_grad
+    return (scene.density.detach().numpy(), scene.tf_base.detach().numpy(),
+            losses, first)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(problem):
+    """``volrt``'s unfused fits, one per ``train`` mode, shared by the
+    port's fused and unfused cases."""
+    return {train: _jax_fit(problem, train)
+            for train in ("density", "tf", "both")}
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["autograd", "fused"])
+@pytest.mark.parametrize("train", ["density", "tf", "both"])
+def test_fit_matches_jax_fit(problem, jax_runs, train, fused):
+    """(e) Five steps of ``fit`` against ``volrt``'s XLA f32 fit."""
+    want_d, want_t, want_losses = jax_runs[train]
+    got_d, got_t, losses, first = _torch_fit(problem, train, fused=fused)
+    assert len(losses) == STEPS and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-4)
+    init_d, init_t = _init(problem, train)
+    for got, want, init, name, trained in (
+            (got_d, want_d, init_d, "density", train != "tf"),
+            (got_t, want_t, init_t, "tf_base", train != "density")):
+        assert got.min() >= 0.0 and got.max() <= 1.0
+        if not trained:
+            # No update; the clamp applies all the same, as in volrt (the
+            # default TF's last blue entry is 129/128).
+            np.testing.assert_array_equal(got, np.clip(init, 0.0, 1.0),
+                                          err_msg=name)
+            np.testing.assert_array_equal(got, want, err_msg=name)
+            continue
+        sure = first[name].abs().numpy() > GRAD_FLOOR
+        assert sure.any() and np.abs(got - init)[sure].min() > 0
+        np.testing.assert_allclose(got[sure], want[sure], atol=1e-3, rtol=0,
+                                   err_msg=name)
+
+
+def test_fused_diffuse_fit_matches_jax_fused_fit(problem):
+    """(e) The one-launch route under the diffuse tap against ``volrt``'s
+    fused route (its kernels, bf16 storage): 2e-2 on the losses."""
+    kw = dict(fused=True, shading="diffuse", light_kd=0.6)
+    _, _, want_losses = _jax_fit(problem, "both", **kw)
+    _, _, losses, _ = _torch_fit(
+        problem, "both", first_kw=dict(shaded=True, light_kd=0.6), **kw)
+    np.testing.assert_allclose(losses, want_losses, rtol=2e-2)
+    assert losses[-1] < losses[0]
+
+
+def test_adam_step_is_optax_adam():
+    """One optimiser, two leaves, three updates on seeded gradients."""
+    rng = np.random.default_rng(21)
+    p0 = [rng.uniform(0.2, 0.8, s).astype(np.float32)
+          for s in ((4, 5, 6), (8, 4))]
+    grads = [[rng.normal(size=p.shape).astype(np.float32) * 1e-3
+              for p in p0] for _ in range(3)]
+    opt = optax.adam(0.05)
+    jp = tuple(jnp.asarray(p) for p in p0)
+    state = opt.init(jp)
+    scene = trender.DiffScene(torch.from_numpy(p0[0]),
+                              torch.from_numpy(p0[1]), 0.1)
+    topt = tfit_mod.make_optimizer(scene, 0.05)
+    for g in grads:
+        upd, state = opt.update(tuple(jnp.asarray(x) for x in g), state)
+        jp = optax.apply_updates(jp, upd)
+        scene.density.grad = torch.from_numpy(g[0])
+        scene.tf_base.grad = torch.from_numpy(g[1])
+        topt.step()
+    np.testing.assert_allclose(scene.density.detach().numpy(),
+                               np.asarray(jp[0]), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(scene.tf_base.detach().numpy(),
+                               np.asarray(jp[1]), atol=1e-5, rtol=0)
+
+
+def test_train_step_and_losses(problem):
+    """``make_train_step`` by hand: the two loss functions agree, a step
+    counts, clamps and leaves a frozen leaf alone."""
+    density, tf_base = _init(problem, "both")
+    scene = trender.scene_from_arrays(density + 0.9, tf_base, STEP,
+                                      device=CPU)
+    view, target = problem["tview"], torch.from_numpy(problem["target"])
+    a = tfit_mod.l2_loss(scene, view, target)
+    b = tfit_mod.l2_loss_fused(scene, view, target)
+    assert a.item() == pytest.approx(b.item(), rel=1e-6)
+    state = tfit_mod.init_state(scene, tfit_mod.make_optimizer(scene, 0.05))
+    step = tfit_mod.make_train_step(tfit_mod.l2_loss_fused,
+                                    train_density=True, train_tf=False)
+    before_tf = scene.tf_base.detach().clone()
+    state, loss = step(state, view, target)
+    assert state.step == 1 and loss.item() == pytest.approx(a.item())
+    assert not loss.requires_grad
+    torch.testing.assert_close(scene.tf_base.detach(), before_tf, atol=0,
+                               rtol=0)
+    # The density came in above 1 (0.3 + 0.9) and is clamped after the step.
+    assert scene.density.max().item() == 1.0
+
+
+def test_fit_refuses_what_is_not_ported(problem):
+    """(f) Arguments of ``volrt``'s fit that wait for a later port."""
+    scene = trender.scene_from_arrays(*_init(problem, "both"), STEP,
+                                      device=CPU)
+    pair = [(problem["tview"], torch.from_numpy(problem["target"]))]
+    for kw in (dict(mesh=object()), dict(volume_sharded=True),
+               dict(grad_chunks=4), dict(esl=True),
+               dict(checkpoint_path="state.npz"), dict(shading="phong")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tfit_mod.fit(scene, pair, steps=1, **kw)
+    with pytest.raises(ValueError):
+        tfit_mod.fit(scene, pair, steps=1, shading="toon")
+    assert tfit_mod.fit(scene, pair, steps=0) == (scene, [])
+
+
+def test_step_bench_needs_a_card():
+    """(f) A time on the CPU is no device metric: the bench refuses."""
+    with pytest.raises(ValueError, match="CUDA"):
+        harness.bench_diff_step(volume_size=8, viewport=16, device=CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        cli.main(["bench", "--synthetic", "8", "-s", "16", "--device", CPU])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fused", "--train", "both"],
+    ["--train", "density"],
+    ["--fused", "--train", "tf", "--shading", "diffuse"],
+], ids=["fused-both", "autograd-density", "fused-tf-diffuse"])
+def test_cli_fit_runs_on_the_cpu(argv, capsys):
+    """(f) ``cli fit --device cpu`` at 8^3 / 16^2 for 2 steps."""
+    assert cli.main(["fit", *argv, "--synthetic", "8", "-s", "16", "16",
+                     "--steps", "2", "--device", CPU]) == 0
+    captured = capsys.readouterr()
+    lines = [ln for ln in captured.out.splitlines()
+             if ln.startswith("fit step")]
+    assert len(lines) == 2
+    losses = [float(ln.split("loss")[1]) for ln in lines]
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
+    assert "final loss" in captured.err and "on cpu" in captured.err
+
+
+def test_cli_fit_and_bench_default_to_the_card():
+    """With no ``--device`` both commands ask for the card, and say so
+    where there is none."""
+    import inspect
+
+    for fn in (harness.bench_diff_step, harness.bench_fwd_step,
+               harness.bench_pose):
+        assert inspect.signature(fn).parameters["device"].default is None
+    if torch.cuda.is_available():
+        return
+    for argv in (["fit", "--synthetic", "8", "-s", "16", "16", "--steps",
+                  "1"], ["bench", "--synthetic", "8", "-s", "16"]):
+        with pytest.raises((AssertionError, RuntimeError),
+                           match="CUDA|cuda"):
+            cli.main(argv)

@@ -25,6 +25,8 @@ from volrt_torch.renderers import get_renderer, renderer_name
 from volrt_torch.renderers import fwd_v3
 from volrt_torch.renderers.cuda import march
 
+# The port's entry points default to the card; the tests ask for the CPU.
+CPU = "cpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ANGLES = [(30.0, 20.0, 0.0), (0.0, 0.0, 0.0)]
 SHADING = {"unshaded": (0.0, 2e-4), "diffuse": (0.6, 2e-3)}
@@ -45,7 +47,8 @@ def _rcs(angles, kd, thr, n=16, view=32, persp=False):
         np.asarray(v.origin), np.asarray(v.direction),
         np.asarray(v.right_plane), np.asarray(v.up_plane),
         np.asarray(v.light_pos), v.dims, v.perspective, jrc.ray_step,
-        float(jrc.ray_threshold), float(jrc.light_kd), jrc.shading)
+        float(jrc.ray_threshold), float(jrc.light_kd), jrc.shading,
+        device=CPU)
     return jrc, trc
 
 
@@ -211,7 +214,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import volrt_torch, volrt_torch.cli, volrt_torch.bench.harness\n"
-        "import volrt_torch.renderers.fwd_v3\n"
+        "import volrt_torch.renderers.fwd_v3, volrt_torch.renderers.diff_v3\n"
+        "import volrt_torch.diff.render, volrt_torch.diff.fused\n"
+        "import volrt_torch.train.fit\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'volrt'))\n"
@@ -238,7 +243,17 @@ def test_kernel_build_is_keyed_by_source_and_fails_loudly(tmp_path,
     assert first == _build.library_path()
     assert first.parent.parent == tmp_path / "build"
     (csrc / "k.cu").write_text("// two\n")
-    assert _build.library_path() != first
+    second = _build.library_path()
+    assert second != first
+    # A header the kernels share is part of the key too.
+    (csrc / "common.cuh").write_text("// one\n")
+    third = _build.library_path()
+    assert third != second
+    (csrc / "common.cuh").write_text("// two\n")
+    fourth = _build.library_path()
+    assert fourth not in (second, third)
+    (csrc / "notes.txt").write_text("not a source\n")
+    assert _build.library_path() == fourth
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     _build.load.cache_clear()

@@ -1,13 +1,16 @@
 """Benchmark helpers of the port (the counterparts of
-``volrt/bench/harness.py:50-59, 636-717``)."""
+``volrt/bench/harness.py:50-59, 472-633, 636-717``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from volrt_torch.core.types import Volume, make_raycaster
+from volrt_torch.core.device import resolve_device
+from volrt_torch.core.tf import default_transfer_fn
+from volrt_torch.core.types import Volume, default_ray_step, make_raycaster
 from volrt_torch.core.view import Camera
-from volrt_torch.renderers import fwd_v3
+from volrt_torch.diff.render import render_diff_image, scene_from_volume
+from volrt_torch.renderers import diff_v3, fwd_v3
 
 
 def synthetic_volume(n: int, seed: int = 0) -> np.ndarray:
@@ -22,7 +25,8 @@ def synthetic_volume(n: int, seed: int = 0) -> np.ndarray:
     return np.clip(shell + blob + noise, 0, 255).astype(np.uint8)
 
 
-def bench_pose(volume_size: int, viewport: int, device: torch.device | str):
+def bench_pose(volume_size: int, viewport: int,
+               device: torch.device | str | None = None):
     """The benchmark's render state: the synthetic volume under the
     orthographic camera zoomed until the cube fills the viewport, ERT off
     (threshold 2.0) and unshaded (kd 0), as ``volrt``'s ``bench_fwd_step``
@@ -52,7 +56,7 @@ def time_cuda(fn, iters: int) -> list[float]:
 
 def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
                    iters: int = 100,
-                   device: torch.device | str = "cuda") -> dict:
+                   device: torch.device | str | None = None) -> dict:
     """Time one rung-5 forward render on the card.
 
     Times ``fwd_v3.render_float`` whole (ray setup, the uint8-to-f32
@@ -64,7 +68,7 @@ def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
     There is no ``mfu``: ``volrt``'s counts one-hot matrix-unit FLOPs of
     the TPU kernel, which this kernel does not do.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("bench_fwd_step times a CUDA device")
     rc = bench_pose(volume_size, viewport, device)
@@ -78,6 +82,86 @@ def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
         "iters": iters,
         "rays_per_s": n_rays / (ms * 1e-3),
         "ray_steps_per_s": n_rays * n_steps / (ms * 1e-3),
+        "device": torch.cuda.get_device_name(device),
+        "precision": "f32",
+    }
+
+
+def diff_bench_scene(volume_size: int, viewport: int,
+                     ray_step: float | None = None,
+                     device: torch.device | str | None = None):
+    """The step benchmark's ``(scene, view, target)``: the synthetic
+    volume as a float scene under the default TF, the orthographic camera
+    zoomed until the cube fills the viewport, and a zero target, all on
+    ``device``, as ``volrt``'s ``bench_diff_step`` sets them up
+    (``harness.py:501-516``)."""
+    device = resolve_device(device)
+    if ray_step is None:
+        ray_step = default_ray_step((volume_size,) * 3)
+    scene = scene_from_volume(synthetic_volume(volume_size),
+                              default_transfer_fn(device), ray_step,
+                              device=device)
+    cam = Camera(dims=(viewport, viewport))
+    cam.zoom(-1.0)  # distance 2.0: the ortho view spans [-1, 1]
+    target = torch.zeros((viewport, viewport, 4), dtype=torch.float32,
+                         device=device)
+    return scene, cam.view(device), target
+
+
+def bench_diff_step(volume_size: int = 256, viewport: int = 1024,
+                    ray_step: float | None = None, iters: int = 20,
+                    fused: bool = True, onepass: bool = False,
+                    device: torch.device | str | None = None) -> dict:
+    """Time one differentiable forward+backward step (loss and gradients
+    of both leaves) on the card: the repo's headline metric, rays*steps/s
+    for forward plus backward.
+
+    ``fused=True, onepass=True`` is the one-launch L2 step
+    (``diff_v3.l2_loss_grads_v3_onepass``); ``fused=True, onepass=False``
+    autograd through the forward and the backward kernel
+    (``diff_v3.render_image_v3``); ``fused=False`` autograd through the
+    plain torch march (``render_diff_image``). The scene is
+    :func:`diff_bench_scene`'s, kept on the card, with ERT off (threshold
+    2.0) so that every ray takes its full march. The whole step is timed
+    with CUDA events, call by call (ray setup, the gradients' zero-fill,
+    the kernels, the loss), over ``iters`` calls after one warm-up call,
+    which also builds the kernels. ``ms`` is the median; the accounting is ``volrt``'s:
+    ``ray_steps_per_s = n_rays * int(2 / ray_step) / t``. There is no
+    ``mfu`` and no ``model_flops``: ``volrt``'s count one-hot matrix-unit
+    FLOPs of the TPU kernels, which these kernels do not do.
+    """
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError("bench_diff_step times a CUDA device")
+    scene, view, target = diff_bench_scene(volume_size, viewport, ray_step,
+                                           device)
+    leaves = [scene.density, scene.tf_base]
+
+    if fused and onepass:
+        def step():
+            return diff_v3.l2_loss_grads_v3_onepass(
+                scene, view, target, ray_threshold=2.0)
+    else:
+        render = diff_v3.render_image_v3 if fused else render_diff_image
+
+        def step():
+            img = render(scene, view, ray_threshold=2.0)
+            loss = torch.mean((img - target) ** 2)
+            return loss, torch.autograd.grad(loss, leaves)
+
+    last = []
+    times = time_cuda(lambda: last.append(step()[0].detach()), iters)
+    ms = float(np.median(times))
+    n_rays = viewport * viewport
+    # In-cube steps per ray (full march).
+    n_steps = int(2.0 / scene.ray_step)
+    return {
+        "ms": ms,
+        "ms_p90": float(np.percentile(times, 90)),
+        "iters": iters,
+        "rays_per_s": n_rays / (ms * 1e-3),
+        "ray_steps_per_s": n_rays * n_steps / (ms * 1e-3),
+        "loss": float(last[-1]),
         "device": torch.cuda.get_device_name(device),
         "precision": "f32",
     }

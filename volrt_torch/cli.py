@@ -1,12 +1,18 @@
-"""Command-line interface of the port: ``render`` and ``info``.
+"""Command-line interface of the port: ``render``, ``fit``, ``bench`` and
+``info``.
 
     python -m volrt_torch.cli render -r 5 --synthetic 256 -s 1024 1024 \\
-        --device cuda -o out.png
+        -o out.png
+    python -m volrt_torch.cli fit --fused --train both --synthetic 256 \\
+        -s 1024 1024 --steps 100
+    python -m volrt_torch.cli bench
     python -m volrt_torch.cli info
 
-The render flags are those of ``volrt``'s (``volrt/cli.py:18-51``) that the
-port supports. Volume files (``-f``) need a jax-free copy of the PVM
-loader and are still to come.
+Everything runs on the card unless ``--device cpu`` is given. The flags are
+those of ``volrt``'s (``volrt/cli.py:18-51, 509-550``) that the port
+supports. Volume files (``-f``) need a jax-free copy of the PVM loader and
+are still to come, as are ``--esl``, ``--dist``, ``--checkpoint`` and
+``--grad-chunks`` of ``fit``.
 """
 from __future__ import annotations
 
@@ -91,6 +97,86 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_fit(args) -> int:
+    """Inverse rendering demo: recover a density volume, a TF or both from
+    four rendered views of the synthetic volume (``volrt/cli.py:305``)."""
+    from volrt_torch.bench.harness import synthetic_volume
+    from volrt_torch.core.tf import default_transfer_fn
+    from volrt_torch.core.types import default_ray_step
+    from volrt_torch.core.view import Camera
+    from volrt_torch.diff.render import (
+        DiffScene, render_diff_image, scene_from_volume)
+    from volrt_torch.train.fit import fit
+
+    device = torch.device(args.device)
+    n = args.synthetic
+    step = args.ray_step or default_ray_step((n, n, n))
+    tf_base = default_transfer_fn(device)
+    # The ground-truth scene renders the targets.
+    gt = scene_from_volume(synthetic_volume(n), tf_base, step, device=device)
+    shading = args.shading
+    t0 = time.perf_counter()
+    targets = []
+    for ax, ay in [(0, 0), (0, 90), (90, 0), (45, 45)]:
+        cam = Camera(dims=tuple(args.size))
+        cam.set_camera_position((ax, ay, 0.0))
+        view = cam.view(device)
+        with torch.no_grad():
+            targets.append((view, render_diff_image(
+                gt, view, light_kd=args.light_kd if shading else 0.0,
+                shaded=shading == "diffuse")))
+    print(f"rendered {len(targets)} target views in "
+          f"{time.perf_counter() - t0:.2f} s", file=sys.stderr)
+
+    # Init per training target: density fits start from a constant (zero
+    # density has a vanishing TF-lerp gradient); TF fits keep the true
+    # density and start from a flat half-intensity LUT.
+    train = args.train
+    density = (gt.density.detach().clone() if train == "tf"
+               else torch.full_like(gt.density, 0.3))
+    init_tf = (torch.full_like(tf_base, 0.5) if train in ("tf", "both")
+               else tf_base)
+    scene = DiffScene(density, init_tf, step)
+    t0 = time.perf_counter()
+    scene, losses = fit(
+        scene, targets, steps=args.steps, lr=args.lr,
+        train_density=train in ("density", "both"),
+        train_tf=train in ("tf", "both"),
+        log_every=max(1, args.steps // 10), fused=args.fused,
+        shading=shading, light_kd=args.light_kd)
+    if losses:
+        print(f"final loss {losses[-1]:.6f} after {len(losses)} steps in "
+              f"{time.perf_counter() - t0:.2f} s on {device}",
+              file=sys.stderr)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """The headline line: the one-launch L2 step and the forward render at
+    256^3 / 1024^2, under the key names of ``volrt``'s root ``bench.py``
+    (no ``mfu`` and no ``vs_baseline``: both are defined against a TPU)."""
+    from volrt_torch.bench.harness import bench_diff_step, bench_fwd_step
+
+    m = bench_diff_step(args.synthetic, args.size, iters=args.iters,
+                        fused=True, onepass=True, device=args.device)
+    f = bench_fwd_step(args.synthetic, args.size, iters=args.iters,
+                       device=args.device)
+    print(json.dumps({
+        "metric": "diff_fwd_bwd_ray_steps_per_s",
+        "value": m["ray_steps_per_s"],
+        "unit": "rays*steps/s",
+        "ms": m["ms"],
+        "ms_p90": m["ms_p90"],
+        "loss": m["loss"],
+        "fwd_ms": f["ms"],
+        "fwd_ray_steps_per_s": f["ray_steps_per_s"],
+        "iters": args.iters,
+        "device": m["device"],
+        "precision": m["precision"],
+    }))
+    return 0
+
+
 def cmd_info(args) -> int:
     """Device report (reference: VolR.cpp:175-193)."""
     cuda = torch.cuda.is_available()
@@ -118,6 +204,41 @@ def main(argv=None) -> int:
     _add_render_args(p)
     p.add_argument("-o", "--output", default="out.png")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("fit", help="inverse-rendering fit demo")
+    p.add_argument("--synthetic", type=int, default=64,
+                   help="synthetic volume size")
+    p.add_argument("-s", "--size", type=int, nargs=2, default=(512, 512),
+                   metavar=("W", "H"), help="viewport size")
+    p.add_argument("--ray-step", type=float, default=None)
+    p.add_argument("--light-kd", type=float, default=0.6)
+    # Fits are unshaded unless --shading is given explicitly.
+    p.add_argument("--shading", choices=("diffuse",), default=None,
+                   help="train under the reference's one-tap diffuse "
+                   "(phong is not ported yet)")
+    p.add_argument("--train", choices=["density", "tf", "both"],
+                   default="density",
+                   help="which scene parameters to optimise (the kernel "
+                   "skips the scatter of a frozen one)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--fused", action="store_true",
+                   help="train through the one-launch L2 step kernel")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (cuda or cpu)")
+    p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser(
+        "bench", help="time the L2 step and the forward render; prints "
+        "one JSON line")
+    p.add_argument("--synthetic", type=int, default=256,
+                   help="synthetic volume size")
+    p.add_argument("-s", "--size", type=int, default=1024,
+                   help="viewport edge")
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--device", default="cuda",
+                   help="a CUDA device; the bench refuses the CPU")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("info", help="device info")
     p.set_defaults(fn=cmd_info)

@@ -57,6 +57,33 @@ def sample_trilinear_f(grid: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return _lerp(c0, c1, fz)
 
 
+def trilinear_taps(shape: tuple[int, int, int], pos: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The eight taps of :func:`sample_trilinear_f` at ``pos (..., 3)`` in
+    a grid of ``shape (D, H, W)``: flat voxel indices ``int64[..., 8]`` and
+    their weights ``f32[..., 8]``. The sample is ``sum(grid.flatten()[idx]
+    * w)``, so a cotangent ``ds`` of the sample scatters as ``ds * w`` to
+    ``idx``: what the backward march does. Taps that clamp to one voxel
+    appear twice, each with its own weight."""
+    d, h, w = shape
+    n = torch.tensor([w, h, d], dtype=torch.float32, device=pos.device)
+    t = (pos + 1.0) * 0.5 * n - 0.5
+    i0 = torch.floor(t)
+    frac = t - i0
+    i0 = i0.to(torch.int64)
+    nmax = torch.tensor([w - 1, h - 1, d - 1], device=pos.device)
+    i1 = torch.minimum(torch.clamp(i0 + 1, min=0), nmax)
+    i0 = torch.minimum(torch.clamp(i0, min=0), nmax)
+    x, y, z = (torch.stack(a, -1) for a in zip(i0.unbind(-1), i1.unbind(-1)))
+    fx, fy, fz = (torch.stack((1 - f, f), -1) for f in frac.unbind(-1))
+    # Tap order: z major, then y, then x, each (low, high).
+    idx = ((z[..., :, None, None] * h + y[..., None, :, None]) * w
+           + x[..., None, None, :])
+    wgt = (fz[..., :, None, None] * fy[..., None, :, None]
+           * fx[..., None, None, :])
+    return idx.flatten(-3), wgt.flatten(-3)
+
+
 def tf_lookup_linear(transfer_fn: torch.Tensor,
                      sample: torch.Tensor) -> torch.Tensor:
     """Linearly interpolated TF lookup for float samples in [0, 1], like

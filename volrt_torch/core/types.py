@@ -25,10 +25,12 @@ from volrt_torch.constants import (
     DEFAULT_WIN_WIDTH,
 )
 from volrt_torch.core import tf as tf_mod
+from volrt_torch.core.device import default_device, resolve_device  # noqa: F401
 
 
 def _vec3(x, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, np.float32).reshape(3), device=device)
+    return torch.tensor(np.asarray(x, np.float32).reshape(3),
+                        device=resolve_device(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,13 +53,15 @@ class Volume:
 
     @classmethod
     def from_numpy(cls, arr: np.ndarray,
-                   device: torch.device | str = "cpu") -> "Volume":
-        """Build from a ``(D, H, W)`` uint8 array on ``device``."""
+                   device: torch.device | str | None = None) -> "Volume":
+        """Build from a ``(D, H, W)`` uint8 array on ``device`` (the card
+        when ``None``)."""
         if arr.ndim != 3:
             raise ValueError(f"expected 3D array, got shape {arr.shape}")
         arr = np.asarray(arr, dtype=np.uint8)
         d, h, w = arr.shape
-        return cls(data=torch.tensor(arr, device=device), dims=(w, h, d))
+        return cls(data=torch.tensor(arr, device=resolve_device(device)),
+                   dims=(w, h, d))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +84,7 @@ class View:
     @classmethod
     def from_arrays(cls, origin, direction, right_plane, up_plane, light_pos,
                     dims, perspective,
-                    device: torch.device | str = "cpu") -> "View":
+                    device: torch.device | str | None = None) -> "View":
         return cls(
             origin=_vec3(origin, device),
             direction=_vec3(direction, device),
@@ -92,7 +96,7 @@ class View:
         )
 
     @classmethod
-    def default(cls, device: torch.device | str = "cpu") -> "View":
+    def default(cls, device: torch.device | str | None = None) -> "View":
         # Reference: ViewBase.cpp:8-15.
         w, h = DEFAULT_WIN_WIDTH, DEFAULT_WIN_HEIGHT
         step_px = np.float32(3.0 / min(w, h))
@@ -191,15 +195,17 @@ def make_raycaster(
 def raycaster_from_arrays(
     volume, premult_tf, origin, direction, right_plane, up_plane, light_pos,
     dims, perspective, ray_step, ray_threshold, light_kd,
-    shading: str = "diffuse", *, device: torch.device | str = "cpu",
+    shading: str = "diffuse", *, device: torch.device | str | None = None,
 ) -> Raycaster:
     """Carry a JAX render state across as numpy arrays.
 
     ``volume`` is the ``uint8[D, H, W]`` grid, ``premult_tf`` the already
     premultiplied ``f32[TF_SIZE, 4]`` LUT, and the view vectors, ``dims``
     ``(W, H)`` and ``perspective`` those of a ``volrt`` ``View``. Returns
-    the port's :class:`Raycaster` on ``device`` with ESL off.
+    the port's :class:`Raycaster` on ``device`` (the card when ``None``)
+    with ESL off.
     """
+    device = resolve_device(device)
     return Raycaster(
         volume=Volume.from_numpy(np.asarray(volume), device),
         view=View.from_arrays(origin, direction, right_plane, up_plane,

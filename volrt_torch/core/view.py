@@ -89,9 +89,9 @@ class Camera:
         self.virtual_view_size = (
             PERSPECTIVE_VIEW_SIZE if self.perspective else self.cam_dist)
 
-    def view(self, device: torch.device | str = "cpu") -> View:
-        """Snapshot the current state as a :class:`View` on ``device``
-        (reference: ViewBase.cpp:49-55 update_view)."""
+    def view(self, device: torch.device | str | None = None) -> View:
+        """Snapshot the current state as a :class:`View` on ``device``, the
+        card when ``None`` (reference: ViewBase.cpp:49-55 update_view)."""
         origin = self.cam_rot @ np.array([0, 0, self.cam_dist], np.float32)
         direction = -origin / np.linalg.norm(origin)
         w, h = self.dims

@@ -1,0 +1,120 @@
+// The whole L2 training step of the rung-5 render in one launch on Hopper:
+// one thread per ray marches forward to its colour, forms its own
+// cotangent of the mean-square loss, and replays the march backward.
+//
+// Replaces volrt/renderers/pallas/diff_v3.py:_fused_kernel in its unshaded
+// and diffuse modes over an f32 volume (phong and ESL are not ported yet).
+// The TPU kernel keeps each tile's sample values in VMEM scratch between
+// its forward and backward passes, to spare their round trip through HBM;
+// here nothing per sample is kept at all: the ray marches twice
+// (march_common.cuh: march_forward, then march_replay, the device
+// function march_bwd.cu launches on its own), and only the image leaves
+// the kernel, from which the caller takes the loss.
+//
+// With scale = 2 / (H*W*4) in scal[6]:
+//   g = (C - tgt) * scale * alive,   G = g . C,
+// the gradient of L = sum((C - tgt)^2) * scale / 2, the image's mean
+// square error (diff_v3.py:2428-2433).
+//
+// What bounds it on the card: as march_bwd.cu, the atomic scatter of dVol
+// and the shared-memory adds of dTF; the forward march and the second
+// gather of the replay are a small share beside them. Against the
+// two-launch route it saves the image's trip through device memory, the
+// separate cotangent kernels and one launch, which is little next to the
+// scatter: the one launch is kept because it is the step the trainer
+// takes, not because it is much faster.
+
+#include "march_common.cuh"
+
+namespace {
+
+using namespace volrt;
+
+template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+__global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
+    MarchArgs a, const float* tgt, float* out, GradArgs gr) {
+  __shared__ float lut[TF_SIZE][4];
+  __shared__ float dtf[NEED_DTF ? TF_SIZE : 1][4];
+  stage_lut(a, lut);
+  if (NEED_DTF) clear_dtf(dtf);
+  __syncthreads();
+
+  const int r = ray_index(a);
+  if (r >= 0) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const bool live = a.alive[r];
+    Ray ray{};
+    Light li{};
+    if (live) {
+      ray = load_ray(a, r);
+      li = load_light(a);
+      march_forward<SHADE, NO_ERT>(a, lut, ray, li, acc);
+    }
+    reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (live && (NEED_DTF || NEED_DVOL)) {
+      // A dead ray seeds no cotangent (diff_v3.py:2428-2432).
+      const float4 t = reinterpret_cast<const float4*>(tgt)[r];
+      const float scale = a.scal[6];
+      const float g4[4] = {mul(sub(acc[0], t.x), scale), mul(sub(acc[1], t.y), scale),
+                           mul(sub(acc[2], t.z), scale), mul(sub(acc[3], t.w), scale)};
+      if (g4[0] != 0.f || g4[1] != 0.f || g4[2] != 0.f || g4[3] != 0.f) {
+        const float G = add(add(add(mul(g4[0], acc[0]), mul(g4[1], acc[1])),
+                                mul(g4[2], acc[2])), mul(g4[3], acc[3]));
+        march_replay<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>(
+            a, lut, dtf, gr.d_vol, ray, li, g4, G);
+      }
+    }
+  }
+  if (NEED_DTF) {
+    __syncthreads();
+    flush_dtf(dtf, gr.d_tf);
+  }
+}
+
+template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+void launch(const MarchArgs& a, const float* tgt, float* out,
+            const GradArgs& gr, cudaStream_t stream) {
+  l2_step_kernel<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>
+      <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, tgt, out, gr);
+}
+
+template <bool SHADE, bool NO_ERT>
+void launch_need(const MarchArgs& a, const float* tgt, float* out,
+                 const GradArgs& gr, bool dtf, bool dvol, cudaStream_t s) {
+  if (dtf) {
+    dvol ? launch<SHADE, NO_ERT, true, true>(a, tgt, out, gr, s)
+         : launch<SHADE, NO_ERT, true, false>(a, tgt, out, gr, s);
+  } else {
+    dvol ? launch<SHADE, NO_ERT, false, true>(a, tgt, out, gr, s)
+         : launch<SHADE, NO_ERT, false, false>(a, tgt, out, gr, s);
+  }
+}
+
+}  // namespace
+
+// Launches the step on `stream` and returns cudaGetLastError(). `tgt` is
+// the target image in raster order; `out` receives the rendered image;
+// `d_vol` and `d_tf` must come in zero-filled and are accumulated into.
+// Shapes, types and contiguity are checked by the Python wrapper.
+extern "C" int volrt_l2_step(
+    const void* o, const void* d, const void* k0, const void* kfar,
+    const void* alive, const void* vol, int w, int h, int depth,
+    const void* tf, const void* scal, const void* tgt, void* out,
+    void* d_vol, void* d_tf, int n, int width, float step, int max_steps,
+    int shade, int no_ert, int need_dtf, int need_dvol, void* stream) {
+  const MarchArgs a = make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
+                                      tf, scal, n, width, step, max_steps);
+  const GradArgs gr{static_cast<float*>(d_vol), static_cast<float*>(d_tf)};
+  const float* ct = static_cast<const float*>(tgt);
+  float* dst = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dtf = need_dtf != 0, dvol = need_dvol != 0;
+  if (shade) {
+    no_ert ? launch_need<true, true>(a, ct, dst, gr, dtf, dvol, s)
+           : launch_need<true, false>(a, ct, dst, gr, dtf, dvol, s);
+  } else {
+    no_ert ? launch_need<false, true>(a, ct, dst, gr, dtf, dvol, s)
+           : launch_need<false, false>(a, ct, dst, gr, dtf, dvol, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

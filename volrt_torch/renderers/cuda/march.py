@@ -1,10 +1,30 @@
-"""The forward march: the CUDA kernel's wrapper and its plain torch version.
+"""The march kernels' wrappers and their plain torch versions.
 
-``march_fwd`` is the port of ``volrt/renderers/pallas/diff_v3.py:_fwd_kernel``
-(unshaded and diffuse modes, f32). On CUDA tensors it launches
-``csrc/march_fwd.cu``; on CPU tensors it runs ``march_fwd_plain``, the
-lockstep torch march built from ``core/sampling`` and
-``renderers/common``, which is also the reference the kernel is held to.
+Three hand-written CUDA kernels, one thread per ray, and what each replaces
+in ``volrt/renderers/pallas/diff_v3.py`` (unshaded and diffuse modes, f32):
+
+- :func:`march_fwd` (``csrc/march_fwd.cu``): ``_fwd_kernel``, the forward
+  march;
+- :func:`march_bwd` (``csrc/march_bwd.cu``): ``_bwd_kernel``, the analytic
+  backward, a replay march that scatters ``d_density`` and
+  ``d_premult_tf``;
+- :func:`l2_step` (``csrc/l2_step.cu``): ``_fused_kernel``, the forward,
+  the mean-square loss's cotangent and the backward in one launch.
+
+:class:`MarchFunction` ties the first two into autograd, as the JAX
+package's ``render_tiles_v3`` custom_vjp does.
+
+On CUDA tensors a wrapper launches its kernel (built at first use) or
+raises; on CPU tensors it runs its plain version (``*_plain``), a lockstep
+torch march built from ``core/sampling`` and ``renderers/common``, which is
+also what the kernel is held to on the card. The plain backward repeats
+the analytic backward step by step with ``index_add_``; it does not use
+autograd, so that autograd through ``diff/render.py`` stays an independent
+check of both.
+
+Gradients are summed with atomics on the card, in an order that changes
+from run to run, so two runs agree to rounding, not to the bit. Images do
+agree to the bit.
 """
 from __future__ import annotations
 
@@ -14,18 +34,34 @@ import math
 import torch
 
 from volrt_torch import _build
-from volrt_torch.constants import TF_SIZE
-from volrt_torch.renderers.common import classify_and_shade, composite
+from volrt_torch.constants import (
+    SHADE_ALPHA_GATE,
+    SHADE_KD_GATE,
+    SHADE_LIGHT_OFFSET,
+    TF_SIZE,
+)
+from volrt_torch.core import sampling
+from volrt_torch.renderers.common import (
+    classify_and_shade,
+    composite,
+    normalize,
+)
 
-# Pixel block edge of the kernel (csrc/march_fwd.cu: TILE).
+# Pixel block edge of the kernels (csrc/march_common.cuh: TILE).
 TILE = 16
-# Rays per lockstep chunk of the plain march: keeps 1024^2 in memory.
+# Rays per lockstep chunk of the plain marches: keeps 1024^2 in memory.
 PLAIN_CHUNK = 1 << 18
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
-             ctypes.c_float, _I, _I, _I, _P]
+_F = ctypes.c_float
+# o, d, k0, kfar, alive, vol, w, h, depth, tf, scal
+_RAY_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+_FWD_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _I, _P]
+# ..., image in, image or cotangent, d_vol, d_tf, n, width, step,
+# max_steps, shade, no_ert, need_dtf, need_dvol, stream
+_GRAD_ARGTYPES = _RAY_ARGTYPES + [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
+                                  _I, _P]
 
 
 def max_steps(ray_step: float) -> int:
@@ -35,7 +71,11 @@ def max_steps(ray_step: float) -> int:
     return int(math.ceil(2.0 * math.sqrt(3.0) / ray_step)) + 2
 
 
-def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width) -> None:
+def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
+           **images) -> None:
+    """Refuse what the kernels do not take. ``images`` are further
+    ``f32[N, 4]`` tensors in raster order (an image, a cotangent, a
+    target), by name."""
     n = o.shape[0] if o.dim() == 2 else -1
     want = {
         "o": (o, torch.float32, (n, 3)),
@@ -47,6 +87,8 @@ def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width) -> None:
         "premult_tf": (premult_tf, torch.float32, (TF_SIZE, 4)),
         "scal": (scal, torch.float32, (8,)),
     }
+    for name, t in images.items():
+        want[name] = (t, torch.float32, (n, 4))
     for name, (t, dtype, shape) in want.items():
         if t.device != o.device:
             raise ValueError(f"{name} is on {t.device}, o on {o.device}")
@@ -63,6 +105,27 @@ def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width) -> None:
         raise ValueError(f"width {width} does not divide the {n} rays")
     if -(-(n // width) // TILE) > 65535:
         raise ValueError(f"{n // width} image rows exceed the launch grid")
+    if o.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the march runs on cpu or cuda, not {o.device}")
+
+
+def _ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal) -> tuple:
+    depth, h, w = density.shape
+    return (o.data_ptr(), d.data_ptr(), k0.data_ptr(), kfar.data_ptr(),
+            alive.data_ptr(), density.data_ptr(), w, h, depth,
+            premult_tf.data_ptr(), scal.data_ptr())
+
+
+def _launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call the library's ``name`` on ``device``'s current stream and raise
+    if the launch was refused."""
+    fn = getattr(_build.load(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
@@ -79,8 +142,9 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
       alive: ``bool[N]``, rays that take any sample.
       density: ``f32[D, H, W]`` volume.
       premult_tf: ``f32[TF_SIZE, 4]`` premultiplied RGBA LUT.
-      scal: ``f32[8]``: ERT threshold, light kd, light position xyz, then
-        three unused slots (the JAX kernel's ``scal`` row).
+      scal: ``f32[8]``: ERT threshold, light kd, light position xyz, one
+        unused slot, the loss scale (read by :func:`l2_step` only), one
+        unused slot (the JAX kernel's ``scal`` row).
       shade: apply the one-tap diffuse.
       no_ert: the threshold is >= 1 and can never be crossed.
 
@@ -92,25 +156,14 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
         return march_fwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width)
-    if o.device.type != "cuda":
-        raise ValueError(f"march_fwd runs on cpu or cuda, not {o.device}")
     n = o.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     if n == 0:
         return out
-    lib = _build.load()
-    fn = lib.volrt_march_fwd
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    depth, h, w = density.shape
-    with torch.cuda.device(o.device):
-        err = fn(o.data_ptr(), d.data_ptr(), k0.data_ptr(), kfar.data_ptr(),
-                 alive.data_ptr(), density.data_ptr(), w, h, depth,
-                 premult_tf.data_ptr(), scal.data_ptr(), out.data_ptr(),
-                 n, width, ray_step, max_steps(ray_step), int(shade),
-                 int(no_ert), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"march_fwd kernel launch failed: CUDA error {err}")
+    _launch("volrt_march_fwd", _FWD_ARGTYPES, o.device,
+            *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
+            out.data_ptr(), n, width, ray_step, max_steps(ray_step),
+            int(shade), int(no_ert))
     march_fwd.launches += 1
     return out
 
@@ -150,3 +203,237 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
                 live &= ~(active & (acc[:, 3] > thr))
         out[sl] = acc
     return out
+
+
+def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
+              ray_step: float, shade: bool, no_ert: bool, width: int,
+              need_dtf: bool = True, need_dvol: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward of :func:`march_fwd`
+    -> ``(d_density f32[D, H, W], d_premult_tf f32[TF_SIZE, 4])``.
+
+    The first eight arguments and the keywords are the forward's; ``out``
+    is the image it returned and ``g`` the cotangent of that image, both
+    ``f32[N, 4]``. A ray that is not alive, or whose cotangent is zero,
+    sends no gradient. ``need_dtf=False`` / ``need_dvol=False`` skip that
+    leaf's scatter and return zeros for it.
+
+    CPU tensors take :func:`march_bwd_plain`. CUDA tensors launch the
+    kernel or raise. Both gradients are zero-filled here and accumulated
+    into with atomics, so two runs on the card differ by rounding.
+    """
+    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
+           out=out, g=g)
+    if o.device.type == "cpu":
+        return march_bwd_plain(
+            o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
+            ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
+            need_dtf=need_dtf, need_dvol=need_dvol)
+    d_density = torch.zeros_like(density)
+    d_tf = torch.zeros_like(premult_tf)
+    n = o.shape[0]
+    if n == 0 or not (need_dtf or need_dvol):
+        return d_density, d_tf
+    _launch("volrt_march_bwd", _GRAD_ARGTYPES, o.device,
+            *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
+            out.data_ptr(), g.data_ptr(), d_density.data_ptr(),
+            d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
+            int(shade), int(no_ert), int(need_dtf), int(need_dvol))
+    march_bwd.launches += 1
+    return d_density, d_tf
+
+
+march_bwd.launches = 0
+
+
+def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
+                    *, ray_step: float, shade: bool, no_ert: bool,
+                    width: int, need_dtf: bool = True,
+                    need_dvol: bool = True
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain torch version of :func:`march_bwd`, same arguments.
+
+    The analytic backward of ``volrt/renderers/pallas/diff_v3.py:
+    1907-1957``, one lockstep step at a time. With ``T_i`` the
+    transmittance entering sample ``i``, ``c_i`` its colour,
+    ``G = g . out`` and ``P`` the running prefix of
+    ``contrib_i = (g . c_i) T_i``::
+
+        dL/dc_i.rgb = g.rgb T_i
+        dL/dc_i.a   = g.a T_i - S_next / (1 - c_i.a),
+        S_next      = G - (P + contrib_i)
+
+    where the division is dropped for an opaque sample
+    (``1 - c_i.a <= 1e-6``), as the reference guards it. ``dL/dc_i``
+    scatters to the two TF rows of the lerp and, through the TF's slope
+    (and the diffuse tap's ``-kd`` / ``+kd``), to the sample's eight
+    voxels (and the light tap's eight).
+    """
+    del width
+    dev = o.device
+    d_density = torch.zeros_like(density)
+    # Every sample of every ray adds to a few of the LUT's 512 entries:
+    # at 1024^2 rays that is 1e8 terms an entry, more than an f32
+    # accumulator can take in without dropping the small ones. The
+    # reference sums them in f64; a voxel's few hundred terms stay f32.
+    d_tf = torch.zeros_like(premult_tf, dtype=torch.float64)
+    flat_dv, flat_dtf = d_density.view(-1), d_tf.view(-1)
+    steps = torch.arange(max_steps(ray_step), dtype=torch.float32,
+                         device=dev) * ray_step
+    thr, kd, light_pos = scal[0], scal[1], scal[2:5]
+    # slope[i] = (tf[i+1] - tf[i]) * TF_SIZE; the clamped lerp is flat
+    # beyond the last row.
+    slope = torch.cat([premult_tf[1:] - premult_tf[:-1],
+                       torch.zeros_like(premult_tf[:1])]) * TF_SIZE
+    chan = torch.arange(4, device=dev)
+    for c0 in range(0, o.shape[0], PLAIN_CHUNK):
+        sl = slice(c0, c0 + PLAIN_CHUNK)
+        oc, dc, kc, kf, gc = o[sl], d[sl], k0[sl], kfar[sl], g[sl]
+        live = alive[sl].clone()
+        big_g = (gc * out[sl]).sum(-1)
+        acc_a = torch.zeros_like(kc)
+        prefix = torch.zeros_like(kc)
+        for step in steps:
+            k = kc + step
+            active = live & (k <= kf)
+            pt = oc + dc * k[:, None]
+            s = sampling.sample_trilinear_f(density, pt)
+            color = classify_and_shade(
+                density, premult_tf, pt,
+                light_pos=light_pos if shade else None, light_kd=kd)
+            m = active.to(torch.float32)
+            t_in = (1.0 - acc_a) * m
+            contrib = (gc * color).sum(-1) * t_in
+            s_next = big_g - (prefix + contrib)
+            prefix = prefix + contrib
+            denom = 1.0 - color[:, 3]
+            t8 = torch.where(denom > 1e-6,
+                             s_next / denom.clamp(min=1e-6), 0.0) * m
+            dcol = gc * t_in[:, None]
+            dcol = torch.cat([dcol[:, :3], (dcol[:, 3] - t8)[:, None]], -1)
+
+            tc = s * TF_SIZE - 0.5
+            i0 = torch.floor(tc)
+            f = tc - i0
+            i0 = i0.to(torch.int64)
+            lo = i0.clamp(0, TF_SIZE - 1)
+            hi = (i0 + 1).clamp(0, TF_SIZE - 1)
+            if need_dtf:
+                flat_dtf.index_add_(
+                    0, (lo[:, None] * 4 + chan).reshape(-1),
+                    (dcol * (1.0 - f)[:, None]).reshape(-1).double())
+                flat_dtf.index_add_(
+                    0, (hi[:, None] * 4 + chan).reshape(-1),
+                    (dcol * f[:, None]).reshape(-1).double())
+            if need_dvol:
+                in_range = ((tc > 0.0) & (tc < TF_SIZE - 1.0)
+                            & (s > 0.0) & (s < 1.0))
+                ds = (slope[lo] * dcol).sum(-1) * in_range
+                if shade:
+                    gate = ((color[:, 3] > SHADE_ALPHA_GATE)
+                            & (kd > SHADE_KD_GATE))
+                    ds2 = torch.where(gate, kd * dcol[:, :3].sum(-1), 0.0)
+                    ds = ds - ds2
+                    light_dir = normalize(light_pos - pt)
+                    idx, wgt = sampling.trilinear_taps(
+                        density.shape, pt + light_dir * SHADE_LIGHT_OFFSET)
+                    flat_dv.index_add_(0, idx.reshape(-1),
+                                       (wgt * ds2[:, None]).reshape(-1))
+                idx, wgt = sampling.trilinear_taps(density.shape, pt)
+                flat_dv.index_add_(0, idx.reshape(-1),
+                                   (wgt * ds[:, None]).reshape(-1))
+
+            acc_a = acc_a + color[:, 3] * t_in
+            if not no_ert:
+                live &= ~(active & (acc_a > thr))
+    return d_density, d_tf.to(torch.float32)
+
+
+def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
+            ray_step: float, shade: bool, no_ert: bool, width: int,
+            need_dtf: bool = True, need_dvol: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole L2 step in one launch
+    -> ``(out f32[N, 4], d_density, d_premult_tf)``.
+
+    Marches forward to the image ``out``, forms the cotangent
+    ``g = (out - tgt) * scal[6] * alive`` of
+    ``L = sum((out - tgt)^2) * scal[6] / 2`` (the image's mean square
+    error when ``scal[6] = 2 / (H*W*4)``), and marches backward as
+    :func:`march_bwd` does. ``tgt`` is the target, ``f32[N, 4]`` in raster
+    order; the other arguments are :func:`march_bwd`'s. The caller takes
+    the loss from ``out``.
+
+    CPU tensors take :func:`l2_step_plain`. CUDA tensors launch the
+    kernel or raise.
+    """
+    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width, tgt=tgt)
+    if o.device.type == "cpu":
+        return l2_step_plain(
+            o, d, k0, kfar, alive, density, premult_tf, scal, tgt,
+            ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
+            need_dtf=need_dtf, need_dvol=need_dvol)
+    n = o.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
+    d_density = torch.zeros_like(density)
+    d_tf = torch.zeros_like(premult_tf)
+    if n == 0:
+        return out, d_density, d_tf
+    _launch("volrt_l2_step", _GRAD_ARGTYPES, o.device,
+            *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
+            tgt.data_ptr(), out.data_ptr(), d_density.data_ptr(),
+            d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
+            int(shade), int(no_ert), int(need_dtf), int(need_dvol))
+    l2_step.launches += 1
+    return out, d_density, d_tf
+
+
+l2_step.launches = 0
+
+
+def l2_step_plain(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
+                  ray_step: float, shade: bool, no_ert: bool, width: int,
+                  need_dtf: bool = True, need_dvol: bool = True
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain torch version of :func:`l2_step`, same arguments: the
+    plain forward, the cotangent, the plain backward."""
+    kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert, width=width)
+    out = march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal,
+                          **kw)
+    g = (out - tgt) * (scal[6] * alive[:, None])
+    d_density, d_tf = march_bwd_plain(
+        o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
+        need_dtf=need_dtf, need_dvol=need_dvol, **kw)
+    return out, d_density, d_tf
+
+
+class MarchFunction(torch.autograd.Function):
+    """:func:`march_fwd` under autograd, with :func:`march_bwd` as its
+    backward (the counterpart of ``render_tiles_v3``'s custom_vjp).
+
+    ``MarchFunction.apply(density, premult_tf, o, d, k0, kfar, alive, scal,
+    ray_step, shade, no_ert, width)`` returns the image ``f32[N, 4]``.
+    Gradients flow to ``density`` and ``premult_tf`` only; a leaf that does
+    not require one skips its scatter (``need_dtf`` / ``need_dvol``).
+    """
+
+    @staticmethod
+    def forward(ctx, density, premult_tf, o, d, k0, kfar, alive, scal,
+                ray_step, shade, no_ert, width):
+        out = march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal,
+                        ray_step=ray_step, shade=shade, no_ert=no_ert,
+                        width=width)
+        ctx.save_for_backward(o, d, k0, kfar, alive, density, premult_tf,
+                              scal, out)
+        ctx.kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert,
+                      width=width)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        need_dvol, need_dtf = ctx.needs_input_grad[:2]
+        d_density, d_tf = march_bwd(
+            *ctx.saved_tensors, g.contiguous(), need_dtf=need_dtf,
+            need_dvol=need_dvol, **ctx.kw)
+        return (d_density if need_dvol else None,
+                d_tf if need_dtf else None) + (None,) * 10

@@ -13,7 +13,7 @@ import torch
 from volrt_torch.constants import SHADE_KD_GATE
 from volrt_torch.core import rays as rays_mod
 from volrt_torch.core import sampling
-from volrt_torch.core.types import Raycaster
+from volrt_torch.core.types import Raycaster, View
 from volrt_torch.renderers.cuda.march import march_fwd
 
 NAME = "pallas-v3"
@@ -48,36 +48,48 @@ def render_float(rc: Raycaster, fast: bool = False
 
 
 def march_args(rc: Raycaster) -> tuple[tuple, dict]:
-    """The ray setup: ``(args, kwargs)`` of :func:`march_fwd` for ``rc``.
+    """The ray setup: ``(args, kwargs)`` of :func:`march_fwd` for ``rc``,
+    with the uint8 volume converted to an f32 density."""
+    density = rc.volume.data.to(torch.float32) / 255.0
+    return ray_args(rc.view, density, rc.transfer_fn, rc.ray_step,
+                    rc.ray_threshold, rc.light_kd)
+
+
+def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
+             ray_step: float, ray_threshold: float, light_kd: float,
+             loss_scale: float = 0.0) -> tuple[tuple, dict]:
+    """``(args, kwargs)`` of the march kernels' wrappers for one view of
+    an f32 ``density`` under a premultiplied TF; both may require grad.
 
     Rays come from ``get_rays`` in raster order and march from ``knear``
     (no ESL leap) to ``kfar``, as ``volrt``'s ``prepare_ray_tiles_raw``
-    sets them up, without its 16x16 tile packing: the kernel's blocks
-    are pixel patches of the raster image already.
+    sets them up, without its 16x16 tile packing: the kernels' blocks
+    are pixel patches of the raster image already. ``loss_scale`` goes to
+    ``scal[6]``, which only the one-launch L2 step reads.
     """
-    view, dev = rc.view, rc.device
+    dev = density.device
     origins, directions = rays_mod.get_rays(view)
     o = origins.reshape(-1, 3).contiguous()
     d = directions.reshape(-1, 3).contiguous()
-    knear, kfar, hit = rays_mod.intersect_aabb(o, d, rc.volume.min_bound)
+    knear, kfar, hit = rays_mod.intersect_aabb(o, d)
     alive = hit & (knear <= kfar)
-    density = rc.volume.data.to(torch.float32) / 255.0
     # Built from fill kernels. A copy from the host (torch.tensor(...,
     # device=), or item assignment) goes through pageable memory, and the
     # host then waits for the queued work, the previous frame's march too.
     f32 = dict(dtype=torch.float32, device=dev)
-    scal = torch.cat([torch.full((1,), rc.ray_threshold, **f32),
-                      torch.full((1,), rc.light_kd, **f32),
+    scal = torch.cat([torch.full((1,), ray_threshold, **f32),
+                      torch.full((1,), light_kd, **f32),
                       view.light_pos.to(torch.float32),
-                      torch.zeros(3, **f32)])
-    args = (o, d, knear, kfar, alive, density, rc.transfer_fn.contiguous(),
-            scal)
+                      torch.zeros(1, **f32),
+                      torch.full((1,), loss_scale, **f32),
+                      torch.zeros(1, **f32)])
+    args = (o, d, knear, kfar, alive, density, premult_tf.contiguous(), scal)
     kw = dict(
-        ray_step=rc.ray_step,
+        ray_step=ray_step,
         # The tap contributes nothing unless kd passes its gate.
-        shade=rc.light_kd > SHADE_KD_GATE,
+        shade=light_kd > SHADE_KD_GATE,
         # Opacity never exceeds 1, so a threshold >= 1 is never crossed.
-        no_ert=rc.ray_threshold >= 1.0,
+        no_ert=ray_threshold >= 1.0,
         width=view.dims[0])
     return args, kw
 
