@@ -38,7 +38,27 @@ Phases, each synchronised with the card, none catching its own failure:
    pass through the views is below the mean over the first. Both fits run
    at ``--lr 0.02``: at the default 0.05 the first steps from a flat TF
    overshoot (at 64^3 the second pass comes out above the first, in the
-   plain torch march as well).
+   plain torch march as well);
+9. hold the ladder's two march kernels against their plain torch versions at
+   32^3 / 64^2: ``march_tri`` in trilinear and in nearest mode (rungs 3 and
+   2) and ``march_blocked`` (rung 4), in phase 3's modes, with the leading
+   ESL leap and without it; then hold rungs 0-5 against rung 0 on one
+   scene per interpolation, with the leap and without it. In nearest mode
+   the leap changes no image and every frame is held to rung 0 without it.
+   In trilinear mode it does, in the JAX package as here: a sample in an
+   empty block lerps with the next block's voxels, which the block's
+   minimum and maximum do not see. There the frames with the leap are
+   held to rung 0 with the leap, and the leap's effect is printed;
+10. drive the ladder at full width, 256^3 / 1024^2 on the benchmark pose:
+    rung 4's and rung 3's ``render_float`` with the launch counters reset
+    before and read after, each kernel held against its plain version and
+    timed, every rung's frame timed by ``bench_fwd_step``; then the frame
+    ``cli render`` renders by default (rung 3, diffuse kd 0.6, ERT 0.95,
+    the ESL leap, the camera at distance 3), timed with the leap and
+    without it and held against rung 1;
+11. run ``cli render`` with no ``-r`` (rung 3), with ``-r 0`` to ``-r 4``,
+    and on ``tests/assets/shell32.pvm`` with rungs 3 and 2; the PNGs must
+    be neither black nor uniform, and rung 3's equal to rung 4's.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -81,10 +101,12 @@ from volrt_torch.core.tf import default_transfer_fn
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.render import render_diff_image, scene_from_volume
-from volrt_torch.renderers import diff_v3, fwd_v3
+from volrt_torch.renderers import (
+    batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
 from volrt_torch.renderers.cuda.march import (
-    l2_step, l2_step_plain, march_bwd, march_bwd_plain, march_fwd,
-    march_fwd_plain, max_steps)
+    l2_step, l2_step_plain, march_blocked, march_blocked_plain, march_bwd,
+    march_bwd_plain, march_fwd, march_fwd_plain, march_tri, march_tri_plain,
+    max_steps)
 
 # Kernel against plain version. The kernel rounds every f32 multiply and add
 # on its own, as torch does, so unshaded the two should agree to the bit;
@@ -119,6 +141,20 @@ PEAK_F32_FLOPS = 67e12
 # and the eight voxels' weights and adds 35.
 FLOPS_FWD = 80
 FLOPS_BWD = 146
+# csrc/march_ladder.cu. Trilinear: the position and the next k 7, the taps
+# 15, the seven lerps 28, the division by 255 1, the TF coordinate and its
+# lerps 20, the composite 9. Nearest: the position and the next k 7, three
+# axes' indices 9, the composite 9.
+FLOPS_TRI = 80
+FLOPS_NEAREST = 25
+# Rungs against each other: the same f32 operations in nearest mode; in
+# trilinear mode rungs 0, 1, 3 and 4 do the same too and are given the 1e-5
+# of a march that contraction could move; rung 5 marches another lattice
+# (k0 + i*step), the repo's v3 tolerance.
+ATOL_NEAREST = 1e-6
+ATOL_RUNG5 = 2e-4
+ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "tests", "assets", "shell32.pvm")
 SMALL_MODES = (  # (label, light_kd, ray_threshold, atol)
     ("unshaded, ERT off", 0.0, 2.0, ATOL_UNSHADED),
     ("unshaded, ERT 0.95", 0.0, 0.95, ATOL_UNSHADED),
@@ -182,7 +218,8 @@ def phase_small(dev: torch.device) -> None:
         cam.set_camera_position((30.0, 20.0, 0.0))
         for label, kd, thr, atol in SMALL_MODES:
             rc = make_raycaster(vol, cam.view(dev), ray_threshold=thr,
-                                light_kd=kd, esl=False)
+                                light_kd=kd, esl=False,
+                                interpolation="trilinear")
             args, kw = fwd_v3.march_args(rc)
             assert kw["shade"] == (kd > 0) and kw["no_ert"] == (thr >= 1)
             before = march_fwd.launches
@@ -272,7 +309,8 @@ def phase_main(dev: torch.device) -> dict:
           f"{bench['iters']} calls, {bench['ray_steps_per_s']:.6g} "
           f"rays*steps/s, {bench['rays_per_s']:.6g} rays/s")
     return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, **bound, "library_ms": None}
+            "plain_ms": plain_ms, **bound, "library_ms": None,
+            "frame": bench}
 
 
 def phase_cli() -> None:
@@ -547,6 +585,221 @@ def phase_trainer() -> None:
     assert line["value"] > 0 and line["fwd_ray_steps_per_s"] > line["value"]
 
 
+def _ladder_call(rc, rung: int):
+    """``(wrapper, plain version, args, kwargs)`` of a kernel rung's march
+    for ``rc``, as the rung's ``render_float`` calls it."""
+    if rung == 4:
+        args, kw = trilinear.ladder_args(rc, rc.volume.data)
+        return march_blocked, march_blocked_plain, args, kw
+    args, kw = trilinear.ladder_args(rc, rc.volume.data.to(torch.float32))
+    kw["nearest"] = rung == 2
+    return march_tri, march_tri_plain, args, kw
+
+
+def _image(out) -> torch.Tensor:
+    return out[0] if isinstance(out, tuple) else out
+
+
+def phase_ladder_small(dev: torch.device) -> None:
+    vol = Volume.from_numpy(synthetic_volume(32), dev)
+    worst = {}
+    for persp in (False, True):
+        cam = Camera(dims=(64, 64), perspective=persp)
+        cam.toggle_perspective(update_mode=True)
+        cam.set_camera_position((30.0, 20.0, 0.0))
+        for label, kd, thr, atol in SMALL_MODES:
+            for esl in (False, True):
+                for rung in (2, 3, 4):
+                    rc = make_raycaster(
+                        vol, cam.view(dev), ray_threshold=thr, light_kd=kd,
+                        esl=esl,
+                        interpolation="nearest" if rung == 2 else "trilinear")
+                    fn, plain, args, kw = _ladder_call(rc, rung)
+                    assert kw["shade"] == (kd > 0)
+                    assert kw["no_ert"] == (thr >= 1)
+                    before = fn.launches
+                    got = fn(*args, **kw)
+                    _sync()
+                    assert fn.launches == before + 1, "kernel did not launch"
+                    want = plain(*args, **kw)
+                    _sync()
+                    err = (got - want).abs().max().item()
+                    assert torch.isfinite(got).all(), "non-finite output"
+                    assert got[:, 3].max().item() > 0.5, "empty render"
+                    assert err <= atol, (
+                        f"rung {rung} {label} persp={persp} esl={esl}: "
+                        f"kernel disagrees with plain: {err}")
+                    key = (fn.__name__, "nearest" if rung == 2 else
+                           "trilinear", label)
+                    worst[key] = max(worst.get(key, 0.0), err)
+    for (name, mode, label), err in worst.items():
+        print(f"[ladder-small] 32^3/64^2 {name} {mode}, {label}: "
+              f"max|kernel-plain| = {err:.3g} over ortho/persp, ESL off/on")
+
+    # Rungs against rung 0, and the leap against no leap.
+    cam = Camera(dims=(64, 64))
+    cam.set_camera_position((30.0, 20.0, 0.0))
+    for interp, rungs in (("nearest", (0, 1, 2)),
+                          ("trilinear", (0, 1, 3, 4, 5))):
+        for kd in (0.0, 0.6):
+            images = {}
+            for esl in (False, True):
+                rc = make_raycaster(vol, cam.view(dev), light_kd=kd, esl=esl,
+                                    interpolation=interp)
+                for rung in rungs:
+                    images[rung, esl] = _image(
+                        get_renderer(rung).render_float(rc))
+            _sync()
+            assert images[0, False][..., 3].max().item() > 0.5
+            leap = (images[0, True] - images[0, False]).abs().max().item()
+            errs = {}
+            for (rung, esl), img in images.items():
+                # Rung 5 marches every sample, whatever rc.esl says.
+                base = images[0, esl and interp == "trilinear" and rung != 5]
+                if kd > 0 and rung >= 2:
+                    atol = ATOL_DIFFUSE
+                elif rung == 5:
+                    atol = ATOL_RUNG5
+                else:
+                    atol = (ATOL_NEAREST if interp == "nearest"
+                            else ATOL_UNSHADED)
+                err = (img - base).abs().max().item()
+                errs[rung, esl] = err
+                assert err <= atol, (
+                    f"{interp} kd {kd}: rung {rung} (esl {esl}) is {err} "
+                    f"from rung 0 (atol {atol:g})")
+            print(f"[ladder-small] {interp}, kd {kd}: max|rung - rung 0| "
+                  + ", ".join(f"r{r}{'+esl' if e else ''} {v:.3g}"
+                              for (r, e), v in errs.items())
+                  + f"; max|leap - no leap| on rung 0 = {leap:.3g}")
+            assert interp == "trilinear" or leap == 0.0
+
+
+def phase_ladder_main(dev: torch.device, fwd_frame: dict) -> dict:
+    """The ladder at 256^3 / 1024^2 -> the two kernels' entries."""
+    rc = bench_pose(256, 1024, dev)
+    march_tri.launches = march_blocked.launches = 0
+    img4, ovf4 = blocked.render_float(rc)
+    img3, ovf3 = trilinear.render_float(rc)
+    _sync()
+    launches = {"march_tri": march_tri.launches,
+                "march_blocked": march_blocked.launches}
+    print(f"[ladder] 256^3/1024^2 rungs 4 and 3 render_float: {launches}, "
+          f"overflow {ovf4} and {ovf3}")
+    assert launches == {"march_tri": 1, "march_blocked": 1}, (
+        "not one march launch per frame")
+    for img in (img3, img4):
+        assert img.shape == (1024, 1024, 4) and torch.isfinite(img).all()
+    covered = (img4[..., 3] > 0).float().mean().item()
+    assert covered > 0.5, f"only {covered:.3f} of the frame is covered"
+    assert torch.equal(img3, img4), "rungs 3 and 4 differ"
+
+    out = {}
+    nrc = bench_pose(256, 1024, dev, "nearest")
+    img2 = get_renderer(2).render_float(nrc)
+    for name, rung, state, image, flops in (
+            ("march_blocked", 4, rc, img4, FLOPS_TRI),
+            ("march_tri", 3, rc, img3, FLOPS_TRI),
+            ("march_tri nearest", 2, nrc, img2, FLOPS_NEAREST)):
+        fn, plain, args, kw = _ladder_call(state, rung)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        want = plain(*args, **kw)
+        end.record()
+        _sync()
+        plain_ms = start.elapsed_time(end)
+        err = (image.reshape(-1, 4) - want).abs().max().item()
+        assert err <= ATOL_UNSHADED, f"{name} disagrees with plain: {err}"
+        times = time_cuda(lambda: fn(*args, **kw), 50)
+        bound = _bound(args, kw, flops, images=1, grads=False)
+        print(f"[ladder] {name}: max|kernel-plain| = {err:.3g} (atol "
+              f"{ATOL_UNSHADED:g}); kernel {_spread(times)}; plain "
+              f"{plain_ms:.2f} ms (one call); bound {bound['bound_ms']:.4f} "
+              f"ms by {bound['bound_by']} for {_n_samples(args, kw)} "
+              f"samples, volume {args[5].numel() * args[5].element_size()} "
+              f"bytes")
+        out[name] = {"launches": launches.get(name, 0), "max_abs_err": err,
+                     "ms": float(np.median(times)), "plain_ms": plain_ms,
+                     **bound, "library_ms": None}
+
+    # Every rung's frame by the one timer, beside rung 5's from phase 4.
+    print(f"[ladder] frames, bench_fwd_step: rung 5 (f32 copy of the volume "
+          f"per frame) median {fwd_frame['ms']:.4f} ms, p90 "
+          f"{fwd_frame['ms_p90']:.4f} ms (phase 4)")
+    for rung in (5, 4, 3, 2):
+        b = bench_fwd_step(256, 1024, iters=100, device=dev, renderer=rung)
+        print(f"[ladder] frames, bench_fwd_step: rung {rung} median "
+              f"{b['ms']:.4f} ms, p90 {b['ms_p90']:.4f} ms over "
+              f"{b['iters']} calls, {b['ray_steps_per_s']:.6g} rays*steps/s")
+
+    # What ``cli render`` renders by default, at full width.
+    vol = rc.volume
+    view = Camera(dims=(1024, 1024)).view(dev)
+    look = make_raycaster(vol, view, interpolation="trilinear")
+    assert look.esl and look.light_kd == 0.6 and look.ray_threshold == 0.95
+    march_tri.launches = 0
+    got, _ = trilinear.render_float(look)
+    _sync()
+    assert march_tri.launches == 1, "not one march launch per frame"
+    t0 = time.perf_counter()
+    want = batched.render_float(look)
+    _sync()
+    rung1_s = time.perf_counter() - t0
+    err = (got - want).abs().max().item()
+    no_leap = trilinear.render_float(look.replace(esl=False))[0]
+    err_esl = (got - no_leap).abs().max().item()
+    print(f"[ladder] cli default frame (rung 3, diffuse 0.6, ERT 0.95, ESL): "
+          f"max|rung 3 - rung 1| = {err:.3g} (atol {ATOL_DIFFUSE:g}), "
+          f"max|leap - no leap| = {err_esl:.3g}, alpha max "
+          f"{got[..., 3].max().item():.4f}; rung 1 took {rung1_s:.2f} s")
+    assert got[..., 3].max().item() > 0.5
+    assert err <= ATOL_DIFFUSE
+    for label, state in (("with the leap", look),
+                         ("without it", look.replace(esl=False))):
+        times = time_cuda(lambda: trilinear.render_float(state), 20)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            trilinear.render_float(state)
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3 / 20
+        args, kw = trilinear.ladder_args(
+            state, state.volume.data.to(torch.float32))
+        march = time_cuda(lambda: march_tri(*args, nearest=False, **kw), 20)
+        print(f"[ladder] cli default frame {label}: render_float "
+              f"{_spread(times)}, wall {wall:.4f} ms a frame; march_tri "
+              f"alone {_spread(march)}")
+    return {"march_tri": out["march_tri"],
+            "march_blocked": out["march_blocked"]}
+
+
+def phase_ladder_cli() -> None:
+    tmp = tempfile.gettempdir()
+    frames = {}
+    runs = {"default": [], **{f"r{r}": ["-r", str(r)] for r in range(5)},
+            "pvm-r3": ["-f", ASSET, "-r", "3"],
+            "pvm-r2": ["-f", ASSET, "-r", "2"],
+            "pvm-r4": ["-f", ASSET, "-r", "4"]}
+    for name, extra in runs.items():
+        out = os.path.join(tmp, f"volrt_torch_smoke_{name}.png")
+        code = cli.main(["render", *extra, "--angles", "30", "20", "0",
+                         "--device", "cuda", "-o", out])
+        _sync()
+        assert code == 0, f"cli render {extra} returned {code}"
+        img = _read_png(out)
+        levels = len(np.unique(img))
+        print(f"[ladder-cli] render {' '.join(extra) or '(no -r)'}: "
+              f"{img.shape}, alpha max {img[..., 3].max()}, {levels} "
+              f"distinct values")
+        assert img.shape == (512, 512, 4)
+        assert img[..., 3].max() > 0, f"black frame: {name}"
+        assert levels > 16, f"uniform frame: {name}"
+        frames[name] = img
+    assert np.array_equal(frames["default"], frames["r3"])
+    assert np.array_equal(frames["r3"], frames["r4"])
+    assert np.array_equal(frames["pvm-r3"], frames["pvm-r4"])
+    assert not np.array_equal(frames["r2"], frames["r3"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -562,6 +815,9 @@ def main() -> int:
     phase_small_grads(dev)
     step = phase_step(dev)
     phase_trainer()
+    phase_ladder_small(dev)
+    ladder = phase_ladder_main(dev, fwd.pop("frame"))
+    phase_ladder_cli()
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -578,6 +834,14 @@ def main() -> int:
         {"name": "l2_step", "route": "cuda",
          "source": "volrt_torch/csrc/l2_step.cu",
          "replaces": f"{pallas}:2397", **step["l2_step"]},
+        {"name": "march_tri", "route": "cuda",
+         "source": "volrt_torch/csrc/march_ladder.cu",
+         "replaces": "volrt/renderers/pallas/trilinear.py:56",
+         **ladder["march_tri"]},
+        {"name": "march_blocked", "route": "cuda",
+         "source": "volrt_torch/csrc/march_ladder.cu",
+         "replaces": "volrt/renderers/pallas/blocked.py:57",
+         **ladder["march_blocked"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

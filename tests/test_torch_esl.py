@@ -1,0 +1,181 @@
+"""The port's empty-space leaping (``volrt_torch.core.esl`` and the leap
+loops of rungs 0-1) against ``volrt``'s, on volumes made from a numpy seed.
+
+Grids are integers and booleans and must agree exactly. Leap distances and
+starts are a few f32 operations on the same inputs: 1e-6.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from volrt.core import esl as jesl
+from volrt.core import tf as jtf
+from volrt.core.types import Volume as JVolume
+from volrt.core.types import default_esl_block_dims as j_block_dims
+from volrt.core.types import make_raycaster as j_make_raycaster
+from volrt.core import rays as jrays
+from volrt.renderers import batched as j_batched
+from volrt_torch.core import esl as tesl
+from volrt_torch.core import tf as ttf
+from volrt_torch.core import types as ttypes
+from volrt_torch.core import rays as trays
+from volrt_torch.renderers import batched, golden
+
+CPU = "cpu"
+# (D, H, W): a cube, a size that is no multiple of the block (8), a flat one.
+SHAPES = [(32, 32, 32), (20, 13, 27), (9, 40, 33)]
+
+
+def _volume(shape, seed=0):
+    """Mostly empty: a few dense boxes in the low half of a field of low
+    values, so that the grid has empty and non-empty blocks."""
+    rng = np.random.default_rng(seed)
+    vol = rng.integers(0, 12, size=shape, dtype=np.uint8)
+    for _ in range(3):
+        lo = [rng.integers(0, max(1, n // 2 - 1)) for n in shape]
+        hi = [min(n, l + rng.integers(2, 9)) for n, l in zip(shape, lo)]
+        vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = rng.integers(
+            60, 255, size=[h - l for h, l in zip(hi, lo)], dtype=np.uint8)
+    return vol
+
+
+def _tf(seed=0):
+    """A premultiplied TF whose alpha is zero in two ranges."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0, 1, (128, 4)).astype(np.float32)
+    base[:20, 3] = 0.0
+    base[90:100, 3] = 0.0
+    return np.asarray(jtf.premultiply(jnp.asarray(base)))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_grids_match_volrt(shape):
+    vol, tf = _volume(shape), _tf()
+    jvol = JVolume.from_numpy(vol)
+    block = j_block_dims(jvol.dims)
+    assert ttypes.default_esl_block_dims(jvol.dims) == block
+    assert ttypes.default_esl_block_dims((300, 20, 20)) == j_block_dims(
+        (300, 20, 20)) == 10
+    want_mm = np.asarray(jesl.build_min_max_grid(jvol, block))
+    got_mm = tesl.build_min_max_grid(torch.tensor(vol), block)
+    assert got_mm.dtype == torch.uint8
+    np.testing.assert_array_equal(got_mm.numpy(), want_mm)
+    # Blocks outside the volume keep (255, 0) and read as empty.
+    assert tuple(got_mm[-1, -1, -1].tolist()) == (255, 0)
+
+    np.testing.assert_array_equal(
+        ttf.first_opaque_index(torch.tensor(tf)).numpy(),
+        np.asarray(jtf.first_opaque_index(jnp.asarray(tf))))
+    want_e = np.asarray(jesl.derive_empty_grid(jnp.asarray(want_mm),
+                                               jnp.asarray(tf)))
+    got_e = tesl.derive_empty_grid(got_mm, torch.tensor(tf))
+    assert got_e.dtype == torch.bool and got_e.shape == (32, 32, 32)
+    np.testing.assert_array_equal(got_e.numpy(), want_e)
+    d, h, w = (-(-n // block) for n in shape)
+    inside = got_e[:d, :h, :w]
+    assert inside.any() and not inside.all() and got_e[d:].all()
+
+    words = tesl.pack_bitmask(got_e)
+    np.testing.assert_array_equal(
+        words.numpy(), np.asarray(jesl.pack_bitmask(jnp.asarray(want_e))))
+    assert torch.equal(tesl.unpack_bitmask(words), got_e)
+
+    np.testing.assert_array_equal(
+        tesl.empty_distance_grid(got_e).numpy(),
+        np.asarray(jesl.empty_distance_grid(jnp.asarray(want_e))))
+
+
+def test_a_fully_transparent_tf_empties_every_block():
+    vol = _volume((16, 16, 16))
+    tf = np.zeros((128, 4), np.float32)
+    assert ttf.first_opaque_index(torch.tensor(tf)).tolist() == [128] * 128
+    empty = tesl.derive_empty_grid(
+        tesl.build_min_max_grid(torch.tensor(vol), 8), torch.tensor(tf))
+    assert empty.all()
+    assert (tesl.empty_distance_grid(empty) == 32).all()
+    with pytest.raises(ValueError, match="ESL grid"):
+        tesl.build_min_max_grid(torch.zeros((4, 4, 40), dtype=torch.uint8), 1)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sample_empty_and_leap_distance_match_volrt(shape):
+    vol, tf = _volume(shape, seed=1), _tf(1)
+    jrc = j_make_raycaster(JVolume.from_numpy(vol),
+                           base_transfer_fn=jnp.asarray(_base(tf)))
+    rng = np.random.default_rng(2)
+    pos = rng.uniform(-1.05, 1.05, (4000, 3)).astype(np.float32)
+    dirs = rng.normal(size=(4000, 3)).astype(np.float32)
+    dirs[::7, 0] = 0.0          # the reference's zero-direction guard
+    dirs[::11, 2] = 0.0
+    dims, block = jrc.volume.dims, jrc.esl_block_dims
+    empty = np.asarray(jrc.esl_empty)
+    np.testing.assert_array_equal(
+        tesl.sample_empty(torch.tensor(empty), torch.tensor(pos), dims,
+                          block).numpy(),
+        np.asarray(jesl.sample_empty(jrc.esl_empty, jnp.asarray(pos), dims,
+                                     block)))
+    want = np.asarray(jesl.leap_distance(
+        jnp.asarray(pos), jnp.asarray(dirs), dims, block, jrc.esl_block_size,
+        jrc.ray_step))
+    got = tesl.leap_distance(torch.tensor(pos), torch.tensor(dirs), dims,
+                             block, jrc.esl_block_size, jrc.ray_step)
+    # A leap is a whole number of steps; a quotient on an integer's edge
+    # may floor either way, one step apart, in a handful of the 4000.
+    diff = np.abs(got.numpy() - want)
+    assert (diff <= 1e-6).mean() > 0.995
+    assert (diff <= jrc.ray_step * 1.0001).all()
+
+
+def _base(premult):
+    """A base TF whose premultiplied form has ``premult``'s alpha."""
+    base = np.ones((128, 4), np.float32)
+    base[:, 3] = premult[:, 3]
+    return base
+
+
+@pytest.mark.parametrize("persp", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_esl_start_matches_volrt(shape, persp):
+    from tests.test_torch_ladder import _view
+
+    vol, tf = _volume(shape, seed=3), _tf(3)
+    jrc = j_make_raycaster(JVolume.from_numpy(vol), view=_view(24, persp),
+                           base_transfer_fn=jnp.asarray(_base(tf)))
+    v = jrc.view
+    trc = ttypes.raycaster_from_arrays(
+        vol, np.asarray(jrc.transfer_fn), np.asarray(v.origin),
+        np.asarray(v.direction), np.asarray(v.right_plane),
+        np.asarray(v.up_plane), np.asarray(v.light_pos), v.dims,
+        v.perspective, jrc.ray_step, 0.95, 0.6, interpolation="nearest",
+        esl=True, device=CPU)
+    # Derived here, not carried: the same grid and block size.
+    np.testing.assert_array_equal(trc.esl_empty.numpy(),
+                                  np.asarray(jrc.esl_empty))
+    assert trc.esl_block_dims == jrc.esl_block_dims
+    assert trc.esl_block_size == jrc.esl_block_size
+
+    o, d = (a.reshape(-1, 3) for a in jrays.get_rays(jrc.view))
+    knear, kfar, hit = jrays.intersect_aabb(o, d)
+    want = np.asarray(j_batched.esl_start(jrc, o, d, knear, kfar, hit))
+    to, td, tknear, tkfar, thit = batched.ray_bundle(trc)
+    np.testing.assert_array_equal(thit.numpy(), np.asarray(hit))
+    got = batched.esl_start(trc, to, td, tknear, tkfar, thit)
+    live = np.asarray(hit)
+    assert live.any() and (want[live] > np.asarray(knear)[live]).any()
+    np.testing.assert_allclose(got.numpy()[live], want[live], atol=1e-6,
+                               rtol=0)
+
+    # Rung 0 leaps one block per pass: never further than the distance
+    # field allows past the first non-empty block, and on the same lattice.
+    g0 = golden.esl_start(trc, to, td, tknear, tkfar, thit).numpy()
+    steps = (g0 - tknear.numpy())[live] / trc.ray_step
+    assert np.abs(steps - np.round(steps)).max() < 1e-2
+    assert (g0[live] >= tknear.numpy()[live]).all()
+    # Both stop in a non-empty block or beyond the exit.
+    for k in (got, torch.tensor(g0)):
+        pt = to + td * k[:, None]
+        inside = (k <= tkfar) & thit
+        assert not tesl.sample_empty(trc.esl_empty, pt, trc.volume.dims,
+                                     trc.esl_block_dims)[inside].any()

@@ -163,9 +163,9 @@ def test_march_fwd_rejects_what_the_kernel_does_not_take():
 
 def test_renderer_ladder_and_unported_modes():
     assert get_renderer(5) is fwd_v3 and renderer_name(5) == "pallas-v3"
-    for rid in range(5):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_renderer(rid)
+    assert [renderer_name(rid) for rid in range(5)] == [
+        "jax-golden", "xla-batched", "pallas-nn", "pallas-trilinear",
+        "pallas-blocked"]
     with pytest.raises(ValueError):
         get_renderer(6)
     _, trc = _rcs((0.0, 0.0, 0.0), 0.6, 0.95, view=8)
@@ -193,8 +193,8 @@ def test_cli_render_writes_the_frame(tmp_path):
     from volrt_torch.viz import write_png as t_write_png
 
     out = str(tmp_path / "frame.png")
-    assert cli.main(["render", "--synthetic", "16", "-s", "24", "20",
-                     "--angles", "30", "20", "0", "--device", "cpu",
+    assert cli.main(["render", "-r", "5", "--synthetic", "16", "-s", "24",
+                     "20", "--angles", "30", "20", "0", "--device", "cpu",
                      "-o", out]) == 0
     img = read_png(out)
     assert img.shape == (20, 24, 4)
@@ -216,7 +216,10 @@ def test_port_imports_no_jax():
         "import volrt_torch, volrt_torch.cli, volrt_torch.bench.harness\n"
         "import volrt_torch.renderers.fwd_v3, volrt_torch.renderers.diff_v3\n"
         "import volrt_torch.diff.render, volrt_torch.diff.fused\n"
-        "import volrt_torch.train.fit\n"
+        "import volrt_torch.train.fit, volrt_torch.io.pvm\n"
+        "import volrt_torch.core.esl, volrt_torch.bench.trace_step\n"
+        "from volrt_torch.renderers import get_renderer\n"
+        "mods = [get_renderer(i) for i in range(6)]\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'volrt'))\n"

@@ -2,14 +2,17 @@
 
 A second package beside ``volrt``, which stays as the JAX reference. It
 imports ``torch`` and never ``jax``; the few framework-neutral pieces of
-``volrt`` it needs (constants, the PNG writer, the synthetic volume) are
-copied, because importing anything under ``volrt`` loads jax.
+``volrt`` it needs (constants, the PNG writer, the synthetic volume, the
+PVM loader) are copied, because importing anything under ``volrt`` loads
+jax.
 
-Ported so far: rung 5's forward render (``renderers.fwd_v3``) and the
+Ported so far: the renderer ladder (``renderers.get_renderer(0..5)``) with
+the leading empty-space leap and the PVM loader (``io.pvm``), and the
 training path (``diff.render``, ``renderers.diff_v3``, ``diff.fused``,
-``train.fit``) through three hand-written CUDA kernels: the forward march
-``csrc/march_fwd.cu``, its backward ``csrc/march_bwd.cu`` and the
-one-launch L2 step ``csrc/l2_step.cu``. Entry points run on the card
+``train.fit``), through five hand-written CUDA kernels: the forward marches
+``csrc/march_fwd.cu`` (rung 5) and ``csrc/march_ladder.cu`` (rungs 2-4),
+the backward ``csrc/march_bwd.cu`` and the one-launch L2 step
+``csrc/l2_step.cu``. Entry points run on the card
 (:func:`default_device`) unless the caller passes ``device="cpu"``.
 """
 

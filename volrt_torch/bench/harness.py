@@ -10,7 +10,7 @@ from volrt_torch.core.tf import default_transfer_fn
 from volrt_torch.core.types import Volume, default_ray_step, make_raycaster
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.render import render_diff_image, scene_from_volume
-from volrt_torch.renderers import diff_v3, fwd_v3
+from volrt_torch.renderers import diff_v3, get_renderer
 
 
 def synthetic_volume(n: int, seed: int = 0) -> np.ndarray:
@@ -26,16 +26,18 @@ def synthetic_volume(n: int, seed: int = 0) -> np.ndarray:
 
 
 def bench_pose(volume_size: int, viewport: int,
-               device: torch.device | str | None = None):
+               device: torch.device | str | None = None,
+               interpolation: str = "trilinear"):
     """The benchmark's render state: the synthetic volume under the
     orthographic camera zoomed until the cube fills the viewport, ERT off
-    (threshold 2.0) and unshaded (kd 0), as ``volrt``'s ``bench_fwd_step``
-    sets it up (``harness.py:661-694``)."""
+    (threshold 2.0), unshaded (kd 0) and without ESL, as ``volrt``'s
+    ``bench_fwd_step`` sets it up (``harness.py:661-694``)."""
     vol = Volume.from_numpy(synthetic_volume(volume_size), device)
     cam = Camera(dims=(viewport, viewport))
     cam.zoom(-1.0)
     return make_raycaster(vol, cam.view(device), ray_threshold=2.0,
-                          esl=False, light_kd=0.0)
+                          esl=False, light_kd=0.0,
+                          interpolation=interpolation)
 
 
 def time_cuda(fn, iters: int) -> list[float]:
@@ -56,11 +58,15 @@ def time_cuda(fn, iters: int) -> list[float]:
 
 def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
                    iters: int = 100,
-                   device: torch.device | str | None = None) -> dict:
-    """Time one rung-5 forward render on the card.
+                   device: torch.device | str | None = None,
+                   renderer: int = 5) -> dict:
+    """Time one forward render on the card, of rung 5 or, with
+    ``renderer``, of another rung of the ladder on the same pose (rung 2 in
+    nearest mode, the others trilinear).
 
-    Times ``fwd_v3.render_float`` whole (ray setup, the uint8-to-f32
-    volume conversion and the march) with CUDA events, call by call, over
+    Times the rung's ``render_float`` whole (ray setup, the volume's
+    conversion to what the kernel reads, and the march) with CUDA events,
+    call by call, over
     ``iters`` calls after one warm-up call, which also builds the kernel.
     ``ms`` is the median, ``ms_p90`` the 90th percentile (meaningful from
     100 calls on). The accounting is ``volrt``'s:
@@ -71,8 +77,10 @@ def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("bench_fwd_step times a CUDA device")
-    rc = bench_pose(volume_size, viewport, device)
-    times = time_cuda(lambda: fwd_v3.render_float(rc), iters)
+    rc = bench_pose(volume_size, viewport, device,
+                    "nearest" if renderer == 2 else "trilinear")
+    render_float = get_renderer(renderer).render_float
+    times = time_cuda(lambda: render_float(rc), iters)
     ms = float(np.median(times))
     n_rays = viewport * viewport
     n_steps = int(2.0 / rc.ray_step)

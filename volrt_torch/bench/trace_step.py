@@ -3,9 +3,16 @@ few steps, summed by kernel name.
 
     python -m volrt_torch.bench.trace_step --route onepass --steps 10
 
+    python -m volrt_torch.bench.trace_step --route ladder --renderer 4
+    python -m volrt_torch.bench.trace_step --route ladder --renderer 3 --cli-look
+
 Routes: ``onepass`` (the one-launch L2 step), ``twokernel`` (forward and
-backward kernels under autograd), ``fwd`` (``fwd_v3.render_float``), each on
-the benchmark's scene (``bench/harness.py``). Prints one JSON object: the
+backward kernels under autograd), ``fwd`` (``fwd_v3.render_float``) and
+``ladder`` (``render_float`` of rung ``--renderer``), each on the
+benchmark's scene (``bench/harness.py``); ``--cli-look`` gives the ladder
+route the frame ``cli render`` renders by default instead (the camera at
+distance 3, diffuse kd 0.6, ERT 0.95, the leading ESL leap). Prints one
+JSON object: the
 card's name and power limit, device time per step by kernel name, the
 window's wall time and the card's idle share in it (one minus device time
 over wall time, the host synchronising only at the window's end).
@@ -21,15 +28,27 @@ import time
 import torch
 
 from volrt_torch.bench import harness
-from volrt_torch.renderers import diff_v3, fwd_v3
+from volrt_torch.core.types import Volume, make_raycaster
+from volrt_torch.core.view import Camera
+from volrt_torch.renderers import diff_v3, get_renderer
 
 
 def make_step(route: str, volume_size: int, viewport: int,
-              device: torch.device):
+              device: torch.device, renderer: int = 5,
+              cli_look: bool = False):
     """The benchmark's step for ``route`` as a no-argument callable."""
-    if route == "fwd":
-        rc = harness.bench_pose(volume_size, viewport, device)
-        return lambda: fwd_v3.render_float(rc)
+    if route in ("fwd", "ladder"):
+        interp = "nearest" if renderer == 2 else "trilinear"
+        if cli_look:
+            rc = make_raycaster(
+                Volume.from_numpy(harness.synthetic_volume(volume_size),
+                                  device),
+                Camera(dims=(viewport, viewport)).view(device),
+                interpolation=interp)
+        else:
+            rc = harness.bench_pose(volume_size, viewport, device, interp)
+        render_float = get_renderer(renderer).render_float
+        return lambda: render_float(rc)
     scene, view, target = harness.diff_bench_scene(volume_size, viewport,
                                                    device=device)
     if route == "onepass":
@@ -87,8 +106,14 @@ def trace(step, steps: int) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--route", choices=("onepass", "twokernel", "fwd"),
+    p.add_argument("--route",
+                   choices=("onepass", "twokernel", "fwd", "ladder"),
                    default="onepass")
+    p.add_argument("--renderer", type=int, default=4,
+                   help="the ladder route's rung (the fwd route is rung 5)")
+    p.add_argument("--cli-look", action="store_true",
+                   help="the ladder route renders cli render's default "
+                   "frame instead of the benchmark pose")
     p.add_argument("--synthetic", type=int, default=256)
     p.add_argument("-s", "--size", type=int, default=1024)
     p.add_argument("--steps", type=int, default=10)
@@ -98,10 +123,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
+    renderer = args.renderer if args.route == "ladder" else 5
     out = {"card": smi.stdout.strip().splitlines()[0], "route": args.route,
            "volume": args.synthetic, "viewport": args.size}
-    out.update(trace(make_step(args.route, args.synthetic, args.size, device),
-                     args.steps))
+    if args.route == "ladder":
+        out.update(renderer=renderer, cli_look=args.cli_look)
+    out.update(trace(make_step(args.route, args.synthetic, args.size, device,
+                               renderer, args.cli_look), args.steps))
     print(json.dumps(out))
     return 0
 

@@ -1,5 +1,5 @@
 """Transfer functions: the default ramp, premultiplication and loading
-(the counterparts of ``volrt/core/tf.py:16-36, 88``).
+(the counterparts of ``volrt/core/tf.py:16-49, 88``).
 
 A transfer function is an ``f32[TF_SIZE, 4]`` RGBA LUT.
 """
@@ -35,6 +35,16 @@ def premultiply(base_tf: torch.Tensor) -> torch.Tensor:
     """Premultiply RGB by alpha (reference: RaycasterBase.cpp:46-52)."""
     rgb = base_tf[:, :3] * base_tf[:, 3:4]
     return torch.cat([rgb, base_tf[:, 3:4]], dim=-1)
+
+
+def first_opaque_index(premult_tf: torch.Tensor) -> torch.Tensor:
+    """For each LUT index x, the first index ``y >= x`` with nonzero
+    opacity, ``TF_SIZE`` where the rest of the LUT is transparent: a
+    reverse cumulative minimum over indices, ``int64[TF_SIZE]``
+    (reference: RaycasterBase.cpp:53-61, the ``esl_temp_tf`` table)."""
+    idx = torch.arange(TF_SIZE, device=premult_tf.device)
+    cand = torch.where(premult_tf[:, 3] != 0.0, idx, TF_SIZE)
+    return torch.cummin(cand.flip(0), 0).values.flip(0)
 
 
 def load_tf(path: str,

@@ -23,7 +23,10 @@ from volrt_torch.constants import (
     DEFAULT_RAY_THRESHOLD,
     DEFAULT_WIN_HEIGHT,
     DEFAULT_WIN_WIDTH,
+    ESL_MIN_BLOCK_SIZE,
+    ESL_VOLUME_DIMS,
 )
+from volrt_torch.core import esl as esl_mod
 from volrt_torch.core import tf as tf_mod
 from volrt_torch.core.device import default_device, resolve_device  # noqa: F401
 
@@ -128,8 +131,16 @@ class Raycaster:
       ray_threshold: ERT opacity threshold; ``>= 1`` turns ERT off
         (reference: RaycasterBase.h:25).
       light_kd: diffuse light intensity.
-      esl: empty-space leaping requested. The port has no ESL grid yet and
-        marches every sample, which gives the same image.
+      esl: empty-space leaping. Rungs 0-4 leap over the leading empty
+        blocks of each ray; rung 5 marches every sample, which gives the
+        same image.
+      esl_empty: ``bool[32, 32, 32]`` per-block emptiness, ``[z, y, x]``,
+        on the volume's device.
+      esl_block_dims: voxels per ESL block edge
+        (reference: RaycasterBase.cpp:97-99).
+      interpolation: ``"nearest"`` (renderers 0-2: uint8 sample, bucketed
+        TF) or ``"trilinear"`` (renderers 0-1 and 3-5: trilinear sample in
+        [0, 1], linearly interpolated TF).
       shading: ``"diffuse"`` (the reference's one-tap diffuse, a no-op when
         ``light_kd <= SHADE_KD_GATE``) or ``"phong"`` (not ported yet).
     """
@@ -140,15 +151,36 @@ class Raycaster:
     ray_step: float
     ray_threshold: float
     light_kd: float
+    esl_empty: torch.Tensor
+    esl_block_dims: int
     esl: bool = False
+    interpolation: str = "trilinear"
     shading: str = "diffuse"
 
     @property
     def device(self) -> torch.device:
         return self.volume.data.device
 
+    @property
+    def esl_block_size(self) -> tuple[float, float, float]:
+        # Reference: RaycasterBase.cpp:118-122.
+        w, h, d = self.volume.dims
+        b = float(self.esl_block_dims)
+        return (2.0 * b / w, 2.0 * b / h, 2.0 * b / d)
+
     def replace(self, **kw: Any) -> "Raycaster":
         return dataclasses.replace(self, **kw)
+
+
+def default_esl_block_dims(dims: tuple[int, int, int]) -> int:
+    """Voxels per ESL block edge (reference: RaycasterBase.cpp:97-99)."""
+    return max(ESL_MIN_BLOCK_SIZE, -(-max(dims) // ESL_VOLUME_DIMS))
+
+
+def _check_interpolation(interpolation: str) -> str:
+    if interpolation not in ("nearest", "trilinear"):
+        raise ValueError(f"unknown interpolation: {interpolation}")
+    return interpolation
 
 
 def default_ray_step(dims: tuple[int, int, int]) -> float:
@@ -167,10 +199,12 @@ def make_raycaster(
     ray_threshold: float = DEFAULT_RAY_THRESHOLD,
     esl: bool = True,
     light_kd: float = DEFAULT_LIGHT_KD,
+    interpolation: str = "nearest",
     shading: str = "diffuse",
 ) -> Raycaster:
     """Assemble a render state on the volume's device, premultiplying the
-    base TF like the reference's ``reset_transfer_fn``
+    base TF and deriving the ESL grid from volume and TF like the
+    reference's ``set_volume`` and ``reset_transfer_fn``
     (reference: RaycasterBase.cpp:76-125)."""
     device = volume.data.device
     view = View.default(device) if view is None else view.to(device)
@@ -180,14 +214,20 @@ def make_raycaster(
                            device=device)
     if ray_step is None:
         ray_step = default_ray_step(volume.dims)
+    premult = tf_mod.premultiply(base)
+    block_dims = default_esl_block_dims(volume.dims)
     return Raycaster(
         volume=volume,
         view=view,
-        transfer_fn=tf_mod.premultiply(base),
+        transfer_fn=premult,
         ray_step=float(ray_step),
         ray_threshold=float(ray_threshold),
         light_kd=float(light_kd),
+        esl_empty=esl_mod.derive_empty_grid(
+            esl_mod.build_min_max_grid(volume.data, block_dims), premult),
+        esl_block_dims=block_dims,
         esl=bool(esl),
+        interpolation=_check_interpolation(interpolation),
         shading=shading,
     )
 
@@ -195,26 +235,45 @@ def make_raycaster(
 def raycaster_from_arrays(
     volume, premult_tf, origin, direction, right_plane, up_plane, light_pos,
     dims, perspective, ray_step, ray_threshold, light_kd,
-    shading: str = "diffuse", *, device: torch.device | str | None = None,
+    shading: str = "diffuse", *, interpolation: str = "trilinear",
+    esl: bool = False, esl_empty=None, esl_block_dims: int | None = None,
+    device: torch.device | str | None = None,
 ) -> Raycaster:
     """Carry a JAX render state across as numpy arrays.
 
     ``volume`` is the ``uint8[D, H, W]`` grid, ``premult_tf`` the already
     premultiplied ``f32[TF_SIZE, 4]`` LUT, and the view vectors, ``dims``
-    ``(W, H)`` and ``perspective`` those of a ``volrt`` ``View``. Returns
-    the port's :class:`Raycaster` on ``device`` (the card when ``None``)
-    with ESL off.
+    ``(W, H)`` and ``perspective`` those of a ``volrt`` ``View``.
+    ``esl_empty`` (``bool[32, 32, 32]``) and ``esl_block_dims`` carry the
+    other package's emptiness grid; left ``None`` they are derived here
+    from volume and TF. Returns the port's :class:`Raycaster` on ``device``
+    (the card when ``None``).
     """
     device = resolve_device(device)
+    vol = Volume.from_numpy(np.asarray(volume), device)
+    premult = torch.tensor(np.asarray(premult_tf, np.float32), device=device)
+    if esl_block_dims is None:
+        esl_block_dims = default_esl_block_dims(vol.dims)
+    if esl_empty is None:
+        empty = esl_mod.derive_empty_grid(
+            esl_mod.build_min_max_grid(vol.data, esl_block_dims), premult)
+    else:
+        empty = torch.tensor(np.asarray(esl_empty, np.bool_), device=device)
+        if empty.shape != (ESL_VOLUME_DIMS,) * 3:
+            raise ValueError(
+                f"esl_empty must be {(ESL_VOLUME_DIMS,) * 3}, "
+                f"got {tuple(empty.shape)}")
     return Raycaster(
-        volume=Volume.from_numpy(np.asarray(volume), device),
+        volume=vol,
         view=View.from_arrays(origin, direction, right_plane, up_plane,
                               light_pos, dims, perspective, device),
-        transfer_fn=torch.tensor(
-            np.asarray(premult_tf, np.float32), device=device),
+        transfer_fn=premult,
         ray_step=float(ray_step),
         ray_threshold=float(ray_threshold),
         light_kd=float(light_kd),
-        esl=False,
+        esl_empty=empty,
+        esl_block_dims=int(esl_block_dims),
+        esl=bool(esl),
+        interpolation=_check_interpolation(interpolation),
         shading=shading,
     )

@@ -1,5 +1,5 @@
-// Per-sample device code shared by the port's three march kernels
-// (march_fwd.cu, march_bwd.cu, l2_step.cu): ray loading, the clamp-addressed
+// Per-sample device code shared by the port's march kernels (march_fwd.cu,
+// march_bwd.cu, l2_step.cu, march_ladder.cu): ray loading, the clamp-addressed
 // trilinear taps, the TF lerp, the one-tap diffuse, the composite with its
 // ERT latch, and the replay march that carries the analytic backward.
 //
@@ -131,13 +131,59 @@ __device__ __forceinline__ Taps make_taps(const MarchArgs& a, float px,
   return t;
 }
 
-__device__ __forceinline__ float sample(const MarchArgs& a, const Taps& t) {
-  const float* v = a.vol;
-  const float c00 = lerp(__ldg(v + t.r00 + t.x0), __ldg(v + t.r00 + t.x1), t.fx);
-  const float c01 = lerp(__ldg(v + t.r01 + t.x0), __ldg(v + t.r01 + t.x1), t.fx);
-  const float c10 = lerp(__ldg(v + t.r10 + t.x0), __ldg(v + t.r10 + t.x1), t.fx);
-  const float c11 = lerp(__ldg(v + t.r11 + t.x0), __ldg(v + t.r11 + t.x1), t.fx);
+// One voxel as f32, converted after the fetch (V is float or unsigned char).
+template <typename V>
+__device__ __forceinline__ float voxel(const V* v, int i) {
+  return static_cast<float>(__ldg(v + i));
+}
+
+// The trilinear sample of eight taps, in the volume's own units: lerped
+// along x, then y, then z.
+template <typename V>
+__device__ __forceinline__ float sample_taps(const V* v, const Taps& t) {
+  const float c00 = lerp(voxel(v, t.r00 + t.x0), voxel(v, t.r00 + t.x1), t.fx);
+  const float c01 = lerp(voxel(v, t.r01 + t.x0), voxel(v, t.r01 + t.x1), t.fx);
+  const float c10 = lerp(voxel(v, t.r10 + t.x0), voxel(v, t.r10 + t.x1), t.fx);
+  const float c11 = lerp(voxel(v, t.r11 + t.x0), voxel(v, t.r11 + t.x1), t.fx);
   return lerp(lerp(c00, c01, t.fy), lerp(c10, c11, t.fy), t.fz);
+}
+
+__device__ __forceinline__ float sample(const MarchArgs& a, const Taps& t) {
+  return sample_taps(a.vol, t);
+}
+
+// The linearly interpolated TF at density s in [0, 1]: the coordinate
+// tc = s*TF_SIZE - 0.5, its two clamped rows, the weight f of row hi, and
+// the premultiplied RGBA c.
+__device__ __forceinline__ void tf_lerp(const float (*lut)[4], float s,
+                                        float& tc, int& lo, int& hi, float& f,
+                                        float c[4]) {
+  tc = sub(mul(s, static_cast<float>(TF_SIZE)), 0.5f);
+  const float fl = floorf(tc);
+  f = sub(tc, fl);
+  const int j = static_cast<int>(fminf(fmaxf(fl, -1.f), static_cast<float>(TF_SIZE)));
+  lo = min(max(j, 0), TF_SIZE - 1);
+  hi = min(max(j + 1, 0), TF_SIZE - 1);
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) c[ch] = lerp(lut[lo][ch], lut[hi][ch], f);
+}
+
+// Where the diffuse tap samples: SHADE_LIGHT_OFFSET from p toward the light.
+__device__ __forceinline__ void light_tap(const Light& li, float px, float py,
+                                          float pz, float& qx, float& qy,
+                                          float& qz) {
+  const float vx = sub(li.lx, px), vy = sub(li.ly, py), vz = sub(li.lz, pz);
+  const float len = __fsqrt_rn(add(add(mul(vx, vx), mul(vy, vy)), mul(vz, vz)));
+  qx = add(px, mul(__fdiv_rn(vx, len), SHADE_LIGHT_OFFSET));
+  qy = add(py, mul(__fdiv_rn(vy, len), SHADE_LIGHT_OFFSET));
+  qz = add(pz, mul(__fdiv_rn(vz, len), SHADE_LIGHT_OFFSET));
+}
+
+// Front-to-back premultiplied compositing of one sample's colour.
+__device__ __forceinline__ void composite(float acc[4], const float c[4]) {
+  const float om = sub(1.f, acc[3]);
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) acc[ch] = add(acc[ch], mul(c[ch], om));
 }
 
 // Sample i of the ray: false once the ray has left the cube.
@@ -154,23 +200,14 @@ __device__ __forceinline__ bool take_sample(const MarchArgs& a,
   q.t = make_taps(a, px, py, pz);
   q.s = sample(a, q.t);
 
-  q.tc = sub(mul(q.s, static_cast<float>(TF_SIZE)), 0.5f);
-  const float fl = floorf(q.tc);
-  q.f = sub(q.tc, fl);
-  const int j = static_cast<int>(fminf(fmaxf(fl, -1.f), static_cast<float>(TF_SIZE)));
-  q.lo = min(max(j, 0), TF_SIZE - 1);
-  q.hi = min(max(j + 1, 0), TF_SIZE - 1);
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) q.c[ch] = lerp(lut[q.lo][ch], lut[q.hi][ch], q.f);
+  tf_lerp(lut, q.s, q.tc, q.lo, q.hi, q.f, q.c);
 
   q.gate = false;
   if (SHADE && q.c[3] > SHADE_ALPHA_GATE && li.kd > SHADE_KD_GATE) {
     q.gate = true;
-    const float vx = sub(li.lx, px), vy = sub(li.ly, py), vz = sub(li.lz, pz);
-    const float len = __fsqrt_rn(add(add(mul(vx, vx), mul(vy, vy)), mul(vz, vz)));
-    q.t2 = make_taps(a, add(px, mul(__fdiv_rn(vx, len), SHADE_LIGHT_OFFSET)),
-                     add(py, mul(__fdiv_rn(vy, len), SHADE_LIGHT_OFFSET)),
-                     add(pz, mul(__fdiv_rn(vz, len), SHADE_LIGHT_OFFSET)));
+    float qx, qy, qz;
+    light_tap(li, px, py, pz, qx, qy, qz);
+    q.t2 = make_taps(a, qx, qy, qz);
     const float diffuse = mul(sub(sample(a, q.t2), q.s), li.kd);
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) q.c[ch] = add(q.c[ch], diffuse);
@@ -187,9 +224,7 @@ __device__ __forceinline__ void march_forward(const MarchArgs& a,
   Sample q;
   for (int i = 0; i < a.max_steps; ++i) {
     if (!take_sample<SHADE>(a, lut, ray, li, i, q)) break;
-    const float om = sub(1.f, acc[3]);
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) acc[ch] = add(acc[ch], mul(q.c[ch], om));
+    composite(acc, q.c);
     if (!NO_ERT && acc[3] > li.thr) break;
   }
 }

@@ -1,33 +1,26 @@
 """The port's renderer ladder (the counterpart of ``volrt/renderers``).
 
-Only rung 5, ``pallas-v3``, the flagship forward render, is ported; it runs
-on the hand-written CUDA march kernel. Rungs 0-4 are still to come.
+Rungs 0-1 are torch ops; rungs 2-5 march on hand-written CUDA kernels.
+The names are the JAX package's, so that reports of both read alike.
 """
 from __future__ import annotations
 
+import importlib
+
 from volrt_torch.constants import RENDERER_COUNT
 
-# Rungs not ported yet, with the ROADMAP item that ports each.
-_NOT_PORTED = {
-    0: "jax-golden (ROADMAP.md, queue 1: Renderer ladder)",
-    1: "xla-batched (ROADMAP.md, queue 1: Renderer ladder)",
-    2: "pallas-nn (ROADMAP.md, queue 2, row 4: trilinear._kernel, nearest)",
-    3: "pallas-trilinear (ROADMAP.md, queue 2, row 4: trilinear._kernel)",
-    4: "pallas-blocked (ROADMAP.md, queue 2, row 5: blocked._kernel)",
-}
+# Renderer id -> module under volrt_torch.renderers.
+_RENDERERS = ("golden", "batched", "nn", "trilinear", "blocked", "fwd_v3")
 
 
 def get_renderer(renderer_id: int):
-    """Return the module for a renderer id."""
-    if renderer_id == 5:
-        from volrt_torch.renderers import fwd_v3
-        return fwd_v3
-    if renderer_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"renderer {renderer_id} is not ported yet: "
-            f"{_NOT_PORTED[renderer_id]}")
-    raise ValueError(
-        f"renderer id {renderer_id} out of range 0..{RENDERER_COUNT - 1}")
+    """Return the module for a renderer id (reference ids 0-4
+    correspond to CPU, GPU1, GPU2, GPU3, GPU4; 5 is the flagship)."""
+    if not 0 <= renderer_id < RENDERER_COUNT:
+        raise ValueError(
+            f"renderer id {renderer_id} out of range 0..{RENDERER_COUNT - 1}")
+    return importlib.import_module(
+        f"volrt_torch.renderers.{_RENDERERS[renderer_id]}")
 
 
 def renderer_name(renderer_id: int) -> str:

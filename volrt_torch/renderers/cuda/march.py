@@ -1,7 +1,7 @@
 """The march kernels' wrappers and their plain torch versions.
 
-Three hand-written CUDA kernels, one thread per ray, and what each replaces
-in ``volrt/renderers/pallas/diff_v3.py`` (unshaded and diffuse modes, f32):
+Hand-written CUDA kernels, one thread per ray. Three replace kernels of
+``volrt/renderers/pallas/diff_v3.py`` (unshaded and diffuse modes, f32):
 
 - :func:`march_fwd` (``csrc/march_fwd.cu``): ``_fwd_kernel``, the forward
   march;
@@ -13,6 +13,15 @@ in ``volrt/renderers/pallas/diff_v3.py`` (unshaded and diffuse modes, f32):
 
 :class:`MarchFunction` ties the first two into autograd, as the JAX
 package's ``render_tiles_v3`` custom_vjp does.
+
+Two more are the forward marches of the renderer ladder
+(``csrc/march_ladder.cu``), which accumulate the ray parameter ``k += step``
+as rungs 0-1 do instead of ``k0 + i*step``:
+
+- :func:`march_tri`: ``trilinear.py:_kernel`` (rung 3; rung 2 in its nearest
+  mode), over an f32 volume of raw values 0..255;
+- :func:`march_blocked`: ``blocked.py:_kernel`` (rung 4), over the uint8
+  volume, converted on fetch.
 
 On CUDA tensors a wrapper launches its kernel (built at first use) or
 raises; on CPU tensors it runs its plain version (``*_plain``), a lockstep
@@ -42,8 +51,10 @@ from volrt_torch.constants import (
 )
 from volrt_torch.core import sampling
 from volrt_torch.renderers.common import (
+    add_diffuse,
     classify_and_shade,
     composite,
+    light_tap,
     normalize,
 )
 
@@ -58,6 +69,8 @@ _F = ctypes.c_float
 # o, d, k0, kfar, alive, vol, w, h, depth, tf, scal
 _RAY_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 _FWD_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _I, _P]
+# ..., out, n, width, step, max_steps, nearest, shade, no_ert, stream
+_TRI_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _I, _I, _P]
 # ..., image in, image or cotangent, d_vol, d_tf, n, width, step,
 # max_steps, shade, no_ert, need_dtf, need_dvol, stream
 _GRAD_ARGTYPES = _RAY_ARGTYPES + [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
@@ -72,10 +85,10 @@ def max_steps(ray_step: float) -> int:
 
 
 def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           **images) -> None:
-    """Refuse what the kernels do not take. ``images`` are further
-    ``f32[N, 4]`` tensors in raster order (an image, a cotangent, a
-    target), by name."""
+           volume_dtype: torch.dtype = torch.float32, **images) -> None:
+    """Refuse what the kernels do not take. ``density`` is the volume, of
+    ``volume_dtype``. ``images`` are further ``f32[N, 4]`` tensors in
+    raster order (an image, a cotangent, a target), by name."""
     n = o.shape[0] if o.dim() == 2 else -1
     want = {
         "o": (o, torch.float32, (n, 3)),
@@ -83,7 +96,7 @@ def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
         "k0": (k0, torch.float32, (n,)),
         "kfar": (kfar, torch.float32, (n,)),
         "alive": (alive, torch.bool, (n,)),
-        "density": (density, torch.float32, tuple(density.shape)),
+        "density": (density, volume_dtype, tuple(density.shape)),
         "premult_tf": (premult_tf, torch.float32, (TF_SIZE, 4)),
         "scal": (scal, torch.float32, (8,)),
     }
@@ -203,6 +216,138 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
                 live &= ~(active & (acc[:, 3] > thr))
         out[sl] = acc
     return out
+
+
+def march_tri(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
+              ray_step: float, nearest: bool, shade: bool, no_ert: bool,
+              width: int) -> torch.Tensor:
+    """March N rays through an f32 volume of raw voxel values 0..255 and
+    composite them -> ``f32[N, 4]``: rung 3's march, and rung 2's with
+    ``nearest=True``.
+
+    The arguments are :func:`march_fwd`'s, with two differences. ``volume``
+    is ``f32[D, H, W]`` on the 0..255 scale: trilinear mode lerps the raw
+    taps and divides by 255 once before the lerped TF; nearest mode reads
+    one voxel by truncation, the TF bucket ``int(v) // TF_RATIO`` with no
+    lerp, and scales the shade delta by 1/255. And the ray parameter is
+    accumulated: samples lie at ``k0, k0 + step, (k0 + step) + step, ...``
+    and a ray ends when its next ``k`` exceeds ``kfar``, as rungs 0-1 march
+    (``k0`` carries the leading empty-space leap).
+
+    CPU tensors take :func:`march_tri_plain`. CUDA tensors launch the
+    kernel, building it at first use, and raise if it cannot launch.
+    """
+    _check(o, d, k0, kfar, alive, volume, premult_tf, scal, width)
+    if o.device.type == "cpu":
+        return march_tri_plain(
+            o, d, k0, kfar, alive, volume, premult_tf, scal,
+            ray_step=ray_step, nearest=nearest, shade=shade, no_ert=no_ert,
+            width=width)
+    n = o.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
+    if n == 0:
+        return out
+    _launch("volrt_march_tri", _TRI_ARGTYPES, o.device,
+            *_ray_pointers(o, d, k0, kfar, alive, volume, premult_tf, scal),
+            out.data_ptr(), n, width, ray_step, max_steps(ray_step),
+            int(nearest), int(shade), int(no_ert))
+    march_tri.launches += 1
+    return out
+
+
+march_tri.launches = 0
+
+
+def march_blocked(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
+                  ray_step: float, shade: bool, no_ert: bool,
+                  width: int) -> torch.Tensor:
+    """March N rays through the ``uint8[D, H, W]`` volume and composite
+    them -> ``f32[N, 4]``: rung 4's march. As :func:`march_tri` in
+    trilinear mode, with each tap converted to f32 after its fetch.
+
+    CPU tensors take :func:`march_blocked_plain`. CUDA tensors launch the
+    kernel or raise.
+    """
+    _check(o, d, k0, kfar, alive, volume, premult_tf, scal, width,
+           volume_dtype=torch.uint8)
+    if o.device.type == "cpu":
+        return march_blocked_plain(
+            o, d, k0, kfar, alive, volume, premult_tf, scal,
+            ray_step=ray_step, shade=shade, no_ert=no_ert, width=width)
+    n = o.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
+    if n == 0:
+        return out
+    _launch("volrt_march_blocked", _FWD_ARGTYPES, o.device,
+            *_ray_pointers(o, d, k0, kfar, alive, volume, premult_tf, scal),
+            out.data_ptr(), n, width, ray_step, max_steps(ray_step),
+            int(shade), int(no_ert))
+    march_blocked.launches += 1
+    return out
+
+
+march_blocked.launches = 0
+
+
+def _classify_nearest_raw(volume, premult_tf, pt, light_pos, kd):
+    """Nearest mode in the kernel's order: the sample stays on the 0..255
+    scale and the shade delta is scaled, ``(s_light - s) * (1/255) * kd``
+    (``volrt/renderers/pallas/trilinear.py:259-262``)."""
+    s = sampling.sample_nearest(volume, pt)
+    color = sampling.tf_lookup_bucket(premult_tf, s)
+    if light_pos is None:
+        return color
+    sl = sampling.sample_nearest(volume, light_tap(pt, light_pos))
+    return add_diffuse(color, (sl - s) * (1.0 / 255.0), kd)
+
+
+def march_tri_plain(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
+                    ray_step: float, nearest: bool, shade: bool,
+                    no_ert: bool, width: int) -> torch.Tensor:
+    """The plain torch version of :func:`march_tri` and, with a uint8
+    ``volume``, of :func:`march_blocked`: same arguments.
+
+    All rays of a chunk step in lockstep for at most ``max_steps(ray_step)``
+    steps, with masks in place of the kernel's per-ray ``break``; ``k``
+    gains one ``+ ray_step`` per step. ``width`` only shapes the kernel's
+    blocks and is unused here.
+    """
+    del width
+    out = torch.empty((o.shape[0], 4), dtype=torch.float32, device=o.device)
+    thr, kd = scal[0], scal[1]
+    light_pos = scal[2:5] if shade else None
+    for lo in range(0, o.shape[0], PLAIN_CHUNK):
+        sl = slice(lo, lo + PLAIN_CHUNK)
+        oc, dc, kf = o[sl], d[sl], kfar[sl]
+        k, live = k0[sl], alive[sl]
+        acc = torch.zeros((oc.shape[0], 4), dtype=torch.float32,
+                          device=o.device)
+        for _ in range(max_steps(ray_step)):
+            pt = oc + dc * k[:, None]
+            if nearest:
+                color = _classify_nearest_raw(volume, premult_tf, pt,
+                                              light_pos, kd)
+            else:
+                color = classify_and_shade(
+                    volume, premult_tf, pt, light_pos=light_pos,
+                    light_kd=kd, interpolation="trilinear")
+            acc = torch.where(live[:, None], composite(acc, color), acc)
+            k = k + ray_step
+            live = live & (k <= kf)
+            if not no_ert:
+                live = live & ~(acc[:, 3] > thr)
+        out[sl] = acc
+    return out
+
+
+def march_blocked_plain(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
+                        ray_step: float, shade: bool, no_ert: bool,
+                        width: int) -> torch.Tensor:
+    """The plain torch version of :func:`march_blocked`, same arguments:
+    the trilinear plain march, whose taps convert after the fetch."""
+    return march_tri_plain(o, d, k0, kfar, alive, volume, premult_tf, scal,
+                           ray_step=ray_step, nearest=False, shade=shade,
+                           no_ert=no_ert, width=width)
 
 
 def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,

@@ -30,9 +30,21 @@ def render_float(rc: Raycaster, fast: bool = False
 
     ``rc.esl`` marches every sample: the image is the same, since rung 5's
     ESL drops only groups that contribute exactly zero. The skipping itself
-    is still to come (ROADMAP.md, queue 1: ESL). ``shading="phong"`` and
-    ``fast=True`` (bf16 storage) raise ``NotImplementedError``.
+    is still to come (ROADMAP.md, queue 1: ESL); the leading leap of rungs
+    0-4 is not this rung's. ``shading="phong"`` and ``fast=True`` (bf16
+    storage) raise ``NotImplementedError``.
     """
+    if rc.interpolation != "trilinear":
+        raise ValueError("pallas-v3 renders trilinear mode only")
+    check_modes(rc, fast)
+    args, kw = march_args(rc)
+    w, h = rc.view.dims
+    colors = march_fwd(*args, **kw)
+    return colors.reshape(h, w, 4), 0.0
+
+
+def check_modes(rc: Raycaster, fast: bool = False) -> None:
+    """Refuse the modes no kernel of the port has yet."""
     if rc.shading == "phong":
         raise NotImplementedError(
             "phong shading is not ported yet (ROADMAP.md, queue 1: Shading)")
@@ -41,10 +53,6 @@ def render_float(rc: Raycaster, fast: bool = False
     if fast:
         raise NotImplementedError(
             "fast (bf16) storage is not ported yet (ROADMAP.md, queue 2, row 1)")
-    args, kw = march_args(rc)
-    w, h = rc.view.dims
-    colors = march_fwd(*args, **kw)
-    return colors.reshape(h, w, 4), 0.0
 
 
 def march_args(rc: Raycaster) -> tuple[tuple, dict]:
@@ -57,21 +65,26 @@ def march_args(rc: Raycaster) -> tuple[tuple, dict]:
 
 def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
              ray_step: float, ray_threshold: float, light_kd: float,
-             loss_scale: float = 0.0) -> tuple[tuple, dict]:
+             loss_scale: float = 0.0, esl_start=None) -> tuple[tuple, dict]:
     """``(args, kwargs)`` of the march kernels' wrappers for one view of
-    an f32 ``density`` under a premultiplied TF; both may require grad.
+    a volume (an f32 ``density`` for rung 5 and the differentiable path)
+    under a premultiplied TF; both may require grad.
 
     Rays come from ``get_rays`` in raster order and march from ``knear``
-    (no ESL leap) to ``kfar``, as ``volrt``'s ``prepare_ray_tiles_raw``
-    sets them up, without its 16x16 tile packing: the kernels' blocks
-    are pixel patches of the raster image already. ``loss_scale`` goes to
-    ``scal[6]``, which only the one-launch L2 step reads.
+    to ``kfar``, as ``volrt``'s ``prepare_ray_tiles_raw`` sets them up,
+    without its 16x16 tile packing: the kernels' blocks are pixel patches
+    of the raster image already. ``esl_start(o, d, knear, kfar, hit)``, when
+    given, returns each ray's start after the leading empty-space leap in
+    place of ``knear``. ``loss_scale`` goes to ``scal[6]``, which only the
+    one-launch L2 step reads.
     """
     dev = density.device
     origins, directions = rays_mod.get_rays(view)
     o = origins.reshape(-1, 3).contiguous()
     d = directions.reshape(-1, 3).contiguous()
     knear, kfar, hit = rays_mod.intersect_aabb(o, d)
+    if esl_start is not None:
+        knear = esl_start(o, d, knear, kfar, hit)
     alive = hit & (knear <= kfar)
     # Built from fill kernels. A copy from the host (torch.tensor(...,
     # device=), or item assignment) goes through pageable memory, and the
