@@ -58,7 +58,25 @@ Phases, each synchronised with the card, none catching its own failure:
     without it and held against rung 1;
 11. run ``cli render`` with no ``-r`` (rung 3), with ``-r 0`` to ``-r 4``,
     and on ``tests/assets/shell32.pvm`` with rungs 3 and 2; the PNGs must
-    be neither black nor uniform, and rung 3's equal to rung 4's.
+    be neither black nor uniform, and rung 3's equal to rung 4's;
+12. hold the four round-1 differentiable kernels (``diff_tri_fwd``,
+    ``diff_tri_bwd``, ``diff_blocked_fwd``, ``diff_blocked_bwd``) against
+    their plain torch versions at 32^3 / 64^2, orthographic and perspective,
+    ERT off and at 0.95, with a seeded cotangent; hold
+    ``render_image_fused(blocked=False | True)`` under autograd against
+    autograd through the plain torch march (another lattice); check that a
+    leaf that needs no gradient gets none while the other's is unchanged;
+13. drive the round-1 step at full width, 1024^2 on the benchmark pose, ERT
+    off: ``render_image_fused(blocked=True)`` on the 256^3 synthetic volume
+    and ``blocked=False`` on the largest volume ``volrt`` gives that route
+    by itself, a ``[96, 96, 128]`` crop of the 128^3 synthetic volume; the
+    nine launch counters reset before each and read after (one launch of
+    the pair's forward and backward per step, none of any other march
+    kernel); each kernel held against its plain version and timed, the
+    step timed beside phase 7's two-kernel step;
+14. phong, which is torch ops only: rung 1's frame and the oracle's image
+    and gradients (``render_diff_image(phong=True)``) on the card against
+    the same on the CPU, at 32^3 / 64^2.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -98,8 +116,10 @@ from volrt_torch.bench.harness import (
     bench_diff_step, bench_fwd_step, bench_pose, diff_bench_scene,
     synthetic_volume, time_cuda)
 from volrt_torch.core.tf import default_transfer_fn
-from volrt_torch.core.types import Volume, make_raycaster
+from volrt_torch.core.types import (
+    Volume, default_ray_step, make_raycaster)
 from volrt_torch.core.view import Camera
+from volrt_torch.diff.fused import render_image_fused
 from volrt_torch.diff.render import render_diff_image, scene_from_volume
 from volrt_torch.renderers import (
     batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
@@ -107,6 +127,10 @@ from volrt_torch.renderers.cuda.march import (
     l2_step, l2_step_plain, march_blocked, march_blocked_plain, march_bwd,
     march_bwd_plain, march_fwd, march_fwd_plain, march_tri, march_tri_plain,
     max_steps)
+from volrt_torch.renderers.cuda.round1 import (
+    diff_blocked_bwd, diff_blocked_bwd_plain, diff_blocked_fwd,
+    diff_blocked_fwd_plain, diff_tri_bwd, diff_tri_bwd_plain, diff_tri_fwd,
+    diff_tri_fwd_plain)
 
 # Kernel against plain version. The kernel rounds every f32 multiply and add
 # on its own, as torch does, so unshaded the two should agree to the bit;
@@ -147,6 +171,28 @@ FLOPS_BWD = 146
 # axes' indices 9, the composite 9.
 FLOPS_TRI = 80
 FLOPS_NEAREST = 25
+# csrc/march_round1.cu. Forward: the ladder's trilinear sample without the
+# division. Replay: that without its three colour composites 73, and the
+# cotangent chain, TF rows, slope and voxels as above 72.
+FLOPS_ROUND1_FWD = 79
+FLOPS_ROUND1_BWD = 145
+# The round-1 routes against autograd through the plain torch march, which
+# samples at k0 + i*step where they accumulate k += step: the images differ
+# by the repo's lattice tolerance, the gradients by the same last-bit
+# differences of each sample's position, 2e-3 of the largest entry.
+ATOL_LATTICE = 2e-4
+RTOL_GRAD_LATTICE = 2e-3
+# Phong on the card against phong on the CPU, torch ops both: the card's
+# pow, rsqrt and sqrt round otherwise, the shade-tap class.
+ATOL_PHONG = 1e-5
+RTOL_GRAD_PHONG = 2e-3
+# Every march kernel's wrapper, for the launch counters.
+ROUND1 = {False: (diff_tri_fwd, diff_tri_bwd, diff_tri_fwd_plain,
+                  diff_tri_bwd_plain),
+          True: (diff_blocked_fwd, diff_blocked_bwd, diff_blocked_fwd_plain,
+                 diff_blocked_bwd_plain)}
+WRAPPERS = (march_fwd, march_bwd, l2_step, march_tri, march_blocked,
+            diff_tri_fwd, diff_tri_bwd, diff_blocked_fwd, diff_blocked_bwd)
 # Rungs against each other: the same f32 operations in nearest mode; in
 # trilinear mode rungs 0, 1, 3 and 4 do the same too and are given the 1e-5
 # of a march that contraction could move; rung 5 marches another lattice
@@ -526,6 +572,7 @@ def phase_step(dev: torch.device) -> dict:
           f"l2_step need_dtf=False {_spread(t_no_tf)}; need_dvol=False "
           f"{_spread(t_no_vol)}; the 64 MiB zero-fill {_spread(t_zero)}")
     return {
+        "two_kernel_ms": two["ms"],
         "march_bwd": {"launches": bwd_launches, "max_abs_err": err_bwd,
                       "ms": float(np.median(t_bwd)),
                       "plain_ms": bwd_plain[0], **bound_bwd,
@@ -800,6 +847,253 @@ def phase_ladder_cli() -> None:
     assert not np.array_equal(frames["r2"], frames["r3"])
 
 
+def _round1_args(view, scene, thr: float) -> tuple[tuple, dict]:
+    """``(args, kwargs)`` of the round-1 wrappers for one view of a scene,
+    as ``renderers/diff_tri.py`` sets them up."""
+    args, kw = fwd_v3.ray_args(view, scene.density.detach(),
+                               scene.premult_tf().detach(), scene.ray_step,
+                               thr, 0.0)
+    del kw["shade"]
+    return args, kw
+
+
+def phase_round1_small(dev: torch.device) -> None:
+    rng = np.random.default_rng(12)
+    target = torch.tensor(rng.uniform(0, 1, (64, 64, 4)).astype(np.float32),
+                          device=dev)
+    cot = torch.tensor(rng.normal(size=(64 * 64, 4)).astype(np.float32),
+                       device=dev)
+    for persp in (False, True):
+        cam = Camera(dims=(64, 64), perspective=persp)
+        cam.toggle_perspective(update_mode=True)
+        cam.set_camera_position((30.0, 20.0, 0.0))
+        view = cam.view(dev)
+        for thr in (2.0, 0.95):
+            scene = scene_from_volume(synthetic_volume(32),
+                                      default_transfer_fn(dev), 0.06,
+                                      device=dev)
+            leaves = [scene.density, scene.tf_base]
+            loss_a = torch.mean((render_diff_image(
+                scene, view, ray_threshold=thr) - target) ** 2)
+            g_auto = torch.autograd.grad(loss_a, leaves)
+            args, kw = _round1_args(view, scene, thr)
+            assert kw["no_ert"] == (thr >= 1)
+            for blocked, (fwd, bwd, fwd_plain, bwd_plain) in ROUND1.items():
+                tag = (f"[round1-small] 32^3/64^2 "
+                       f"{'persp' if persp else 'ortho'}, ERT "
+                       f"{'off' if thr >= 1 else thr}, {fwd.__name__[:-4]}:")
+                before = fwd.launches, bwd.launches
+                out = fwd(*args, **kw)
+                got = bwd(*args, out, cot, **kw)
+                _sync()
+                assert (fwd.launches, bwd.launches) == (
+                    before[0] + 1, before[1] + 1), "a kernel did not launch"
+                want_out = fwd_plain(*args, **kw)
+                want = bwd_plain(*args, out, cot, **kw)
+                err = (out - want_out).abs().max().item()
+                print(f"{tag} image vs plain: max|diff| = {err:.3g} (atol "
+                      f"{ATOL_UNSHADED:g}), alpha max "
+                      f"{out[:, 3].max().item():.4f}")
+                assert torch.isfinite(out).all() and out[:, 3].max() > 0.5
+                assert err <= ATOL_UNSHADED
+                _hold(tag, "d_density vs plain", got[0], want[0], RTOL_GRAD)
+                _hold(tag, "d_premult_tf vs plain", got[1], want[1],
+                      RTOL_GRAD)
+
+                # A leaf that needs no gradient gets zeros; the other's
+                # stays.
+                no_tf = bwd(*args, out, cot, need_dtf=False, **kw)
+                no_vol = bwd(*args, out, cot, need_dvol=False, **kw)
+                _sync()
+                assert not no_tf[1].any(), "need_dtf=False left a dTF"
+                assert not no_vol[0].any(), "need_dvol=False left a dVol"
+                _hold(tag, "need_dtf=False d_density", no_tf[0], got[0],
+                      RTOL_GRAD)
+                _hold(tag, "need_dvol=False d_premult_tf", no_vol[1], got[1],
+                      RTOL_GRAD)
+
+                # The pair under autograd, through the entry point a user
+                # calls, against autograd through the plain torch march.
+                before = fwd.launches, bwd.launches
+                img = render_image_fused(scene, view, ray_threshold=thr,
+                                         blocked=blocked)
+                loss_k = torch.mean((img - target) ** 2)
+                g_k = torch.autograd.grad(loss_k, leaves)
+                _sync()
+                assert (fwd.launches, bwd.launches) == (
+                    before[0] + 1, before[1] + 1), "not one launch each"
+                assert torch.equal(img.reshape(-1, 4), out)
+                rel = abs(loss_k.item() - loss_a.item()) / loss_a.item()
+                print(f"{tag} loss {loss_k.item():.8g} vs autograd "
+                      f"{loss_a.item():.8g}: rel {rel:.3g} (rtol 1e-4)")
+                assert rel <= 1e-4
+                _hold(tag, "d_density vs autograd", g_k[0], g_auto[0],
+                      RTOL_GRAD_LATTICE)
+                _hold(tag, "d_tf_base vs autograd", g_k[1], g_auto[1],
+                      RTOL_GRAD_LATTICE)
+                img_f = render_image_fused(
+                    scene, view, ray_threshold=thr, blocked=blocked,
+                    need_tf_grad=False)
+                g_f = torch.autograd.grad(
+                    torch.mean((img_f - target) ** 2), leaves,
+                    allow_unused=True)
+                _sync()
+                assert g_f[1] is None, "need_tf_grad=False left a gradient"
+                _hold(tag, "need_tf_grad=False d_density", g_f[0], g_k[0],
+                      RTOL_GRAD)
+
+
+def _round1_scene(blocked: bool, dev: torch.device):
+    """``(label, scene, view, target)`` of the round-1 step at 1024^2 on
+    the benchmark pose: the 256^3 bench scene for the ``diff_blocked``
+    pair; for the ``diff_tri`` pair the largest volume ``volrt`` gives that
+    route by itself (``Dpad * Hpad <= 96 * 96``, ``W <= 128``), the middle
+    ``[96, 96, 128]`` of the 128^3 synthetic volume."""
+    if blocked:
+        return ("256^3", *diff_bench_scene(256, 1024, device=dev))
+    crop = synthetic_volume(128)[16:112, 16:112, :]
+    scene = scene_from_volume(crop, default_transfer_fn(dev),
+                              default_ray_step((128, 96, 96)), device=dev)
+    cam = Camera(dims=(1024, 1024))
+    cam.zoom(-1.0)
+    target = torch.zeros((1024, 1024, 4), dtype=torch.float32, device=dev)
+    return "[96, 96, 128]", scene, cam.view(dev), target
+
+
+def phase_round1_main(dev: torch.device, two_kernel_ms: float) -> dict:
+    """The round-1 step at full width -> the four kernels' entries."""
+    entries = {}
+    for blocked in (True, False):
+        fwd, bwd, fwd_plain, bwd_plain = ROUND1[blocked]
+        label, scene, view, target = _round1_scene(blocked, dev)
+        leaves = [scene.density, scene.tf_base]
+        tag = f"[round1] {label}/1024^2 blocked={blocked}"
+
+        def step():
+            img = render_image_fused(scene, view, ray_threshold=2.0,
+                                     blocked=blocked)
+            loss = torch.mean((img - target) ** 2)
+            return loss, torch.autograd.grad(loss, leaves)
+
+        for fn in WRAPPERS:
+            fn.launches = 0
+        times = time_cuda(step, 10)
+        loss, grads = step()
+        _sync()
+        counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+        print(f"{tag} render_image_fused step {_spread(times)}, beside the "
+              f"two-kernel v3 step's {two_kernel_ms:.4f} ms at 256^3 (phase "
+              f"7); loss {loss.item():.8g}; launches over 10 + 2 steps "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        want = {fn.__name__: 12 * (fn in (fwd, bwd)) for fn in WRAPPERS}
+        assert counts == want, "not one launch of the pair's kernels a step"
+        assert np.isfinite(loss.item()) and loss.item() > 0
+        assert all(torch.isfinite(g).all() and g.any() for g in grads)
+
+        # The kernels alone on the step's inputs, against their plain
+        # versions.
+        with torch.no_grad():
+            args, kw = _round1_args(view, scene, 2.0)
+            out = fwd(*args, **kw)
+            g = (out - target.reshape(-1, 4)) * (2.0 / out.numel())
+            got = bwd(*args, out, g, **kw)
+            _sync()
+            assert torch.equal(
+                out, render_image_fused(scene, view, ray_threshold=2.0,
+                                        blocked=blocked).reshape(-1, 4))
+            covered = (out[:, 3] > 0).float().mean().item()
+            assert covered > 0.5, f"only {covered:.3f} of the frame covered"
+            fwd_plain_ms, bwd_plain_ms = [], []
+            for ms, fn in ((fwd_plain_ms, lambda: fwd_plain(*args, **kw)),
+                           (bwd_plain_ms,
+                            lambda: bwd_plain(*args, out, g, **kw))):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in "se")
+                start.record()
+                ms.append(fn())
+                end.record()
+                _sync()
+                ms.append(start.elapsed_time(end))
+            err_fwd = (out - fwd_plain_ms[0]).abs().max().item()
+            print(f"{tag} {fwd.__name__} image vs plain: max|diff| = "
+                  f"{err_fwd:.3g} (atol {ATOL_UNSHADED:g}), covered "
+                  f"{covered:.4f}")
+            assert err_fwd <= ATOL_UNSHADED
+            want_vol, want_tf = bwd_plain_ms[0]
+            err_bwd = max(
+                _hold(tag, f"{bwd.__name__} d_density vs plain", got[0],
+                      want_vol, RTOL_GRAD),
+                _hold(tag, f"{bwd.__name__} d_premult_tf vs plain", got[1],
+                      want_tf, RTOL_DTF_WIDE))
+            _hold(tag, "step d_density vs plain", grads[0], want_vol,
+                  RTOL_GRAD)
+            t_fwd = time_cuda(lambda: fwd(*args, **kw), 20)
+            t_bwd = time_cuda(lambda: bwd(*args, out, g, **kw), 20)
+            t_no_tf = time_cuda(
+                lambda: bwd(*args, out, g, need_dtf=False, **kw), 10)
+            t_no_vol = time_cuda(
+                lambda: bwd(*args, out, g, need_dvol=False, **kw), 10)
+        bound_fwd = _bound(args, kw, FLOPS_ROUND1_FWD, images=1, grads=False)
+        bound_bwd = _bound(args, kw, FLOPS_ROUND1_BWD, images=2, grads=True)
+        print(f"{tag} {fwd.__name__} {_spread(t_fwd)}; plain "
+              f"{fwd_plain_ms[1]:.2f} ms (one call); bound "
+              f"{bound_fwd['bound_ms']:.4f} ms by {bound_fwd['bound_by']} "
+              f"for {_n_samples(args, kw)} samples")
+        print(f"{tag} {bwd.__name__} (zero-fill and kernel) "
+              f"{_spread(t_bwd)}; plain {bwd_plain_ms[1]:.2f} ms (one call); "
+              f"bound {bound_bwd['bound_ms']:.4f} ms by "
+              f"{bound_bwd['bound_by']}; need_dtf=False {_spread(t_no_tf)}; "
+              f"need_dvol=False {_spread(t_no_vol)}")
+        entries[fwd.__name__] = {
+            "launches": counts[fwd.__name__], "max_abs_err": err_fwd,
+            "ms": float(np.median(t_fwd)), "plain_ms": fwd_plain_ms[1],
+            **bound_fwd, "library_ms": None}
+        entries[bwd.__name__] = {
+            "launches": counts[bwd.__name__], "max_abs_err": err_bwd,
+            "ms": float(np.median(t_bwd)), "plain_ms": bwd_plain_ms[1],
+            **bound_bwd, "library_ms": None}
+    return entries
+
+
+def phase_phong(dev: torch.device) -> None:
+    """Phong is torch ops only: the card against the CPU."""
+    cam = Camera(dims=(64, 64))
+    cam.set_camera_position((30.0, 20.0, 0.0))
+    frames, grads = {}, {}
+    for where in (dev, torch.device("cpu")):
+        rc = make_raycaster(Volume.from_numpy(synthetic_volume(32), where),
+                            cam.view(where), interpolation="trilinear",
+                            esl=False, shading="phong")
+        frames[where.type] = batched.render_float(rc).cpu()
+        scene = scene_from_volume(synthetic_volume(32),
+                                  default_transfer_fn(where), 0.06,
+                                  device=where)
+        img = render_diff_image(scene, cam.view(where), light_kd=0.6,
+                                phong=True)
+        g = torch.autograd.grad((img ** 2).mean(),
+                                [scene.density, scene.tf_base])
+        grads[where.type] = (img.detach().cpu(), g[0].cpu(), g[1].cpu())
+    _sync()
+    diffuse = batched.render_float(rc.replace(shading="diffuse"))
+    err = (frames["cuda"] - frames["cpu"]).abs().max().item()
+    lit = (frames["cpu"] - diffuse).abs().max().item()
+    print(f"[phong] 32^3/64^2 rung 1: max|card - CPU| = {err:.3g} (atol "
+          f"{ATOL_PHONG:g}), max|phong - diffuse| = {lit:.3g}, alpha max "
+          f"{frames['cuda'][..., 3].max().item():.4f}")
+    assert torch.isfinite(frames["cuda"]).all()
+    assert frames["cuda"][..., 3].max().item() > 0.5 and lit > 1e-3
+    assert err <= ATOL_PHONG
+    err = (grads["cuda"][0] - grads["cpu"][0]).abs().max().item()
+    print(f"[phong] 32^3/64^2 render_diff_image(phong=True): image "
+          f"max|card - CPU| = {err:.3g} (atol {ATOL_PHONG:g})")
+    assert err <= ATOL_PHONG
+    tag = "[phong] 32^3/64^2 autograd, card vs CPU:"
+    _hold(tag, "d_density", grads["cuda"][1], grads["cpu"][1],
+          RTOL_GRAD_PHONG)
+    _hold(tag, "d_tf_base", grads["cuda"][2], grads["cpu"][2],
+          RTOL_GRAD_PHONG)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -818,6 +1112,9 @@ def main() -> int:
     phase_ladder_small(dev)
     ladder = phase_ladder_main(dev, fwd.pop("frame"))
     phase_ladder_cli()
+    phase_round1_small(dev)
+    round1 = phase_round1_main(dev, step["two_kernel_ms"])
+    phase_phong(dev)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -842,6 +1139,13 @@ def main() -> int:
          "source": "volrt_torch/csrc/march_ladder.cu",
          "replaces": "volrt/renderers/pallas/blocked.py:57",
          **ladder["march_blocked"]},
+        *({"name": name, "route": "cuda",
+           "source": "volrt_torch/csrc/march_round1.cu",
+           "replaces": f"volrt/renderers/pallas/{where}", **round1[name]}
+          for name, where in (("diff_tri_fwd", "diff_tri.py:121"),
+                              ("diff_tri_bwd", "diff_tri.py:194"),
+                              ("diff_blocked_fwd", "diff_blocked.py:90"),
+                              ("diff_blocked_bwd", "diff_blocked.py:192"))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -252,14 +252,22 @@ def test_grad_wrappers_on_cpu_take_plain_path_and_check_inputs():
 
 
 def test_unported_arguments_raise():
-    """(f) What the differentiable path has not ported yet says so."""
+    """(f) What the differentiable path has not ported yet says so; what it
+    has ported since (phong in the oracle, the round-1 routes) runs."""
     _, (scene, view, target) = _pair(dims=(8, 8))
     o = torch.zeros((1, 3))
-    for kw in (dict(esl=True), dict(phong=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trender.render_diff_image(scene, view, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trender.render_diff(scene, o, o, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trender.render_diff_image(scene, view, esl=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trender.render_diff(scene, o, o, esl=True)
+    lit = trender.render_diff_image(scene, view, light_kd=0.6, phong=True)
+    unlit = trender.render_diff_image(scene, view)
+    assert torch.isfinite(lit).all()
+    assert (lit[..., :3] - unlit[..., :3]).abs().max() > 1e-3
+    torch.testing.assert_close(lit[..., 3], unlit[..., 3], atol=1e-6, rtol=0)
+    one = trender.render_diff(scene, o, o + 1.0, light_kd=0.6, phong=True,
+                              light_pos=view.light_pos)
+    assert one.shape == (1, 4) and torch.isfinite(one).all()
     for kw in (dict(esl=True), dict(phong=True), dict(fast=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdiff_v3.render_image_v3(scene, view, **kw)
@@ -267,5 +275,8 @@ def test_unported_arguments_raise():
             tdiff_v3.l2_loss_grads_v3_onepass(scene, view, target, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfused.l2_loss_fused(scene, view, target, **kw)
-    with pytest.raises(NotImplementedError, match="rows 6-9"):
-        tfused.render_image_fused(scene, view, blocked=True)
+    for blocked in (False, True):
+        img = tfused.render_image_fused(scene, view, blocked=blocked)
+        assert img.shape == (8, 8, 4) and img.requires_grad
+        _close(img.detach().numpy(), unlit.detach().numpy(), ATOL_IMG,
+               "round-1 route vs oracle")

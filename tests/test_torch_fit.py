@@ -185,12 +185,16 @@ def test_fit_refuses_what_is_not_ported(problem):
     pair = [(problem["tview"], torch.from_numpy(problem["target"]))]
     for kw in (dict(mesh=object()), dict(volume_sharded=True),
                dict(grad_chunks=4), dict(esl=True),
-               dict(checkpoint_path="state.npz"), dict(shading="phong")):
+               dict(checkpoint_path="state.npz"),
+               dict(shading="phong", fused=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfit_mod.fit(scene, pair, steps=1, **kw)
     with pytest.raises(ValueError):
         tfit_mod.fit(scene, pair, steps=1, shading="toon")
     assert tfit_mod.fit(scene, pair, steps=0) == (scene, [])
+    # Phong trains through the oracle.
+    _, losses = tfit_mod.fit(scene, pair, steps=1, shading="phong")
+    assert len(losses) == 1 and np.isfinite(losses[0])
 
 
 def test_step_bench_needs_a_card():

@@ -286,10 +286,20 @@ def test_modes_and_guards():
     for rung in (3, 4, 5):
         with pytest.raises(ValueError, match="trilinear"):
             get_renderer(rung).render_float(nrc)
-    for rung in range(5):
+    for rung in (2, 3, 4):
         rc = nrc if rung == 2 else trc
         with pytest.raises(NotImplementedError, match="phong"):
             get_renderer(rung).render_float(rc.replace(shading="phong"))
+    # Rungs 0-1 render phong, in both interpolations, the same frame.
+    for rc in (nrc, trc):
+        lit = [get_renderer(rung).render_float(rc.replace(shading="phong"))
+               for rung in (0, 1)]
+        assert torch.isfinite(lit[0]).all()
+        torch.testing.assert_close(
+            lit[0][..., 3], get_renderer(0).render_float(rc)[..., 3],
+            atol=1e-6, rtol=0)
+        np.testing.assert_allclose(lit[1].numpy(), lit[0].numpy(), atol=1e-5,
+                                   rtol=0)
     with pytest.raises(ValueError):
         get_renderer(-1)
     with pytest.raises(ValueError, match="interpolation"):

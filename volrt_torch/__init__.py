@@ -9,10 +9,13 @@ jax.
 Ported so far: the renderer ladder (``renderers.get_renderer(0..5)``) with
 the leading empty-space leap and the PVM loader (``io.pvm``), and the
 training path (``diff.render``, ``renderers.diff_v3``, ``diff.fused``,
-``train.fit``), through five hand-written CUDA kernels: the forward marches
+``train.fit``), through nine hand-written CUDA kernels: the forward marches
 ``csrc/march_fwd.cu`` (rung 5) and ``csrc/march_ladder.cu`` (rungs 2-4),
-the backward ``csrc/march_bwd.cu`` and the one-launch L2 step
-``csrc/l2_step.cu``. Entry points run on the card
+the backward ``csrc/march_bwd.cu``, the one-launch L2 step
+``csrc/l2_step.cu`` and the two round-1 differentiable pairs of
+``csrc/march_round1.cu`` (``render_image_fused(blocked=)``). Gradient
+Blinn-Phong is torch ops (rungs 0-1 and ``render_diff_image``). Entry
+points run on the card
 (:func:`default_device`) unless the caller passes ``device="cpu"``.
 """
 

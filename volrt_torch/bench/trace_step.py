@@ -5,9 +5,13 @@ few steps, summed by kernel name.
 
     python -m volrt_torch.bench.trace_step --route ladder --renderer 4
     python -m volrt_torch.bench.trace_step --route ladder --renderer 3 --cli-look
+    python -m volrt_torch.bench.trace_step --route round1 --blocked 1
 
 Routes: ``onepass`` (the one-launch L2 step), ``twokernel`` (forward and
-backward kernels under autograd), ``fwd`` (``fwd_v3.render_float``) and
+backward kernels under autograd), ``round1`` (the same step through
+``render_image_fused(blocked=)``: the ``diff_blocked`` kernel pair, or with
+``--blocked 0`` the ``diff_tri`` pair, which takes a volume at most 128
+voxels wide), ``fwd`` (``fwd_v3.render_float``) and
 ``ladder`` (``render_float`` of rung ``--renderer``), each on the
 benchmark's scene (``bench/harness.py``); ``--cli-look`` gives the ladder
 route the frame ``cli render`` renders by default instead (the camera at
@@ -30,12 +34,13 @@ import torch
 from volrt_torch.bench import harness
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
+from volrt_torch.diff.fused import render_image_fused
 from volrt_torch.renderers import diff_v3, get_renderer
 
 
 def make_step(route: str, volume_size: int, viewport: int,
               device: torch.device, renderer: int = 5,
-              cli_look: bool = False):
+              cli_look: bool = False, blocked: bool = True):
     """The benchmark's step for ``route`` as a no-argument callable."""
     if route in ("fwd", "ladder"):
         interp = "nearest" if renderer == 2 else "trilinear"
@@ -56,7 +61,11 @@ def make_step(route: str, volume_size: int, viewport: int,
             scene, view, target, ray_threshold=2.0)
 
     def two_kernel():
-        img = diff_v3.render_image_v3(scene, view, ray_threshold=2.0)
+        if route == "round1":
+            img = render_image_fused(scene, view, ray_threshold=2.0,
+                                     blocked=blocked)
+        else:
+            img = diff_v3.render_image_v3(scene, view, ray_threshold=2.0)
         loss = torch.mean((img - target) ** 2)
         return loss, torch.autograd.grad(
             loss, [scene.density, scene.tf_base])
@@ -107,8 +116,11 @@ def trace(step, steps: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--route",
-                   choices=("onepass", "twokernel", "fwd", "ladder"),
+                   choices=("onepass", "twokernel", "round1", "fwd", "ladder"),
                    default="onepass")
+    p.add_argument("--blocked", type=int, choices=(0, 1), default=1,
+                   help="the round1 route's kernel pair: 1 diff_blocked, "
+                   "0 diff_tri")
     p.add_argument("--renderer", type=int, default=4,
                    help="the ladder route's rung (the fwd route is rung 5)")
     p.add_argument("--cli-look", action="store_true",
@@ -128,8 +140,11 @@ def main(argv=None) -> int:
            "volume": args.synthetic, "viewport": args.size}
     if args.route == "ladder":
         out.update(renderer=renderer, cli_look=args.cli_look)
+    if args.route == "round1":
+        out.update(blocked=bool(args.blocked))
     out.update(trace(make_step(args.route, args.synthetic, args.size, device,
-                               renderer, args.cli_look), args.steps))
+                               renderer, args.cli_look, bool(args.blocked)),
+                     args.steps))
     print(json.dumps(out))
     return 0
 

@@ -12,8 +12,9 @@
 Everything runs on the card unless ``--device cpu`` is given. The flags are
 those of ``volrt``'s (``volrt/cli.py:18-51, 509-550``) that the port
 supports; ``render`` takes renderer 3 with the leading empty-space leap by
-default, as ``volrt``'s does. Still to come: ``--orbit``, ``--background``
-and ``--shading phong`` of ``render``; ``-f``, ``--esl``, ``--dist``,
+default, as ``volrt``'s does. ``--shading phong`` renders on renderers 0-1
+and trains without ``--fused``. Still to come: ``--orbit`` and
+``--background`` of ``render``; ``-f``, ``--esl``, ``--dist``,
 ``--checkpoint`` and ``--grad-chunks`` of ``fit``.
 """
 from __future__ import annotations
@@ -48,8 +49,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--light-kd", type=float, default=0.6)
     p.add_argument("--shading", choices=("diffuse", "phong"),
                    default="diffuse",
-                   help="diffuse = reference one-tap shading; phong is not "
-                   "ported yet")
+                   help="diffuse = reference one-tap shading; phong = "
+                   "gradient Blinn-Phong (renderers 0-1)")
     p.add_argument("--interpolation", choices=("nearest", "trilinear"),
                    default=None,
                    help="default: nearest for renderers 0-2, trilinear 3-5")
@@ -158,7 +159,7 @@ def cmd_fit(args) -> int:
         with torch.no_grad():
             targets.append((view, render_diff_image(
                 gt, view, light_kd=args.light_kd if shading else 0.0,
-                shaded=shading == "diffuse")))
+                shaded=shading == "diffuse", phong=shading == "phong")))
     print(f"rendered {len(targets)} target views in "
           f"{time.perf_counter() - t0:.2f} s", file=sys.stderr)
 
@@ -257,9 +258,9 @@ def main(argv=None) -> int:
     p.add_argument("--ray-step", type=float, default=None)
     p.add_argument("--light-kd", type=float, default=0.6)
     # Fits are unshaded unless --shading is given explicitly.
-    p.add_argument("--shading", choices=("diffuse",), default=None,
-                   help="train under the reference's one-tap diffuse "
-                   "(phong is not ported yet)")
+    p.add_argument("--shading", choices=("diffuse", "phong"), default=None,
+                   help="train under the reference's one-tap diffuse or "
+                   "under gradient Blinn-Phong (phong without --fused)")
     p.add_argument("--train", choices=["density", "tf", "both"],
                    default="density",
                    help="which scene parameters to optimise (the kernel "

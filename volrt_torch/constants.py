@@ -37,8 +37,8 @@ SHADE_KD_GATE = 0.01
 # (reference: RaycasterBase.h:91, GPURenderer4.cu:44-46).
 SHADE_LIGHT_OFFSET = 0.01
 
-# Gradient-Phong shading constants (phong is not ported yet; kept so the
-# two constant sets stay comparable line for line).
+# Gradient-Phong shading: ambient and specular weights and the exponent of
+# the Blinn-Phong model over central-difference normals.
 PHONG_KA = 0.3
 PHONG_KS = 0.2
 PHONG_SHININESS = 16.0

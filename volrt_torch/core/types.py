@@ -142,7 +142,8 @@ class Raycaster:
         TF) or ``"trilinear"`` (renderers 0-1 and 3-5: trilinear sample in
         [0, 1], linearly interpolated TF).
       shading: ``"diffuse"`` (the reference's one-tap diffuse, a no-op when
-        ``light_kd <= SHADE_KD_GATE``) or ``"phong"`` (not ported yet).
+        ``light_kd <= SHADE_KD_GATE``) or ``"phong"`` (gradient Blinn-Phong;
+        rungs 0-1).
     """
 
     volume: Volume

@@ -1,5 +1,5 @@
 // Per-sample device code shared by the port's march kernels (march_fwd.cu,
-// march_bwd.cu, l2_step.cu, march_ladder.cu): ray loading, the clamp-addressed
+// march_bwd.cu, l2_step.cu, march_ladder.cu, march_round1.cu): ray loading, the clamp-addressed
 // trilinear taps, the TF lerp, the one-tap diffuse, the composite with its
 // ERT latch, and the replay march that carries the analytic backward.
 //
@@ -10,8 +10,9 @@
 // never composited.
 //
 // The math is the plain torch version's (volrt_torch/renderers/cuda/
-// march.py), op for op: samples at k = k0 + i*step with k <= kfar;
-// trilinear taps at (p+1)*0.5*n - 0.5; the TF lerp at s*TF_SIZE - 0.5;
+// march.py), op for op: samples at k = k0 + i*step with k <= kfar (the
+// ladder's and the round-1 kernels accumulate k += step in loops of their
+// own and share the per-sample pieces); trilinear taps at (p+1)*0.5*n - 0.5; the TF lerp at s*TF_SIZE - 0.5;
 // premultiplied front-to-back compositing; the ERT latch acc.a > threshold
 // after each composite. Every multiply and add of the forward chain is
 // rounded on its own (__fmul_rn/__fadd_rn: no FMA contraction), as torch
@@ -186,14 +187,12 @@ __device__ __forceinline__ void composite(float acc[4], const float c[4]) {
   for (int ch = 0; ch < 4; ++ch) acc[ch] = add(acc[ch], mul(c[ch], om));
 }
 
-// Sample i of the ray: false once the ray has left the cube.
+// The classified (and shaded) sample at ray parameter k.
 template <bool SHADE>
-__device__ __forceinline__ bool take_sample(const MarchArgs& a,
-                                            const float (*lut)[4],
-                                            const Ray& ray, const Light& li,
-                                            int i, Sample& q) {
-  const float k = add(ray.ks, mul(static_cast<float>(i), a.step));
-  if (!(k <= ray.ke)) return false;
+__device__ __forceinline__ void sample_at(const MarchArgs& a,
+                                          const float (*lut)[4],
+                                          const Ray& ray, const Light& li,
+                                          float k, Sample& q) {
   const float px = add(ray.ox, mul(ray.dx, k));
   const float py = add(ray.oy, mul(ray.dy, k));
   const float pz = add(ray.oz, mul(ray.dz, k));
@@ -212,6 +211,18 @@ __device__ __forceinline__ bool take_sample(const MarchArgs& a,
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) q.c[ch] = add(q.c[ch], diffuse);
   }
+}
+
+// Sample i of the ray on the lattice k0 + i*step: false once the ray has
+// left the cube.
+template <bool SHADE>
+__device__ __forceinline__ bool take_sample(const MarchArgs& a,
+                                            const float (*lut)[4],
+                                            const Ray& ray, const Light& li,
+                                            int i, Sample& q) {
+  const float k = add(ray.ks, mul(static_cast<float>(i), a.step));
+  if (!(k <= ray.ke)) return false;
+  sample_at<SHADE>(a, lut, ray, li, k, q);
   return true;
 }
 
@@ -256,8 +267,71 @@ __device__ __forceinline__ void scatter_taps(float* dv, const Taps& t,
 // known from the forward and P the running prefix of contrib = (g . c) T.
 // The division is guarded as the reference guards it: an opaque sample
 // (1 - c.a <= 1e-6) hides everything behind it and gets no such term.
-// g4 is the cotangent, G its product with the forward's colour. dtf is the
-// block's [TF_SIZE][4] accumulator in shared memory.
+
+// What a replay carries from sample to sample.
+struct Chain {
+  float acc_a = 0.f;  // opacity composited so far
+  float P = 0.f;      // prefix of contrib
+};
+
+// One replayed sample q: its cotangent, its adds to dTF and dVol, and the
+// chain's step. g4 is the ray's cotangent, G its product with the forward's
+// colour; dtf is the block's [TF_SIZE][4] accumulator in shared memory.
+// IN_RANGE drops the density slope at the TF's end points and for a density
+// outside (0, 1), as the v3 reference's flag does; without it the slope is
+// (tf[hi] - tf[lo]) * TF_SIZE of the clamped rows, zero only where they
+// coincide, as the round-1 reference takes it.
+template <bool SHADE, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE>
+__device__ __forceinline__ void replay_sample(const float (*lut)[4],
+                                              float (*dtf)[4], float* d_vol,
+                                              const Light& li,
+                                              const float g4[4], float G,
+                                              const Sample& q, Chain& ch) {
+  const float T = sub(1.f, ch.acc_a);
+  const float gc = add(add(add(mul(g4[0], q.c[0]), mul(g4[1], q.c[1])),
+                           mul(g4[2], q.c[2])), mul(g4[3], q.c[3]));
+  const float contrib = mul(gc, T);
+  const float s_next = sub(G, add(ch.P, contrib));
+  ch.P = add(ch.P, contrib);
+  const float denom = sub(1.f, q.c[3]);
+  const float t8 = denom > 1e-6f ? __fdiv_rn(s_next, fmaxf(denom, 1e-6f)) : 0.f;
+  float dc[4] = {mul(g4[0], T), mul(g4[1], T), mul(g4[2], T),
+                 sub(mul(g4[3], T), t8)};
+
+  if (NEED_DTF) {
+    const float f0 = 1.f - q.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      atomicAdd(&dtf[q.lo][c], dc[c] * f0);
+      atomicAdd(&dtf[q.hi][c], dc[c] * q.f);
+    }
+  }
+  if (NEED_DVOL) {
+    // The clamped lerp has no slope outside its range (lo == hi there).
+    const bool in_range = !IN_RANGE || (q.tc > 0.f && q.tc < TF_SIZE - 1.f &&
+                                        q.s > 0.f && q.s < 1.f);
+    float ds = 0.f;
+    if (in_range) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        ds += (lut[q.hi][c] - lut[q.lo][c]) * TF_SIZE * dc[c];
+      }
+    }
+    if (SHADE && q.gate) {
+      // diffuse = kd * (s2 - s): rgb cotangents flow -kd into this
+      // sample's density and +kd into the light tap's. Nothing flows
+      // through the gate or the light direction.
+      const float ds2 = li.kd * (dc[0] + dc[1] + dc[2]);
+      ds -= ds2;
+      if (ds2 != 0.f) scatter_taps(d_vol, q.t2, ds2);
+    }
+    if (ds != 0.f) scatter_taps(d_vol, q.t, ds);
+  }
+
+  ch.acc_a = add(ch.acc_a, mul(q.c[3], T));
+}
+
+// The replay of one live ray on the forward's lattice k0 + i*step.
 template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const float (*lut)[4],
@@ -265,53 +339,12 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const Ray& ray, const Light& li,
                                              const float g4[4], float G) {
   Sample q;
-  float acc_a = 0.f, P = 0.f;
+  Chain ch;
   for (int i = 0; i < a.max_steps; ++i) {
     if (!take_sample<SHADE>(a, lut, ray, li, i, q)) break;
-    const float T = sub(1.f, acc_a);
-    const float gc = add(add(add(mul(g4[0], q.c[0]), mul(g4[1], q.c[1])),
-                             mul(g4[2], q.c[2])), mul(g4[3], q.c[3]));
-    const float contrib = mul(gc, T);
-    const float s_next = sub(G, add(P, contrib));
-    P = add(P, contrib);
-    const float denom = sub(1.f, q.c[3]);
-    const float t8 = denom > 1e-6f ? __fdiv_rn(s_next, fmaxf(denom, 1e-6f)) : 0.f;
-    float dc[4] = {mul(g4[0], T), mul(g4[1], T), mul(g4[2], T),
-                   sub(mul(g4[3], T), t8)};
-
-    if (NEED_DTF) {
-      const float f0 = 1.f - q.f;
-#pragma unroll
-      for (int ch = 0; ch < 4; ++ch) {
-        atomicAdd(&dtf[q.lo][ch], dc[ch] * f0);
-        atomicAdd(&dtf[q.hi][ch], dc[ch] * q.f);
-      }
-    }
-    if (NEED_DVOL) {
-      // The clamped lerp has no slope outside its range (lo == hi there);
-      // in_range also drops the end points, as the reference's flag does.
-      const bool in_range = q.tc > 0.f && q.tc < TF_SIZE - 1.f &&
-                            q.s > 0.f && q.s < 1.f;
-      float ds = 0.f;
-      if (in_range) {
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) {
-          ds += (lut[q.hi][ch] - lut[q.lo][ch]) * TF_SIZE * dc[ch];
-        }
-      }
-      if (SHADE && q.gate) {
-        // diffuse = kd * (s2 - s): rgb cotangents flow -kd into this
-        // sample's density and +kd into the light tap's. Nothing flows
-        // through the gate or the light direction.
-        const float ds2 = li.kd * (dc[0] + dc[1] + dc[2]);
-        ds -= ds2;
-        if (ds2 != 0.f) scatter_taps(d_vol, q.t2, ds2);
-      }
-      if (ds != 0.f) scatter_taps(d_vol, q.t, ds);
-    }
-
-    acc_a = add(acc_a, mul(q.c[3], T));
-    if (!NO_ERT && acc_a > li.thr) break;
+    replay_sample<SHADE, NEED_DTF, NEED_DVOL, true>(lut, dtf, d_vol, li, g4,
+                                                    G, q, ch);
+    if (!NO_ERT && ch.acc_a > li.thr) break;
   }
 }
 

@@ -21,7 +21,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from volrt_torch.constants import (
+    PHONG_KA,
+    PHONG_KS,
+    PHONG_SHININESS,
+    SHADE_ALPHA_GATE,
+    SHADE_KD_GATE,
+)
 from volrt_torch.core import rays as rays_mod
+from volrt_torch.core import sampling
 from volrt_torch.core import tf as tf_mod
 from volrt_torch.core.device import resolve_device
 from volrt_torch.core.types import View
@@ -56,13 +64,48 @@ class DiffScene(nn.Module):
         return tf_mod.premultiply(self.tf_base)
 
 
-def _unported(esl: bool, phong: bool) -> None:
+def _unported(esl: bool) -> None:
     if esl:
         raise NotImplementedError(
             "esl=True is not ported yet (ROADMAP.md, queue 1: ESL)")
-    if phong:
-        raise NotImplementedError(
-            "phong shading is not ported yet (ROADMAP.md, queue 1: Shading)")
+
+
+def _safe_normalize(v: torch.Tensor) -> torch.Tensor:
+    """``v / |v|`` whose gradient stays finite at ``v == 0`` (flat
+    density): the floor under the squared norm has zero derivative
+    (``volrt/diff/render.py:148-153``)."""
+    n2 = (v * v).sum(-1, keepdim=True)
+    return v * torch.rsqrt(n2.clamp(min=1e-24))
+
+
+def _phong(density: torch.Tensor, color: torch.Tensor, pt: torch.Tensor,
+           directions: torch.Tensor, light_pos: torch.Tensor,
+           light_kd: float) -> torch.Tensor:
+    """Gradient Blinn-Phong on a premultiplied ``color (N, 4)``, the
+    semantics of ``renderers.common.phong_shade`` in differentiable form
+    (``volrt/diff/render.py:161-183``): six central-difference taps one
+    voxel to either side, all under autograd."""
+    d_, h_, w_ = density.shape
+    ldir = _safe_normalize(light_pos - pt)
+    comps = []
+    for axis, n in ((0, w_), (1, h_), (2, d_)):
+        off = torch.zeros(3, dtype=torch.float32, device=pt.device)
+        off[axis] = 2.0 / n
+        comps.append(sampling.sample_trilinear_f(density, pt + off)
+                     - sampling.sample_trilinear_f(density, pt - off))
+    nrm = -_safe_normalize(torch.stack(comps, dim=-1))
+    half = _safe_normalize(ldir + _safe_normalize(-directions))
+    # torch.maximum halves the gradient at a tie, as jnp.maximum does;
+    # clamp would pass it whole.
+    zero = torch.zeros((), dtype=torch.float32, device=pt.device)
+    ndl = torch.maximum((nrm * ldir).sum(-1), zero)
+    ndh = torch.maximum((nrm * half).sum(-1), zero)
+    alpha = color[:, 3]
+    lit = (color[:, :3] * (PHONG_KA + light_kd * ndl)[:, None]
+           + (PHONG_KS * ndh ** PHONG_SHININESS * alpha)[:, None])
+    gate = (alpha > SHADE_ALPHA_GATE) & (light_kd > SHADE_KD_GATE)
+    return torch.cat([torch.where(gate[:, None], lit, color[:, :3]),
+                      color[:, 3:4]], dim=-1)
 
 
 def render_diff(scene: DiffScene, origins: torch.Tensor,
@@ -73,10 +116,13 @@ def render_diff(scene: DiffScene, origins: torch.Tensor,
     """Render rays differentiably -> premultiplied RGBA ``(..., 4)``.
 
     ``light_pos`` turns on the reference's gated one-tap diffuse with
-    ``light_kd``, differentiable through both taps. ``esl=True`` and
-    ``phong=True`` raise ``NotImplementedError``.
+    ``light_kd``, differentiable through both taps. ``phong=True``
+    (requires ``light_pos``) replaces it with gradient Blinn-Phong.
+    ``esl=True`` raises ``NotImplementedError``.
     """
-    _unported(esl, phong)
+    _unported(esl)
+    if phong and light_pos is None:
+        raise ValueError("phong=True requires light_pos")
     lead = origins.shape[:-1]
     o = origins.reshape(-1, 3)
     d = directions.reshape(-1, 3)
@@ -91,9 +137,14 @@ def render_diff(scene: DiffScene, origins: torch.Tensor,
         for step in steps[s0:s0 + CHECKPOINT_CHUNK]:
             k = kn + step
             pt = oc + dc * k[:, None]
-            color = classify_and_shade(density, premult, pt,
-                                       light_pos=light_pos,
-                                       light_kd=light_kd)
+            if phong:
+                color = _phong(density,
+                               classify_and_shade(density, premult, pt), pt,
+                               dc, light_pos, light_kd)
+            else:
+                color = classify_and_shade(density, premult, pt,
+                                           light_pos=light_pos,
+                                           light_kd=light_kd)
             mask = alive & (k <= kf)
             acc = acc + torch.where(mask[:, None],
                                     color * (1.0 - acc[:, 3:4]), 0.0)
@@ -121,12 +172,13 @@ def render_diff_image(scene: DiffScene, view: View,
     """Render a full viewport differentiably -> ``f32[H, W, 4]``.
 
     ``shaded=True`` applies the diffuse light tap with the view's light
-    position and ``light_kd``."""
-    _unported(esl, phong)
+    position and ``light_kd``; ``phong=True`` applies gradient Blinn-Phong
+    instead."""
+    _unported(esl)
     origins, directions = rays_mod.get_rays(view)
-    return render_diff(scene, origins, directions, ray_threshold,
-                       light_kd=light_kd,
-                       light_pos=view.light_pos if shaded else None)
+    return render_diff(
+        scene, origins, directions, ray_threshold, light_kd=light_kd,
+        light_pos=view.light_pos if (shaded or phong) else None, phong=phong)
 
 
 def scene_from_volume(volume_u8, tf_base, ray_step: float, *,

@@ -18,7 +18,6 @@ from volrt_torch.core import sampling
 from volrt_torch.core.types import Raycaster
 from volrt_torch.renderers.common import classify_and_shade, composite
 from volrt_torch.renderers.cuda.march import max_steps
-from volrt_torch.renderers.fwd_v3 import check_modes
 
 NAME = "xla-batched"
 
@@ -89,9 +88,11 @@ def march_lockstep(rc: Raycaster, o: torch.Tensor, d: torch.Tensor,
                    alive: torch.Tensor) -> torch.Tensor:
     """March ``N`` rays from ``k0`` in lockstep -> ``f32[N, 4]``
     (``volrt/renderers/batched.py:103-119``). A ray composites while it is
-    alive; ERT or a next ``k`` beyond ``kfar`` ends it."""
-    check_modes(rc)
-    # The tap contributes nothing unless kd passes its gate.
+    alive; ERT or a next ``k`` beyond ``kfar`` ends it. ``rc.shading``
+    is ``"diffuse"`` or ``"phong"``."""
+    if rc.shading not in ("diffuse", "phong"):
+        raise ValueError(f"unknown shading: {rc.shading}")
+    # Neither shading contributes anything unless kd passes its gate.
     light_pos = rc.view.light_pos if rc.light_kd > SHADE_KD_GATE else None
     k = k0
     acc = torch.zeros((o.shape[0], 4), dtype=torch.float32, device=o.device)
@@ -99,7 +100,7 @@ def march_lockstep(rc: Raycaster, o: torch.Tensor, d: torch.Tensor,
         color = classify_and_shade(
             rc.volume.data, rc.transfer_fn, o + d * k[..., None],
             light_pos=light_pos, light_kd=rc.light_kd,
-            interpolation=rc.interpolation)
+            interpolation=rc.interpolation, shading=rc.shading, view_dir=d)
         acc = torch.where(alive[..., None], composite(acc, color), acc)
         k = k + rc.ray_step
         alive = alive & ~(acc[..., 3] > rc.ray_threshold) & (k <= kfar)

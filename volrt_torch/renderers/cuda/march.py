@@ -23,6 +23,9 @@ as rungs 0-1 do instead of ``k0 + i*step``:
 - :func:`march_blocked`: ``blocked.py:_kernel`` (rung 4), over the uint8
   volume, converted on fetch.
 
+The four kernels of the round-1 differentiable routes have their wrappers
+in ``round1.py`` beside this file, on this file's helpers.
+
 On CUDA tensors a wrapper launches its kernel (built at first use) or
 raises; on CPU tensors it runs its plain version (``*_plain``), a lockstep
 torch march built from ``core/sampling`` and ``renderers/common``, which is
@@ -391,17 +394,13 @@ def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
 march_bwd.launches = 0
 
 
-def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
-                    *, ray_step: float, shade: bool, no_ert: bool,
-                    width: int, need_dtf: bool = True,
-                    need_dvol: bool = True
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain torch version of :func:`march_bwd`, same arguments.
+class PlainReplay:
+    """The analytic backward's per-sample step as torch ops, shared by the
+    plain backwards of both lattices (:func:`march_bwd_plain` here, the
+    round-1 pair's in ``round1.py``).
 
-    The analytic backward of ``volrt/renderers/pallas/diff_v3.py:
-    1907-1957``, one lockstep step at a time. With ``T_i`` the
-    transmittance entering sample ``i``, ``c_i`` its colour,
-    ``G = g . out`` and ``P`` the running prefix of
+    With ``T_i`` the transmittance entering sample ``i``, ``c_i`` its
+    colour, ``G = g . out`` and ``P`` the running prefix of
     ``contrib_i = (g . c_i) T_i``::
 
         dL/dc_i.rgb = g.rgb T_i
@@ -410,88 +409,136 @@ def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
 
     where the division is dropped for an opaque sample
     (``1 - c_i.a <= 1e-6``), as the reference guards it. ``dL/dc_i``
-    scatters to the two TF rows of the lerp and, through the TF's slope
-    (and the diffuse tap's ``-kd`` / ``+kd``), to the sample's eight
-    voxels (and the light tap's eight).
+    scatters with ``index_add_`` to the two TF rows of the lerp and,
+    through the TF's slope (and the diffuse tap's ``-kd`` / ``+kd``), to
+    the sample's eight voxels (and the light tap's eight). ``in_range``
+    drops the slope at the TF's end points and for a density outside
+    (0, 1), as the v3 reference's flag does; without it the slope of the
+    clamped rows stands, zero only where they coincide, as round 1 takes
+    it.
+
+    Use: :meth:`start` for a chunk of rays, :meth:`sample` once per
+    lockstep step, :meth:`gradients` at the end.
+    """
+
+    def __init__(self, density, premult_tf, scal, *, shade: bool,
+                 need_dtf: bool, need_dvol: bool, in_range: bool):
+        self.density, self.premult_tf = density, premult_tf
+        self.kd, self.light_pos = scal[1], scal[2:5]
+        self.shade, self.in_range = shade, in_range
+        self.need_dtf, self.need_dvol = need_dtf, need_dvol
+        self.d_density = torch.zeros_like(density)
+        # Every sample of every ray adds to a few of the LUT's 512 entries:
+        # at 1024^2 rays that is 1e8 terms an entry, more than an f32
+        # accumulator can take in without dropping the small ones. The
+        # reference sums them in f64; a voxel's few hundred terms stay f32.
+        self.d_tf = torch.zeros_like(premult_tf, dtype=torch.float64)
+        # slope[i] = (tf[i+1] - tf[i]) * TF_SIZE; the clamped lerp is flat
+        # beyond the last row.
+        self.slope = torch.cat([premult_tf[1:] - premult_tf[:-1],
+                                torch.zeros_like(premult_tf[:1])]) * TF_SIZE
+        self.chan = torch.arange(4, device=density.device)
+
+    def start(self, g: torch.Tensor, out: torch.Tensor) -> None:
+        """Begin a chunk of rays with cotangent ``g`` of the image ``out``."""
+        self.g = g
+        self.big_g = (g * out).sum(-1)
+        self.acc_a = torch.zeros_like(self.big_g)
+        self.prefix = torch.zeros_like(self.big_g)
+
+    def sample(self, pt: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        """Replay the sample at ``pt (N, 3)`` for the rays that are
+        ``active`` and return the opacity composited so far."""
+        density, premult_tf, gc = self.density, self.premult_tf, self.g
+        flat_dv, flat_dtf = self.d_density.view(-1), self.d_tf.view(-1)
+        kd = self.kd
+        s = sampling.sample_trilinear_f(density, pt)
+        color = classify_and_shade(
+            density, premult_tf, pt,
+            light_pos=self.light_pos if self.shade else None, light_kd=kd)
+        m = active.to(torch.float32)
+        t_in = (1.0 - self.acc_a) * m
+        contrib = (gc * color).sum(-1) * t_in
+        s_next = self.big_g - (self.prefix + contrib)
+        self.prefix = self.prefix + contrib
+        denom = 1.0 - color[:, 3]
+        t8 = torch.where(denom > 1e-6,
+                         s_next / denom.clamp(min=1e-6), 0.0) * m
+        dcol = gc * t_in[:, None]
+        dcol = torch.cat([dcol[:, :3], (dcol[:, 3] - t8)[:, None]], -1)
+
+        tc = s * TF_SIZE - 0.5
+        i0 = torch.floor(tc)
+        f = tc - i0
+        i0 = i0.to(torch.int64)
+        lo = i0.clamp(0, TF_SIZE - 1)
+        hi = (i0 + 1).clamp(0, TF_SIZE - 1)
+        if self.need_dtf:
+            flat_dtf.index_add_(
+                0, (lo[:, None] * 4 + self.chan).reshape(-1),
+                (dcol * (1.0 - f)[:, None]).reshape(-1).double())
+            flat_dtf.index_add_(
+                0, (hi[:, None] * 4 + self.chan).reshape(-1),
+                (dcol * f[:, None]).reshape(-1).double())
+        if self.need_dvol:
+            if self.in_range:
+                ds = (self.slope[lo] * dcol).sum(-1) * (
+                    (tc > 0.0) & (tc < TF_SIZE - 1.0) & (s > 0.0) & (s < 1.0))
+            else:
+                ds = ((premult_tf[hi] - premult_tf[lo]) * TF_SIZE
+                      * dcol).sum(-1)
+            if self.shade:
+                gate = ((color[:, 3] > SHADE_ALPHA_GATE)
+                        & (kd > SHADE_KD_GATE))
+                ds2 = torch.where(gate, kd * dcol[:, :3].sum(-1), 0.0)
+                ds = ds - ds2
+                light_dir = normalize(self.light_pos - pt)
+                idx, wgt = sampling.trilinear_taps(
+                    density.shape, pt + light_dir * SHADE_LIGHT_OFFSET)
+                flat_dv.index_add_(0, idx.reshape(-1),
+                                   (wgt * ds2[:, None]).reshape(-1))
+            idx, wgt = sampling.trilinear_taps(density.shape, pt)
+            flat_dv.index_add_(0, idx.reshape(-1),
+                               (wgt * ds[:, None]).reshape(-1))
+
+        self.acc_a = self.acc_a + color[:, 3] * t_in
+        return self.acc_a
+
+    def gradients(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(d_density, d_premult_tf)``, both f32."""
+        return self.d_density, self.d_tf.to(torch.float32)
+
+
+def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
+                    *, ray_step: float, shade: bool, no_ert: bool,
+                    width: int, need_dtf: bool = True,
+                    need_dvol: bool = True
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain torch version of :func:`march_bwd`, same arguments.
+
+    The analytic backward of ``volrt/renderers/pallas/diff_v3.py:
+    1907-1957``, one lockstep step at a time (:class:`PlainReplay`), on the
+    forward's lattice ``k0 + i*ray_step``.
     """
     del width
-    dev = o.device
-    d_density = torch.zeros_like(density)
-    # Every sample of every ray adds to a few of the LUT's 512 entries:
-    # at 1024^2 rays that is 1e8 terms an entry, more than an f32
-    # accumulator can take in without dropping the small ones. The
-    # reference sums them in f64; a voxel's few hundred terms stay f32.
-    d_tf = torch.zeros_like(premult_tf, dtype=torch.float64)
-    flat_dv, flat_dtf = d_density.view(-1), d_tf.view(-1)
+    replay = PlainReplay(density, premult_tf, scal, shade=shade,
+                         need_dtf=need_dtf, need_dvol=need_dvol,
+                         in_range=True)
     steps = torch.arange(max_steps(ray_step), dtype=torch.float32,
-                         device=dev) * ray_step
-    thr, kd, light_pos = scal[0], scal[1], scal[2:5]
-    # slope[i] = (tf[i+1] - tf[i]) * TF_SIZE; the clamped lerp is flat
-    # beyond the last row.
-    slope = torch.cat([premult_tf[1:] - premult_tf[:-1],
-                       torch.zeros_like(premult_tf[:1])]) * TF_SIZE
-    chan = torch.arange(4, device=dev)
+                         device=o.device) * ray_step
+    thr = scal[0]
     for c0 in range(0, o.shape[0], PLAIN_CHUNK):
         sl = slice(c0, c0 + PLAIN_CHUNK)
-        oc, dc, kc, kf, gc = o[sl], d[sl], k0[sl], kfar[sl], g[sl]
+        oc, dc, kc, kf = o[sl], d[sl], k0[sl], kfar[sl]
         live = alive[sl].clone()
-        big_g = (gc * out[sl]).sum(-1)
-        acc_a = torch.zeros_like(kc)
-        prefix = torch.zeros_like(kc)
+        replay.start(g[sl], out[sl])
         for step in steps:
             k = kc + step
             active = live & (k <= kf)
-            pt = oc + dc * k[:, None]
-            s = sampling.sample_trilinear_f(density, pt)
-            color = classify_and_shade(
-                density, premult_tf, pt,
-                light_pos=light_pos if shade else None, light_kd=kd)
-            m = active.to(torch.float32)
-            t_in = (1.0 - acc_a) * m
-            contrib = (gc * color).sum(-1) * t_in
-            s_next = big_g - (prefix + contrib)
-            prefix = prefix + contrib
-            denom = 1.0 - color[:, 3]
-            t8 = torch.where(denom > 1e-6,
-                             s_next / denom.clamp(min=1e-6), 0.0) * m
-            dcol = gc * t_in[:, None]
-            dcol = torch.cat([dcol[:, :3], (dcol[:, 3] - t8)[:, None]], -1)
-
-            tc = s * TF_SIZE - 0.5
-            i0 = torch.floor(tc)
-            f = tc - i0
-            i0 = i0.to(torch.int64)
-            lo = i0.clamp(0, TF_SIZE - 1)
-            hi = (i0 + 1).clamp(0, TF_SIZE - 1)
-            if need_dtf:
-                flat_dtf.index_add_(
-                    0, (lo[:, None] * 4 + chan).reshape(-1),
-                    (dcol * (1.0 - f)[:, None]).reshape(-1).double())
-                flat_dtf.index_add_(
-                    0, (hi[:, None] * 4 + chan).reshape(-1),
-                    (dcol * f[:, None]).reshape(-1).double())
-            if need_dvol:
-                in_range = ((tc > 0.0) & (tc < TF_SIZE - 1.0)
-                            & (s > 0.0) & (s < 1.0))
-                ds = (slope[lo] * dcol).sum(-1) * in_range
-                if shade:
-                    gate = ((color[:, 3] > SHADE_ALPHA_GATE)
-                            & (kd > SHADE_KD_GATE))
-                    ds2 = torch.where(gate, kd * dcol[:, :3].sum(-1), 0.0)
-                    ds = ds - ds2
-                    light_dir = normalize(light_pos - pt)
-                    idx, wgt = sampling.trilinear_taps(
-                        density.shape, pt + light_dir * SHADE_LIGHT_OFFSET)
-                    flat_dv.index_add_(0, idx.reshape(-1),
-                                       (wgt * ds2[:, None]).reshape(-1))
-                idx, wgt = sampling.trilinear_taps(density.shape, pt)
-                flat_dv.index_add_(0, idx.reshape(-1),
-                                   (wgt * ds[:, None]).reshape(-1))
-
-            acc_a = acc_a + color[:, 3] * t_in
+            acc_a = replay.sample(oc + dc * k[:, None], active)
             if not no_ert:
                 live &= ~(active & (acc_a > thr))
-    return d_density, d_tf.to(torch.float32)
+    return replay.gradients()
 
 
 def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,

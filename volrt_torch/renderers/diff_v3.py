@@ -20,7 +20,8 @@ from volrt_torch.renderers import fwd_v3
 from volrt_torch.renderers.cuda.march import MarchFunction, l2_step
 
 
-def _unported(fast: bool, esl: bool, phong: bool) -> None:
+def check_modes(fast: bool, esl: bool, phong: bool) -> None:
+    """Refuse the modes the march kernels do not have yet."""
     if fast:
         raise NotImplementedError(
             "fast (bf16) storage is not ported yet (ROADMAP.md, queue 2, "
@@ -30,7 +31,8 @@ def _unported(fast: bool, esl: bool, phong: bool) -> None:
             "esl=True is not ported yet (ROADMAP.md, queue 1: ESL)")
     if phong:
         raise NotImplementedError(
-            "phong shading is not ported yet (ROADMAP.md, queue 1: Shading)")
+            "phong is not a mode of the march kernels yet (ROADMAP.md, "
+            "queue 1: Shading); diff.render.render_diff_image has it")
 
 
 def render_view_v3(density: torch.Tensor, premult_tf: torch.Tensor,
@@ -57,7 +59,7 @@ def render_image_v3_with_ovf(scene: DiffScene, view: View,
                              shaded: bool = False, phong: bool = False
                              ) -> tuple[torch.Tensor, float]:
     """As :func:`render_image_v3` but also returns the overflow count."""
-    _unported(fast, esl, phong)
+    check_modes(fast, esl, phong)
     return render_view_v3(scene.density, scene.premult_tf(), scene.ray_step,
                           view, ray_threshold, light_kd, shaded)
 
@@ -97,7 +99,7 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
     return zeros for it. The TF gradient is chained from the premultiplied
     LUT's to ``tf_base`` here, as ``volrt``'s does it in XLA.
     """
-    _unported(fast, esl, phong)
+    check_modes(fast, esl, phong)
     w, h = view.dims
     scale = 2.0 / (float(h) * float(w) * 4.0)
     with torch.no_grad():

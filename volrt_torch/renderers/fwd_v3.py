@@ -44,10 +44,11 @@ def render_float(rc: Raycaster, fast: bool = False
 
 
 def check_modes(rc: Raycaster, fast: bool = False) -> None:
-    """Refuse the modes no kernel of the port has yet."""
+    """Refuse the modes no kernel of the port has yet (rungs 2-5)."""
     if rc.shading == "phong":
         raise NotImplementedError(
-            "phong shading is not ported yet (ROADMAP.md, queue 1: Shading)")
+            "phong is not a mode of the march kernels yet (ROADMAP.md, "
+            "queue 1: Shading); rungs 0-1 render it")
     if rc.shading != "diffuse":
         raise ValueError(f"unknown shading: {rc.shading}")
     if fast:

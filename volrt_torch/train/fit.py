@@ -114,13 +114,15 @@ def fit(
     trains through the one-launch L2 step kernel
     (``l2_loss_grads_v3_onepass``), which skips the scatter of a frozen
     leaf; ``fused=False`` through autograd of the plain torch march
-    (``render_diff_image``). ``shading`` is ``None`` or ``"diffuse"``.
+    (``render_diff_image``). ``shading`` is ``None``, ``"diffuse"`` or
+    ``"phong"`` (gradient Blinn-Phong, through autograd only).
 
     Not ported yet, each raising ``NotImplementedError``: ``mesh`` and
     ``volume_sharded`` (ROADMAP.md, queue 1: ``dist/``), ``grad_chunks``
     (ROADMAP.md, "Do not port"), ``esl`` (queue 1: ESL),
     ``checkpoint_path`` (queue 1: ``train/checkpoint.py``) and
-    ``shading="phong"`` (queue 1: Shading).
+    ``shading="phong"`` with ``fused=True`` (queue 1: Shading, the
+    kernels' phong mode).
     """
     for name, given, item in (
             ("mesh", mesh is not None, "queue 1: dist/"),
@@ -130,14 +132,15 @@ def fit(
             ("esl", esl, "queue 1: ESL"),
             ("checkpoint_path", checkpoint_path is not None,
              "queue 1: train/checkpoint.py"),
-            ('shading="phong"', shading == "phong", "queue 1: Shading")):
+            ('shading="phong", fused=True', shading == "phong" and fused,
+             "queue 1: Shading")):
         if given:
             raise NotImplementedError(
                 f"fit({name}) is not ported yet (ROADMAP.md, {item})")
-    if shading not in (None, "diffuse"):
+    if shading not in (None, "diffuse", "phong"):
         raise ValueError(f"unknown shading mode: {shading!r}")
-    shaded = shading == "diffuse"
-    kd = light_kd if shaded else 0.0
+    shaded, phong = shading == "diffuse", shading == "phong"
+    kd = light_kd if shading else 0.0
 
     loss_grads_fn = None
     if fused:
@@ -147,7 +150,8 @@ def fit(
                 need_dvol=train_density, shaded=shaded, light_kd=light_kd)
 
     def loss_fn(scene, view, target):
-        img = render_diff_image(scene, view, light_kd=kd, shaded=shaded)
+        img = render_diff_image(scene, view, light_kd=kd, shaded=shaded,
+                                phong=phong)
         return torch.mean((img - target) ** 2)
 
     train_step = make_train_step(loss_fn, train_density, train_tf,
