@@ -25,12 +25,20 @@ Phases, each synchronised with the card, none catching its own failure:
    torch versions and against autograd through the plain torch march
    (``render_diff_image``) at 32^3 / 64^2, in phase 3's modes, with a
    seeded non-zero target and cotangent, and check that a leaf that needs
-   no gradient gets zeros while the other's is unchanged;
+   no gradient gets zeros while the other's is unchanged; then the two
+   step kernels' warp-level scatter where it is hardest: ``march_bwd`` and
+   ``l2_step``, each in its three ``need_*`` variants, against their plain
+   versions on a uniform-noise density (32^3 / 64^2) and on a ragged 61 x 47
+   viewport, orthographic and perspective, in phase 3's modes, ``l2_step``'s
+   image equal to the plain one to the bit unshaded;
 7. drive the training path's step at full width: ``bench_diff_step(256,
    1024)`` through the forward and backward kernels under autograd, then
    through the one-launch kernel, the launch counters reset before each
-   and read after; hold the one-launch gradients against the plain version
-   at full width; time both kernels and their plain versions;
+   and read after; hold both kernels' gradients against the plain version
+   at full width, ``l2_step``'s image to the bit; time both kernels, their
+   ``need_*`` variants and their plain versions; then the same holds and
+   times on the 256^3 uniform-noise density under the same pose and TF,
+   whose warps spread over the TF's rows;
 8. run the trainer: ``cli fit --fused --train both`` at 256^3 / 1024^2 for
    8 steps, ``cli fit`` through autograd at 64^3 / 128^2, and ``cli
    bench``. A fit cycles through four views whose losses differ by a
@@ -120,7 +128,8 @@ from volrt_torch.core.types import (
     Volume, default_ray_step, make_raycaster)
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
-from volrt_torch.diff.render import render_diff_image, scene_from_volume
+from volrt_torch.diff.render import (
+    render_diff_image, scene_from_arrays, scene_from_volume)
 from volrt_torch.renderers import (
     batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
 from volrt_torch.renderers.cuda.march import (
@@ -201,6 +210,12 @@ ATOL_NEAREST = 1e-6
 ATOL_RUNG5 = 2e-4
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "tests", "assets", "shell32.pvm")
+# The step kernels' adversary: a uniform-noise density, whose samples spread
+# a warp's lanes over many TF rows (scene b of volrt_torch/bench/step_ab.py).
+NOISE_SEED = 5
+# The step kernels' leaf-skipping variants: (label, keywords).
+NEEDS = (("", {}), (" need_dtf=False", {"need_dtf": False}),
+         (" need_dvol=False", {"need_dvol": False}))
 SMALL_MODES = (  # (label, light_kd, ray_threshold, atol)
     ("unshaded, ERT off", 0.0, 2.0, ATOL_UNSHADED),
     ("unshaded, ERT 0.95", 0.0, 0.95, ATOL_UNSHADED),
@@ -376,15 +391,17 @@ def phase_cli() -> None:
 
 
 def _hold(tag: str, what: str, got: torch.Tensor, want: torch.Tensor,
-          rtol: float) -> float:
-    """Assert ``max|got - want| <= rtol * max|want|`` and print both."""
+          rtol: float, quiet: bool = False) -> float:
+    """Assert ``max|got - want| <= rtol * max|want|`` and print both, unless
+    ``quiet``. Returns the difference."""
     assert torch.isfinite(got).all(), f"{tag}: non-finite {what}"
     err = (got - want).abs().max().item()
     top = want.abs().max().item()
-    print(f"{tag} {what}: max|diff| = {err:.3g}, max|ref| = {top:.3g} "
-          f"(tol {rtol:g} of it = {rtol * top:.3g})")
+    if not quiet:
+        print(f"{tag} {what}: max|diff| = {err:.3g}, max|ref| = {top:.3g} "
+              f"(tol {rtol:g} of it = {rtol * top:.3g})")
     assert top > 0, f"{tag}: the reference {what} is all zero"
-    assert err <= rtol * top, f"{tag}: {what} disagrees: {err}"
+    assert err <= rtol * top, f"{tag}: {what} disagrees: {err} of {top}"
     return err
 
 
@@ -484,6 +501,91 @@ def phase_small_grads(dev: torch.device) -> None:
                   g_one["tf_base"], rtol)
 
 
+def _noise_scene(n: int, ray_step: float, dev: torch.device):
+    """A uniform-noise f32 density of ``n^3`` (numpy, ``NOISE_SEED``)
+    under the default TF."""
+    noise = np.random.default_rng(NOISE_SEED).uniform(
+        0.0, 1.0, (n, n, n)).astype(np.float32)
+    return scene_from_arrays(noise, default_transfer_fn("cpu").numpy(),
+                             ray_step, device=dev)
+
+
+def _hold_image(got: torch.Tensor, want: torch.Tensor, shaded: bool) -> float:
+    """Assert the kernel's image equals the plain one to the bit unshaded,
+    within ``ATOL_DIFFUSE`` with the tap; return the difference."""
+    assert torch.isfinite(got).all(), "non-finite image"
+    err = (got - want).abs().max().item()
+    assert err <= ATOL_DIFFUSE if shaded else torch.equal(got, want), err
+    return err
+
+
+def phase_small_adversaries(dev: torch.device) -> None:
+    """The step kernels' warp-level scatter against the plain versions
+    where it is hardest: the noise scene, whose lanes spread over many TF
+    rows, and a ragged 61 x 47 viewport, whose edge blocks run partial
+    warps and lanes with no ray; every leaf-skipping variant too."""
+    rng = np.random.default_rng(13)
+    for name, scene, dims in (
+            ("noise 32^3/64^2", _noise_scene(32, 0.06, dev), (64, 64)),
+            ("ragged 32^3/61x47",
+             scene_from_volume(synthetic_volume(32), default_transfer_fn(dev),
+                               0.06, device=dev), (61, 47))):
+        n = dims[0] * dims[1]
+        tgt = torch.tensor(rng.uniform(0, 1, (n, 4)).astype(np.float32),
+                           device=dev)
+        for persp in (False, True):
+            cam = Camera(dims=dims, perspective=persp)
+            cam.toggle_perspective(update_mode=True)
+            cam.set_camera_position((30.0, 20.0, 0.0))
+            view = cam.view(dev)
+            for label, kd, thr, _ in SMALL_MODES:
+                shaded = kd > 0
+                rtol = RTOL_GRAD_DIFFUSE if shaded else RTOL_GRAD
+                tag = (f"[adversary] {name} {'persp' if persp else 'ortho'}, "
+                       f"{label}:")
+                with torch.no_grad():
+                    args, kw = fwd_v3.ray_args(
+                        view, scene.density, scene.premult_tf(),
+                        scene.ray_step, thr, kd, loss_scale=2.0 / (n * 4))
+                    out = march_fwd(*args, **kw)
+                    # The L2 step's own cotangent, so that one plain step
+                    # holds both kernels.
+                    g = (out - tgt) * (args[7][6] * args[4][:, None])
+                    before = march_bwd.launches, l2_step.launches
+                    bwd = [march_bwd(*args, out, g, **kw, **need)
+                           for _, need in NEEDS]
+                    l2 = [l2_step(*args, tgt, **kw, **need)
+                          for _, need in NEEDS]
+                    _sync()
+                    assert (march_bwd.launches, l2_step.launches) == (
+                        before[0] + 3, before[1] + 3), "a kernel not launched"
+                    want = l2_step_plain(*args, tgt, **kw)
+                img_err = _hold_image(l2[0][0], want[0], shaded)
+                worst = {}
+                for (what, need), got_bwd, got_l2 in zip(NEEDS, bwd, l2):
+                    for kernel, grads in (("march_bwd", got_bwd),
+                                          ("l2_step", got_l2[1:])):
+                        for leaf, got, r, skipped in (
+                                ("d_density", grads[0], want[1],
+                                 need.get("need_dvol") is False),
+                                ("d_premult_tf", grads[1], want[2],
+                                 need.get("need_dtf") is False)):
+                            if skipped:
+                                assert not got.any(), f"{tag} {kernel}{what}"
+                            else:
+                                err = _hold(tag, f"{kernel}{what} {leaf}",
+                                            got, r, rtol, quiet=True)
+                                key = (kernel, leaf)
+                                worst[key] = max(worst.get(key, 0.0),
+                                                 err / r.abs().max().item())
+                print(f"{tag} l2_step image max|kernel-plain| {img_err:.3g} "
+                      f"({'atol ' + str(ATOL_DIFFUSE) if shaded else 'equal'}"
+                      f"); gradients' max|kernel-plain| / max|plain| over "
+                      f"the three need variants (rtol {rtol:g}): "
+                      + ", ".join(f"{k} {leaf} {v:.3g}"
+                                  for (k, leaf), v in worst.items()))
+
+
 def _spread(times: list) -> str:
     return (f"median {np.median(times):.4f} ms over {len(times)} calls "
             f"(min {min(times):.4f}, max {max(times):.4f})")
@@ -521,26 +623,21 @@ def phase_step(dev: torch.device) -> dict:
 
     # The bench's inputs again, for the kernels alone.
     scene, view, target = diff_bench_scene(256, 1024, device=dev)
+    tgt = target.reshape(-1, 4)
     with torch.no_grad():
         args, kw = fwd_v3.ray_args(
             view, scene.density, scene.premult_tf(), scene.ray_step,
             2.0, 0.0, loss_scale=2.0 / (1024 * 1024 * 4))
-        tgt = target.reshape(-1, 4)
         out, d_vol, d_tf = l2_step(*args, tgt, **kw)
         g = out * args[7][6]
         b_vol, b_tf = march_bwd(*args, out, g, **kw)
         _sync()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        start.record()
-        p_out, p_vol, p_tf = l2_step_plain(*args, tgt, **kw)
-        end.record()
-        _sync()
-        l2_plain_ms = start.elapsed_time(end)
+        (p_out, p_vol, p_tf), l2_plain_ms = _once(
+            lambda: l2_step_plain(*args, tgt, **kw))
         tag = "[step] 256^3/1024^2"
-        err_img = (out - p_out).abs().max().item()
+        err_img = _hold_image(out, p_out, shaded=False)
         print(f"{tag} l2_step image vs plain: max|diff| = {err_img:.3g} "
-              f"(atol {ATOL_UNSHADED:g})")
-        assert err_img <= ATOL_UNSHADED
+              f"(bit-equal)")
         err_l2 = max(
             _hold(tag, "l2_step d_density vs plain", d_vol, p_vol, RTOL_GRAD),
             _hold(tag, "l2_step d_premult_tf vs plain", d_tf, p_tf,
@@ -550,37 +647,78 @@ def phase_step(dev: torch.device) -> dict:
                   RTOL_GRAD),
             _hold(tag, "march_bwd d_premult_tf vs plain", b_tf, p_tf,
                   RTOL_DTF_WIDE))
-        bwd_plain = time_cuda(
-            lambda: march_bwd_plain(*args, out, g, **kw), 1)
-        t_bwd = time_cuda(lambda: march_bwd(*args, out, g, **kw), 20)
-        t_l2 = time_cuda(lambda: l2_step(*args, tgt, **kw), 20)
-        t_fwd = time_cuda(lambda: march_fwd(*args, **kw), 20)
-        t_no_tf = time_cuda(
-            lambda: l2_step(*args, tgt, need_dtf=False, **kw), 10)
-        t_no_vol = time_cuda(
-            lambda: l2_step(*args, tgt, need_dvol=False, **kw), 10)
+        _, bwd_plain_ms = _once(lambda: march_bwd_plain(*args, out, g, **kw))
+        t = _step_times(args, kw, tgt, out, g)
         t_zero = time_cuda(lambda: torch.zeros_like(args[5]), 20)
     bound_bwd = _bound(args, kw, FLOPS_BWD, images=2, grads=True)
     bound_l2 = _bound(args, kw, FLOPS_FWD + FLOPS_BWD, images=2, grads=True)
-    print(f"[step] march_bwd (zero-fill and kernel) {_spread(t_bwd)}; plain "
-          f"{bwd_plain[0]:.2f} ms; bound {bound_bwd['bound_ms']:.4f} ms by "
-          f"{bound_bwd['bound_by']}")
-    print(f"[step] l2_step (zero-fill and kernel) {_spread(t_l2)}; plain "
-          f"{l2_plain_ms:.2f} ms; bound {bound_l2['bound_ms']:.4f} ms by "
-          f"{bound_l2['bound_by']}")
-    print(f"[step] beside them, same inputs: march_fwd {_spread(t_fwd)}; "
-          f"l2_step need_dtf=False {_spread(t_no_tf)}; need_dvol=False "
-          f"{_spread(t_no_vol)}; the 64 MiB zero-fill {_spread(t_zero)}")
+    print(f"[step] march_bwd (zero-fill and kernel) {_spread(t['march_bwd'])}"
+          f"; plain {bwd_plain_ms:.2f} ms; bound {bound_bwd['bound_ms']:.4f} "
+          f"ms by {bound_bwd['bound_by']}")
+    print(f"[step] l2_step (zero-fill and kernel) {_spread(t['l2_step'])}; "
+          f"plain {l2_plain_ms:.2f} ms; bound {bound_l2['bound_ms']:.4f} ms "
+          f"by {bound_l2['bound_by']}")
+    print(f"[step] beside them, same inputs: {_spread_all(t)}; the 64 MiB "
+          f"zero-fill {_spread(t_zero)}")
+
+    # The scatter's adversary at full width: the noise density under the
+    # same pose and TF, whose lanes spread over the TF's rows.
+    scene_b = _noise_scene(256, scene.ray_step, dev)
+    tag = "[step] noise 256^3/1024^2"
+    with torch.no_grad():
+        args, kw = fwd_v3.ray_args(
+            view, scene_b.density, scene_b.premult_tf(), scene_b.ray_step,
+            2.0, 0.0, loss_scale=2.0 / (1024 * 1024 * 4))
+        out, d_vol, d_tf = l2_step(*args, tgt, **kw)
+        g = out * args[7][6]
+        b_vol, b_tf = march_bwd(*args, out, g, **kw)
+        p_out, p_vol, p_tf = l2_step_plain(*args, tgt, **kw)
+        _sync()
+        print(f"{tag} l2_step image vs plain: max|diff| = "
+              f"{_hold_image(out, p_out, shaded=False):.3g} (bit-equal)")
+        _hold(tag, "l2_step d_density vs plain", d_vol, p_vol, RTOL_GRAD)
+        _hold(tag, "l2_step d_premult_tf vs plain", d_tf, p_tf, RTOL_DTF_WIDE)
+        _hold(tag, "march_bwd d_density vs plain", b_vol, p_vol, RTOL_GRAD)
+        _hold(tag, "march_bwd d_premult_tf vs plain", b_tf, p_tf,
+              RTOL_DTF_WIDE)
+        print(f"{tag}: {_spread_all(_step_times(args, kw, tgt, out, g))}")
     return {
         "two_kernel_ms": two["ms"],
         "march_bwd": {"launches": bwd_launches, "max_abs_err": err_bwd,
-                      "ms": float(np.median(t_bwd)),
-                      "plain_ms": bwd_plain[0], **bound_bwd,
+                      "ms": float(np.median(t["march_bwd"])),
+                      "plain_ms": bwd_plain_ms, **bound_bwd,
                       "library_ms": None},
         "l2_step": {"launches": n_l2, "max_abs_err": err_l2,
-                    "ms": float(np.median(t_l2)), "plain_ms": l2_plain_ms,
-                    **bound_l2, "library_ms": None},
+                    "ms": float(np.median(t["l2_step"])),
+                    "plain_ms": l2_plain_ms, **bound_l2, "library_ms": None},
     }
+
+
+def _once(fn):
+    """``(fn(), device ms)`` of one call."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    start.record()
+    out = fn()
+    end.record()
+    _sync()
+    return out, start.elapsed_time(end)
+
+
+def _step_times(args, kw, tgt, out, g) -> dict:
+    """Device times of the step kernels and their leaf-skipping variants,
+    and of the forward, on one scene's inputs (with zero-fills)."""
+    t = {"march_fwd": time_cuda(lambda: march_fwd(*args, **kw), 20)}
+    for what, need in NEEDS:
+        iters = 20 if not need else 10
+        t["l2_step" + what] = time_cuda(
+            lambda: l2_step(*args, tgt, **need, **kw), iters)
+        t["march_bwd" + what] = time_cuda(
+            lambda: march_bwd(*args, out, g, **need, **kw), iters)
+    return t
+
+
+def _spread_all(times: dict) -> str:
+    return "; ".join(f"{k} {_spread(v)}" for k, v in times.items())
 
 
 def _cli_fit(argv: list) -> list:
@@ -1101,25 +1239,35 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    phase_card()
-    phase_build()
-    phase_small(dev)
-    fwd = phase_main(dev)
-    phase_cli()
-    phase_small_grads(dev)
-    step = phase_step(dev)
-    phase_trainer()
-    phase_ladder_small(dev)
-    ladder = phase_ladder_main(dev, fwd.pop("frame"))
-    phase_ladder_cli()
-    phase_round1_small(dev)
-    round1 = phase_round1_main(dev, step["two_kernel_ms"])
-    phase_phong(dev)
+    seconds = {}
+
+    def run(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__[6:]] = time.perf_counter() - t
+        return out
+
+    run(phase_card)
+    run(phase_build)
+    run(phase_small, dev)
+    fwd = run(phase_main, dev)
+    run(phase_cli)
+    run(phase_small_grads, dev)
+    run(phase_small_adversaries, dev)
+    step = run(phase_step, dev)
+    run(phase_trainer)
+    run(phase_ladder_small, dev)
+    ladder = run(phase_ladder_main, dev, fwd.pop("frame"))
+    run(phase_ladder_cli)
+    run(phase_round1_small, dev)
+    round1 = run(phase_round1_main, dev, step["two_kernel_ms"])
+    run(phase_phong, dev)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
-    print(f"[done] all phases in {time.perf_counter() - t0:.1f} s, "
-          "no jax module imported")
+    print(f"[done] all phases in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + "), no jax module imported")
     pallas = "volrt/renderers/pallas/diff_v3.py"
     print(json.dumps({"kernels": [
         {"name": "march_fwd", "route": "cuda",

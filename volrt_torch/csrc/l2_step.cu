@@ -16,13 +16,13 @@
 // the gradient of L = sum((C - tgt)^2) * scale / 2, the image's mean
 // square error (diff_v3.py:2428-2433).
 //
-// What bounds it on the card: as march_bwd.cu, the atomic scatter of dVol
-// and the shared-memory adds of dTF; the forward march and the second
-// gather of the replay are a small share beside them. Against the
-// two-launch route it saves the image's trip through device memory, the
-// separate cotangent kernels and one launch, which is little next to the
-// scatter: the one launch is kept because it is the step the trainer
-// takes, not because it is much faster.
+// What bounds it on the card: as march_bwd.cu, now the two marches: the
+// forward and the replay's second gather are some 3 of its 5.6 ms at
+// 256^3 / 1024^2 on the benchmark pose, the warp-level scatter the rest
+// (PERF.md, section 6). Against the two-launch route it saves the image's
+// trip through device memory, the separate cotangent kernels and one
+// launch, which is little: the one launch is kept because it is the step
+// the trainer takes, not because it is much faster.
 
 #include "march_common.cuh"
 
@@ -34,17 +34,20 @@ template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
     MarchArgs a, const float* tgt, float* out, GradArgs gr) {
   __shared__ float lut[TF_SIZE][4];
-  __shared__ float dtf[NEED_DTF ? TF_SIZE : 1][4];
+  __shared__ float dtf[NEED_DTF ? WARPS * TF_SIZE : 1][4];
   stage_lut(a, lut);
-  if (NEED_DTF) clear_dtf(dtf);
+  if (NEED_DTF) clear_dtf(dtf, WARPS);
   __syncthreads();
 
   const int r = ray_index(a);
+  bool live = false;
+  Ray ray{};
+  Light li{};
+  float g4[4] = {0.f, 0.f, 0.f, 0.f};
+  float G = 0.f;
   if (r >= 0) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const bool live = a.alive[r];
-    Ray ray{};
-    Light li{};
+    live = a.alive[r];
     if (live) {
       ray = load_ray(a, r);
       li = load_light(a);
@@ -55,19 +58,25 @@ __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
       // A dead ray seeds no cotangent (diff_v3.py:2428-2432).
       const float4 t = reinterpret_cast<const float4*>(tgt)[r];
       const float scale = a.scal[6];
-      const float g4[4] = {mul(sub(acc[0], t.x), scale), mul(sub(acc[1], t.y), scale),
-                           mul(sub(acc[2], t.z), scale), mul(sub(acc[3], t.w), scale)};
-      if (g4[0] != 0.f || g4[1] != 0.f || g4[2] != 0.f || g4[3] != 0.f) {
-        const float G = add(add(add(mul(g4[0], acc[0]), mul(g4[1], acc[1])),
-                                mul(g4[2], acc[2])), mul(g4[3], acc[3]));
-        march_replay<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>(
-            a, lut, dtf, gr.d_vol, ray, li, g4, G);
-      }
+      g4[0] = mul(sub(acc[0], t.x), scale);
+      g4[1] = mul(sub(acc[1], t.y), scale);
+      g4[2] = mul(sub(acc[2], t.z), scale);
+      g4[3] = mul(sub(acc[3], t.w), scale);
+      G = add(add(add(mul(g4[0], acc[0]), mul(g4[1], acc[1])),
+                  mul(g4[2], acc[2])), mul(g4[3], acc[3]));
+      // A ray with no cotangent sends no gradient anywhere.
+      live = g4[0] != 0.f || g4[1] != 0.f || g4[2] != 0.f || g4[3] != 0.f;
     }
+  }
+  if (NEED_DTF || NEED_DVOL) {
+    // The whole warp, lanes with no ray to replay too (march_replay).
+    march_replay<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>(
+        a, lut, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G,
+        live);
   }
   if (NEED_DTF) {
     __syncthreads();
-    flush_dtf(dtf, gr.d_tf);
+    flush_dtf(dtf, WARPS, gr.d_tf);
   }
 }
 

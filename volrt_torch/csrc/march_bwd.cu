@@ -10,18 +10,23 @@
 // it belongs, so none of the flush passes, flush boxes or lost-row counters
 // exist.
 //
-// What bounds it on the card: the scatter, not the gather. Every
-// composited sample adds to eight voxels with atomicAdd (sixteen with the
-// diffuse tap) and to two TF rows. The 16x16 pixel block that makes the
-// forward's loads hit in cache makes the backward's adds collide: on a
-// pose where a block's rays cover a few voxel columns, 256 threads add to
-// the same few dozen addresses at every step, and the L2's atomic units
-// serialise them. What the design does about it so far: dTF goes to a
-// [TF_SIZE][4] accumulator in shared memory and reaches device memory as
-// one atomic per touched entry per block; samples whose density cotangent
-// is exactly zero (a flat stretch of the TF) skip their eight adds; the
-// forward is replayed, not stored, so no per-sample state crosses device
-// memory. Warp-aggregated adds and privatised tiles are later work.
+// What bounds it on the card. Every composited sample adds to two TF rows
+// and, where the TF has a slope, to eight voxels (sixteen with the diffuse
+// tap). The 16x16 pixel block that makes the forward's loads hit in cache
+// makes those adds collide: a warp's lanes sample neighbouring pixels at
+// the same step, so they land on a few TF rows and a few voxels, and adds
+// to one address serialise (a float add to shared memory is a
+// compare-and-swap loop on this card). The scatter is march_common.cuh's
+// kWarp: the lanes that add to one TF row or one trilinear cell sum among
+// themselves first (__match_any_sync and a shuffle tree) and one lane adds,
+// dTF with plain adds into the warp's own copy of the block's accumulator
+// (one atomic per touched entry per block at the end), dVol with global
+// atomics. For that the warp's lanes replay in one loop until its last ray
+// ends, so every collective takes the full warp. Samples whose density
+// cotangent is exactly zero (a flat stretch of the TF) add nothing to dVol;
+// the forward is replayed, not stored. What is left on the benchmark pose
+// is the replay's gather, about as long as the forward march, and the
+// scatter's shuffles (PERF.md, section 6).
 
 #include "march_common.cuh"
 
@@ -33,27 +38,39 @@ template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) march_bwd_kernel(
     MarchArgs a, const float* out, const float* g, GradArgs gr) {
   __shared__ float lut[TF_SIZE][4];
-  __shared__ float dtf[NEED_DTF ? TF_SIZE : 1][4];
+  __shared__ float dtf[NEED_DTF ? WARPS * TF_SIZE : 1][4];
   stage_lut(a, lut);
-  if (NEED_DTF) clear_dtf(dtf);
+  if (NEED_DTF) clear_dtf(dtf, WARPS);
   __syncthreads();
 
   const int r = ray_index(a);
-  if (r >= 0 && a.alive[r]) {
+  bool live = r >= 0 && a.alive[r];
+  Ray ray{};
+  Light li{};
+  float g4[4] = {0.f, 0.f, 0.f, 0.f};
+  float G = 0.f;
+  if (live) {
     const float4 gv = reinterpret_cast<const float4*>(g)[r];
     // A ray with no cotangent sends no gradient anywhere.
-    if (gv.x != 0.f || gv.y != 0.f || gv.z != 0.f || gv.w != 0.f) {
+    live = gv.x != 0.f || gv.y != 0.f || gv.z != 0.f || gv.w != 0.f;
+    if (live) {
       const float4 c = reinterpret_cast<const float4*>(out)[r];
-      const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
-      const float G = add(add(add(mul(gv.x, c.x), mul(gv.y, c.y)),
-                              mul(gv.z, c.z)), mul(gv.w, c.w));
-      march_replay<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>(
-          a, lut, dtf, gr.d_vol, load_ray(a, r), load_light(a), g4, G);
+      g4[0] = gv.x;
+      g4[1] = gv.y;
+      g4[2] = gv.z;
+      g4[3] = gv.w;
+      G = add(add(add(mul(gv.x, c.x), mul(gv.y, c.y)), mul(gv.z, c.z)),
+              mul(gv.w, c.w));
+      ray = load_ray(a, r);
+      li = load_light(a);
     }
   }
+  // The whole warp, lanes with no ray to replay too (march_replay).
+  march_replay<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>(
+      a, lut, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G, live);
   if (NEED_DTF) {
     __syncthreads();
-    flush_dtf(dtf, gr.d_tf);
+    flush_dtf(dtf, WARPS, gr.d_tf);
   }
 }
 

@@ -240,21 +240,170 @@ __device__ __forceinline__ void march_forward(const MarchArgs& a,
   }
 }
 
-// ds times the eight trilinear weights, added to the eight taps. Two taps
-// that clamp to one voxel add twice, as the forward read it twice.
-__device__ __forceinline__ void scatter_taps(float* dv, const Taps& t,
-                                             float ds) {
+// How a replayed sample's adds to dTF and dVol reach memory.
+//
+// kLane: every lane adds its own, 8 shared-memory atomics into the block's
+// dTF and 8 global atomics into dVol (16 with the diffuse tap). A warp's
+// lanes sample neighbouring pixels at the same step, so their adds land on
+// few addresses: on the benchmark pose a warp-step's 31 live lanes hit some
+// 7 TF rows (10 lanes on the busiest) and each tap's adds land on 5 voxels
+// (volrt_torch/bench/scatter_stats.py). Adds to one address serialise, and
+// a float add to shared memory is a compare-and-swap loop on this card
+// (ATOMS.CAST.SPIN), so the shared ones cost most.
+//
+// kWarp: the lanes group by destination with __match_any_sync, sum within
+// each group in a shuffle tree (reduce_peers), and the group's lowest lane
+// adds once. dTF groups by TF row lo, into the warp's own copy of the
+// block's dTF with plain adds (no two leaders of a warp share a row, and no
+// other warp writes the copy); dVol groups by the sample's trilinear cell,
+// and the leader adds the cell's eight sums with global atomics. On a warp
+// whose lanes all differ (a noise volume's TF rows) no shuffle round runs.
+// Every lane of the warp calls the kWarp functions together: march_replay
+// keeps the warp in one loop until its last ray ends, and a lane that adds
+// nothing (its ray ended or never started, or its sample has no density
+// cotangent) takes part with `add` false. So every collective takes the
+// full warp, and the plain adds cannot race with another subset of the
+// warp.
+//
+// Only the order of the sums differs between the two; kLane is kept for the
+// round-1 kernels (march_round1.cu).
+enum class Scatter { kLane, kWarp };
+
+constexpr unsigned FULL_WARP = 0xffffffffu;
+constexpr int WARPS = TILE * TILE / 32;  // warps a block, dTF copies a block
+
+__device__ __forceinline__ int lane_id() {
+  return (threadIdx.y * TILE + threadIdx.x) & 31;
+}
+
+// The warp's own [TF_SIZE][4] copy of the block's dTF accumulator.
+__device__ __forceinline__ auto warp_dtf(float (*dtf)[4]) -> float (*)[4] {
+  return dtf + (threadIdx.y * TILE + threadIdx.x) / 32 * TF_SIZE;
+}
+
+// Sums v over `peers`, this lane's group (from __match_any_sync), into the
+// group's lowest lane and returns true there. A pairwise tree over the
+// group's ranks: each round, a lane adds the value of its next remaining
+// peer above it, and the lanes of odd rank drop out; ceil(log2(largest
+// group in the warp)) rounds of N shuffles. The whole warp calls it.
+template <int N>
+__device__ __forceinline__ bool reduce_peers(unsigned peers, float (&v)[N]) {
+  const int lane = lane_id();
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  const bool leader = rank == 0;
+  unsigned above = peers & ~((2u << lane) - 1u);
+  while (__any_sync(FULL_WARP, above != 0u)) {
+    const int next = __ffs(above) - 1;
+    const int src = next < 0 ? lane : next;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float t = __shfl_sync(FULL_WARP, v[i], src);
+      if (next >= 0) v[i] += t;
+    }
+    above &= ~__ballot_sync(FULL_WARP, rank & 1u);
+    rank >>= 1;
+  }
+  return leader;
+}
+
+// ds times the eight trilinear weights, in the order of add_taps' taps.
+__device__ __forceinline__ void tap_weights(const Taps& t, float ds,
+                                            float (&w)[8]) {
   const float gx = 1.f - t.fx, gy = 1.f - t.fy, gz = 1.f - t.fz;
   const float w00 = ds * gz * gy, w01 = ds * gz * t.fy;
   const float w10 = ds * t.fz * gy, w11 = ds * t.fz * t.fy;
-  atomicAdd(dv + t.r00 + t.x0, w00 * gx);
-  atomicAdd(dv + t.r00 + t.x1, w00 * t.fx);
-  atomicAdd(dv + t.r01 + t.x0, w01 * gx);
-  atomicAdd(dv + t.r01 + t.x1, w01 * t.fx);
-  atomicAdd(dv + t.r10 + t.x0, w10 * gx);
-  atomicAdd(dv + t.r10 + t.x1, w10 * t.fx);
-  atomicAdd(dv + t.r11 + t.x0, w11 * gx);
-  atomicAdd(dv + t.r11 + t.x1, w11 * t.fx);
+  w[0] = w00 * gx;
+  w[1] = w00 * t.fx;
+  w[2] = w01 * gx;
+  w[3] = w01 * t.fx;
+  w[4] = w10 * gx;
+  w[5] = w10 * t.fx;
+  w[6] = w11 * gx;
+  w[7] = w11 * t.fx;
+}
+
+// w added to the eight taps. Two taps that clamp to one voxel add twice, as
+// the forward read it twice.
+__device__ __forceinline__ void add_taps(float* dv, const Taps& t,
+                                         const float (&w)[8]) {
+  atomicAdd(dv + t.r00 + t.x0, w[0]);
+  atomicAdd(dv + t.r00 + t.x1, w[1]);
+  atomicAdd(dv + t.r01 + t.x0, w[2]);
+  atomicAdd(dv + t.r01 + t.x1, w[3]);
+  atomicAdd(dv + t.r10 + t.x0, w[4]);
+  atomicAdd(dv + t.r10 + t.x1, w[5]);
+  atomicAdd(dv + t.r11 + t.x0, w[6]);
+  atomicAdd(dv + t.r11 + t.x1, w[7]);
+}
+
+// kLane: ds scattered to the sample's eight taps.
+__device__ __forceinline__ void scatter_taps(float* dv, const Taps& t,
+                                             float ds) {
+  float w[8];
+  tap_weights(t, ds, w);
+  add_taps(dv, t, w);
+}
+
+// kWarp: the same, summed over the warp's lanes that `add` to one cell.
+__device__ __forceinline__ void scatter_taps_warp(float* dv, const Taps& t,
+                                                  float ds, bool add) {
+  if (!__any_sync(FULL_WARP, add)) return;
+  float w[8];
+  tap_weights(t, ds, w);
+  // The cell's first and last taps name all eight. A lane that does not
+  // add takes a key of its own that no cell has (cells' high words are
+  // under 2^31), so it groups with no one.
+  const unsigned long long cell =
+      add ? (static_cast<unsigned long long>(t.r11 + t.x1) << 32) |
+                static_cast<unsigned>(t.r00 + t.x0)
+          : ~0ull - lane_id();
+  if (reduce_peers(__match_any_sync(FULL_WARP, cell), w) && add) {
+    add_taps(dv, t, w);
+  }
+}
+
+// kLane: dc times the TF lerp's weights, added to the block's dTF rows lo
+// and hi.
+__device__ __forceinline__ void scatter_tf(float (*dtf)[4], const Sample& q,
+                                           const float dc[4]) {
+  const float f0 = 1.f - q.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    atomicAdd(&dtf[q.lo][c], dc[c] * f0);
+    atomicAdd(&dtf[q.hi][c], dc[c] * q.f);
+  }
+}
+
+// kWarp: the same, summed over the warp's lanes on one row lo, into the
+// warp's copy `wdtf`. Row lo takes dc (1 - f) and row lo + 1 takes dc f; a
+// clamped lerp (lo == hi, at either end of the TF) gives its whole dc to
+// row lo, so a group keyed by lo alone adds to rows lo and lo + 1.
+__device__ __forceinline__ void scatter_tf_warp(float (*wdtf)[4],
+                                                const Sample& q,
+                                                const float dc[4], bool add) {
+  const bool one_row = q.lo == q.hi;
+  float v[8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    v[c] = one_row ? dc[c] : dc[c] * (1.f - q.f);
+    v[4 + c] = one_row ? 0.f : dc[c] * q.f;
+  }
+  // A lane that does not add takes a key above the TF's rows, its own.
+  const int row = add ? q.lo : TF_SIZE + lane_id();
+  const bool lead = reduce_peers(__match_any_sync(FULL_WARP, row), v) && add;
+  // The leaders' rows lo differ, so their plain adds to row lo cannot
+  // collide; row lo + 1 may be another leader's lo, so it waits for the
+  // warp. Row TF_SIZE - 1 has only lo == hi, and nothing for the next row.
+  if (lead) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wdtf[row][c] += v[c];
+  }
+  __syncwarp();
+  if (lead && row + 1 < TF_SIZE) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wdtf[row + 1][c] += v[4 + c];
+  }
+  __syncwarp();
 }
 
 // The analytic backward of one live ray, as a second march with no
@@ -276,17 +425,21 @@ struct Chain {
 
 // One replayed sample q: its cotangent, its adds to dTF and dVol, and the
 // chain's step. g4 is the ray's cotangent, G its product with the forward's
-// colour; dtf is the block's [TF_SIZE][4] accumulator in shared memory.
-// IN_RANGE drops the density slope at the TF's end points and for a density
-// outside (0, 1), as the v3 reference's flag does; without it the slope is
-// (tf[hi] - tf[lo]) * TF_SIZE of the clamped rows, zero only where they
-// coincide, as the round-1 reference takes it.
-template <bool SHADE, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE>
+// colour; dtf is the block's [TF_SIZE][4] accumulator in shared memory
+// (kLane), or the warp's copy of it (kWarp). IN_RANGE drops the density
+// slope at the TF's end points and for a density outside (0, 1), as the v3
+// reference's flag does; without it the slope is (tf[hi] - tf[lo]) *
+// TF_SIZE of the clamped rows, zero only where they coincide, as the
+// round-1 reference takes it. S is how the adds reach memory (Scatter
+// above): with kLane only live lanes call this; with kWarp the whole warp
+// does, and a lane that is not `live` adds nothing.
+template <bool SHADE, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE, Scatter S>
 __device__ __forceinline__ void replay_sample(const float (*lut)[4],
                                               float (*dtf)[4], float* d_vol,
                                               const Light& li,
                                               const float g4[4], float G,
-                                              const Sample& q, Chain& ch) {
+                                              const Sample& q, Chain& ch,
+                                              bool live = true) {
   const float T = sub(1.f, ch.acc_a);
   const float gc = add(add(add(mul(g4[0], q.c[0]), mul(g4[1], q.c[1])),
                            mul(g4[2], q.c[2])), mul(g4[3], q.c[3]));
@@ -299,67 +452,82 @@ __device__ __forceinline__ void replay_sample(const float (*lut)[4],
                  sub(mul(g4[3], T), t8)};
 
   if (NEED_DTF) {
-    const float f0 = 1.f - q.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      atomicAdd(&dtf[q.lo][c], dc[c] * f0);
-      atomicAdd(&dtf[q.hi][c], dc[c] * q.f);
+    if (S == Scatter::kWarp) {
+      scatter_tf_warp(dtf, q, dc, live);
+    } else {
+      scatter_tf(dtf, q, dc);
     }
   }
   if (NEED_DVOL) {
     // The clamped lerp has no slope outside its range (lo == hi there).
     const bool in_range = !IN_RANGE || (q.tc > 0.f && q.tc < TF_SIZE - 1.f &&
                                         q.s > 0.f && q.s < 1.f);
-    float ds = 0.f;
-    if (in_range) {
+    float ds = 0.f, ds2 = 0.f;
+    if (live && in_range) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         ds += (lut[q.hi][c] - lut[q.lo][c]) * TF_SIZE * dc[c];
       }
     }
-    if (SHADE && q.gate) {
+    if (SHADE && live && q.gate) {
       // diffuse = kd * (s2 - s): rgb cotangents flow -kd into this
       // sample's density and +kd into the light tap's. Nothing flows
       // through the gate or the light direction.
-      const float ds2 = li.kd * (dc[0] + dc[1] + dc[2]);
+      ds2 = li.kd * (dc[0] + dc[1] + dc[2]);
       ds -= ds2;
-      if (ds2 != 0.f) scatter_taps(d_vol, q.t2, ds2);
     }
-    if (ds != 0.f) scatter_taps(d_vol, q.t, ds);
+    if (S == Scatter::kWarp) {
+      if (SHADE) scatter_taps_warp(d_vol, q.t2, ds2, ds2 != 0.f);
+      scatter_taps_warp(d_vol, q.t, ds, ds != 0.f);
+    } else {
+      if (SHADE && ds2 != 0.f) scatter_taps(d_vol, q.t2, ds2);
+      if (ds != 0.f) scatter_taps(d_vol, q.t, ds);
+    }
   }
 
   ch.acc_a = add(ch.acc_a, mul(q.c[3], T));
 }
 
-// The replay of one live ray on the forward's lattice k0 + i*step.
+// The replay of one ray on the forward's lattice k0 + i*step, with the
+// kWarp scatter. Every lane of the warp calls it, those with no ray to
+// replay too (`live` false): the lanes stay in one loop until the warp's
+// last ray has ended, each adding only while its own ray is live.
 template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const float (*lut)[4],
-                                             float (*dtf)[4], float* d_vol,
+                                             float (*wdtf)[4], float* d_vol,
                                              const Ray& ray, const Light& li,
-                                             const float g4[4], float G) {
-  Sample q;
+                                             const float g4[4], float G,
+                                             bool live) {
+  Sample q{};
   Chain ch;
   for (int i = 0; i < a.max_steps; ++i) {
-    if (!take_sample<SHADE>(a, lut, ray, li, i, q)) break;
-    replay_sample<SHADE, NEED_DTF, NEED_DVOL, true>(lut, dtf, d_vol, li, g4,
-                                                    G, q, ch);
-    if (!NO_ERT && ch.acc_a > li.thr) break;
+    if (live) live = take_sample<SHADE>(a, lut, ray, li, i, q);
+    if (!__any_sync(FULL_WARP, live)) break;
+    replay_sample<SHADE, NEED_DTF, NEED_DVOL, true, Scatter::kWarp>(
+        lut, wdtf, d_vol, li, g4, G, q, ch, live);
+    if (!NO_ERT && ch.acc_a > li.thr) live = false;
   }
 }
 
-// Clears the block's shared dTF accumulator. The caller synchronises.
-__device__ __forceinline__ void clear_dtf(float (*dtf)[4]) {
+// Clears the block's shared dTF accumulator, `copies` of [TF_SIZE][4].
+// The caller synchronises.
+__device__ __forceinline__ void clear_dtf(float (*dtf)[4], int copies) {
   const int tid = threadIdx.y * TILE + threadIdx.x;
-  for (int i = tid; i < TF_SIZE * 4; i += TILE * TILE) dtf[i / 4][i % 4] = 0.f;
+  for (int i = tid; i < copies * TF_SIZE * 4; i += TILE * TILE) {
+    dtf[i / 4][i % 4] = 0.f;
+  }
 }
 
-// Adds the block's shared dTF accumulator to the global one: one atomic
-// per entry that the block touched. The caller synchronises first.
-__device__ __forceinline__ void flush_dtf(const float (*dtf)[4], float* d_tf) {
+// Adds the block's shared dTF accumulator, the sum of its `copies`, to the
+// global one: one atomic per entry that the block touched. The caller
+// synchronises first.
+__device__ __forceinline__ void flush_dtf(const float (*dtf)[4], int copies,
+                                          float* d_tf) {
   const int tid = threadIdx.y * TILE + threadIdx.x;
   for (int i = tid; i < TF_SIZE * 4; i += TILE * TILE) {
-    const float v = dtf[i / 4][i % 4];
+    float v = 0.f;
+    for (int k = 0; k < copies; ++k) v += dtf[k * TF_SIZE + i / 4][i % 4];
     if (v != 0.f) atomicAdd(d_tf + i, v);
   }
 }

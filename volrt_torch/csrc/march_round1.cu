@@ -44,11 +44,12 @@
 // global atomicAdds per sample into dVol, which collide the more the fewer
 // voxel columns a block's rays cross (a small volume under a large
 // viewport), and eight shared-memory adds into the block's dTF rows. What
-// the design does about it so far is march_bwd.cu's: dTF per block in
-// shared memory, one global atomic per touched entry per block; samples
-// whose density cotangent is exactly zero skip their eight adds; the
-// forward is replayed, not stored. Voxel offsets are 32-bit, so a volume
-// holds under 2^31 voxels (the wrapper refuses more).
+// the design does about it so far is march_common.cuh's kLane scatter: dTF
+// per block in shared memory, one global atomic per touched entry per
+// block; samples whose density cotangent is exactly zero skip their eight
+// adds; the forward is replayed, not stored. The warp-level kWarp scatter
+// of march_bwd.cu is not taken here yet. Voxel offsets are 32-bit, so a
+// volume holds under 2^31 voxels (the wrapper refuses more).
 //
 // Every multiply and add of the forward chain is rounded on its own
 // (march_common.cuh), in the plain torch versions' order
@@ -92,7 +93,7 @@ __global__ void __launch_bounds__(TILE * TILE) round1_bwd_kernel(
   __shared__ float lut[TF_SIZE][4];
   __shared__ float dtf[NEED_DTF ? TF_SIZE : 1][4];
   stage_lut(a, lut);
-  if (NEED_DTF) clear_dtf(dtf);
+  if (NEED_DTF) clear_dtf(dtf, 1);
   __syncthreads();
 
   const int r = ray_index(a);
@@ -111,7 +112,7 @@ __global__ void __launch_bounds__(TILE * TILE) round1_bwd_kernel(
       float k = ray.ks;
       for (int i = 0; i < a.max_steps; ++i) {
         sample_at<false>(a, lut, ray, li, k, q);
-        replay_sample<false, NEED_DTF, NEED_DVOL, false>(
+        replay_sample<false, NEED_DTF, NEED_DVOL, false, Scatter::kLane>(
             lut, dtf, gr.d_vol, li, g4, G, q, ch);
         k = add(k, a.step);
         if ((!NO_ERT && ch.acc_a > li.thr) || !(k <= ray.ke)) break;
@@ -120,7 +121,7 @@ __global__ void __launch_bounds__(TILE * TILE) round1_bwd_kernel(
   }
   if (NEED_DTF) {
     __syncthreads();
-    flush_dtf(dtf, gr.d_tf);
+    flush_dtf(dtf, 1, gr.d_tf);
   }
 }
 
