@@ -68,11 +68,20 @@ def _match_volrt(jside, tside, **kw):
     return img, gd, gt
 
 
-@pytest.mark.parametrize("thr", [0.95, 2.0], ids=["ert", "no_ert"])
-@pytest.mark.parametrize("persp", [False, True], ids=["ortho", "persp"])
-@pytest.mark.parametrize("blocked", [False, True], ids=["tri", "blocked"])
-def test_round1_route_matches_volrt(blocked, persp, thr):
-    jside, tside = _pair(persp=persp)
+# (blocked, persp, thr, noise): every view of the synthetic scene, and the
+# card's scatter adversary, a uniform-noise density, on both routes.
+ROUTE_CASES = [(b, p, t, False) for b in (False, True) for p in (False, True)
+               for t in (0.95, 2.0)] + [(False, False, 0.95, True),
+                                        (True, False, 0.95, True)]
+
+
+@pytest.mark.parametrize(
+    "blocked, persp, thr, noise", ROUTE_CASES,
+    ids=["-".join(["blocked" if b else "tri", "persp" if p else "ortho",
+                   "ert" if t < 1 else "no_ert"] + ["noise"] * n)
+         for b, p, t, n in ROUTE_CASES])
+def test_round1_route_matches_volrt(blocked, persp, thr, noise):
+    jside, tside = _pair(persp=persp, noise=noise)
     kw = dict(ray_threshold=thr, blocked=blocked)
     img, gd, gt = _match_volrt(jside, tside, **kw)
     assert img[..., 3].max() > 0.5

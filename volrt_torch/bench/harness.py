@@ -116,6 +116,24 @@ def diff_bench_scene(volume_size: int, viewport: int,
     return scene, cam.view(device), target
 
 
+def crop_bench_scene(viewport: int,
+                     device: torch.device | str | None = None):
+    """The ``diff_tri`` route's step scene ``(scene, view, target)``: the
+    middle ``[96, 96, 128]`` of the 128^3 synthetic volume, the largest
+    that ``volrt`` gives that route by itself (``Dpad * Hpad <= 96 * 96``,
+    ``W <= 128``), under :func:`diff_bench_scene`'s TF, camera and zero
+    target."""
+    device = resolve_device(device)
+    crop = synthetic_volume(128)[16:112, 16:112, :]
+    scene = scene_from_volume(crop, default_transfer_fn(device),
+                              default_ray_step(crop.shape), device=device)
+    cam = Camera(dims=(viewport, viewport))
+    cam.zoom(-1.0)
+    target = torch.zeros((viewport, viewport, 4), dtype=torch.float32,
+                         device=device)
+    return scene, cam.view(device), target
+
+
 def bench_diff_step(volume_size: int = 256, viewport: int = 1024,
                     ray_step: float | None = None, iters: int = 20,
                     fused: bool = True, onepass: bool = False,

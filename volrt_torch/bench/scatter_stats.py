@@ -5,8 +5,9 @@
 Replays the backward's lattice (``k0 + i*step``, ERT off) for the rays of
 ``--warps`` random warps of the benchmark pose (a warp is two 16-pixel rows
 of a kernel's 16x16 block) and counts, on scene ``a`` (the benchmark's
-synthetic volume) and scene ``b`` (a uniform-noise f32 density, seed 5, as
-``step_ab.py`` makes it):
+synthetic volume), scene ``b`` (a uniform-noise f32 density, seed 5, as
+``step_ab.py`` makes it) and scene ``crop`` (the ``diff_tri`` route's
+``[96, 96, 128]`` volume, ``harness.crop_bench_scene``):
 
 - ``run``: samples per run of one TF row pair ``(lo, hi)`` along a ray;
 - ``rows``: distinct TF rows ``lo`` among a warp-step's live lanes, and
@@ -29,7 +30,7 @@ import json
 import numpy as np
 import torch
 
-from volrt_torch.bench.harness import diff_bench_scene
+from volrt_torch.bench.harness import crop_bench_scene, diff_bench_scene
 from volrt_torch.core import sampling
 from volrt_torch.core.device import resolve_device
 from volrt_torch.core.tf import default_transfer_fn
@@ -127,10 +128,13 @@ def main(argv=None) -> int:
         0.0, 1.0, (args.size,) * 3).astype(np.float32)
     scene_b = scene_from_arrays(noise, default_transfer_fn("cpu").numpy(),
                                 scene_a.ray_step, device=device)
-    for name, scene in (("a", scene_a), ("b", scene_b)):
+    scene_c, view_c, _ = crop_bench_scene(args.viewport, device=device)
+    for name, scene, v in (("a", scene_a, view), ("b", scene_b, view),
+                           ("crop", scene_c, view_c)):
         with torch.no_grad():
-            out = warp_stats(scene, view, args.warps, args.seed)
-        print(json.dumps({"scene": name, "size": args.size,
+            out = warp_stats(scene, v, args.warps, args.seed)
+        print(json.dumps({"scene": name,
+                          "size": list(scene.density.shape),
                           "viewport": args.viewport, **out}))
     return 0
 

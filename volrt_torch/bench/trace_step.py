@@ -15,8 +15,8 @@ voxels wide), ``fwd`` (``fwd_v3.render_float``) and
 ``ladder`` (``render_float`` of rung ``--renderer``), each on the
 benchmark's scene (``bench/harness.py``); ``--cli-look`` gives the ladder
 route the frame ``cli render`` renders by default instead (the camera at
-distance 3, diffuse kd 0.6, ERT 0.95, the leading ESL leap). Prints one
-JSON object: the
+distance 3, diffuse kd 0.6, ERT 0.95, the leading ESL leap, whose lockstep
+rounds a frame it adds as ``leap_rounds``). Prints one JSON object: the
 card's name and power limit, device time per step by kernel name, the
 window's wall time and the card's idle share in it (one minus device time
 over wall time, the host synchronising only at the window's end).
@@ -35,7 +35,7 @@ from volrt_torch.bench import harness
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
-from volrt_torch.renderers import diff_v3, get_renderer
+from volrt_torch.renderers import batched, diff_v3, get_renderer
 
 
 def make_step(route: str, volume_size: int, viewport: int,
@@ -145,6 +145,8 @@ def main(argv=None) -> int:
     out.update(trace(make_step(args.route, args.synthetic, args.size, device,
                                renderer, args.cli_look, bool(args.blocked)),
                      args.steps))
+    if args.cli_look:
+        out["leap_rounds"] = batched.esl_start_raw.rounds
     print(json.dumps(out))
     return 0
 

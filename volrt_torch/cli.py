@@ -13,9 +13,12 @@ Everything runs on the card unless ``--device cpu`` is given. The flags are
 those of ``volrt``'s (``volrt/cli.py:18-51, 509-550``) that the port
 supports; ``render`` takes renderer 3 with the leading empty-space leap by
 default, as ``volrt``'s does. ``--shading phong`` renders on renderers 0-1
-and trains without ``--fused``. Still to come: ``--orbit`` and
-``--background`` of ``render``; ``-f``, ``--esl``, ``--dist``,
-``--checkpoint`` and ``--grad-chunks`` of ``fit``.
+and trains without ``--fused``. ``fit`` takes ``render``'s arguments, so
+it fits a PVM or RAW file (``-f``) or the synthetic volume; its
+``--checkpoint``, ``--checkpoint-every`` and ``--resume`` reach ``fit()``,
+which refuses them until checkpoints are ported. Still to come:
+``--orbit`` and ``--background`` of ``render``; ``--esl``, ``--dist`` and
+``--grad-chunks`` of ``fit``.
 """
 from __future__ import annotations
 
@@ -134,8 +137,7 @@ def cmd_render(args) -> int:
 
 def cmd_fit(args) -> int:
     """Inverse rendering demo: recover a density volume, a TF or both from
-    four rendered views of the synthetic volume (``volrt/cli.py:305``)."""
-    from volrt_torch.bench.harness import synthetic_volume
+    four rendered views of the volume (``volrt/cli.py:305``)."""
     from volrt_torch.core.tf import default_transfer_fn
     from volrt_torch.core.types import default_ray_step
     from volrt_torch.core.view import Camera
@@ -144,11 +146,11 @@ def cmd_fit(args) -> int:
     from volrt_torch.train.fit import fit
 
     device = torch.device(args.device)
-    n = args.synthetic
-    step = args.ray_step or default_ray_step((n, n, n))
+    data = _load_volume(args)
+    step = args.ray_step or default_ray_step(data.shape)
     tf_base = default_transfer_fn(device)
     # The ground-truth scene renders the targets.
-    gt = scene_from_volume(synthetic_volume(n), tf_base, step, device=device)
+    gt = scene_from_volume(data, tf_base, step, device=device)
     shading = args.shading
     t0 = time.perf_counter()
     targets = []
@@ -177,8 +179,10 @@ def cmd_fit(args) -> int:
         scene, targets, steps=args.steps, lr=args.lr,
         train_density=train in ("density", "both"),
         train_tf=train in ("tf", "both"),
-        log_every=max(1, args.steps // 10), fused=args.fused,
-        shading=shading, light_kd=args.light_kd)
+        log_every=max(1, args.steps // 10),
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
+        fused=args.fused, shading=shading, light_kd=args.light_kd)
     if losses:
         print(f"final loss {losses[-1]:.6f} after {len(losses)} steps in "
               f"{time.perf_counter() - t0:.2f} s on {device}",
@@ -251,26 +255,24 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("fit", help="inverse-rendering fit demo")
-    p.add_argument("--synthetic", type=int, default=64,
-                   help="synthetic volume size")
-    p.add_argument("-s", "--size", type=int, nargs=2, default=(512, 512),
-                   metavar=("W", "H"), help="viewport size")
-    p.add_argument("--ray-step", type=float, default=None)
-    p.add_argument("--light-kd", type=float, default=0.6)
-    # Fits are unshaded unless --shading is given explicitly.
-    p.add_argument("--shading", choices=("diffuse", "phong"), default=None,
-                   help="train under the reference's one-tap diffuse or "
-                   "under gradient Blinn-Phong (phong without --fused)")
+    _add_render_args(p)
+    # Fits are unshaded unless --shading is given explicitly (render's
+    # default of diffuse would change the targets without a word).
+    p.set_defaults(shading=None)
     p.add_argument("--train", choices=["density", "tf", "both"],
                    default="density",
                    help="which scene parameters to optimise (the kernel "
                    "skips the scatter of a frozen one)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--checkpoint", default=None,
+                   help="TrainState checkpoint path (not ported yet)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save the checkpoint every N steps (not ported yet)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint (not ported yet)")
     p.add_argument("--fused", action="store_true",
                    help="train through the one-launch L2 step kernel")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to train on (cuda or cpu)")
     p.set_defaults(fn=cmd_fit)
 
     p = sub.add_parser(

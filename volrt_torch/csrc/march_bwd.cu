@@ -43,28 +43,11 @@ __global__ void __launch_bounds__(TILE * TILE) march_bwd_kernel(
   if (NEED_DTF) clear_dtf(dtf, WARPS);
   __syncthreads();
 
-  const int r = ray_index(a);
-  bool live = r >= 0 && a.alive[r];
   Ray ray{};
   Light li{};
   float g4[4] = {0.f, 0.f, 0.f, 0.f};
   float G = 0.f;
-  if (live) {
-    const float4 gv = reinterpret_cast<const float4*>(g)[r];
-    // A ray with no cotangent sends no gradient anywhere.
-    live = gv.x != 0.f || gv.y != 0.f || gv.z != 0.f || gv.w != 0.f;
-    if (live) {
-      const float4 c = reinterpret_cast<const float4*>(out)[r];
-      g4[0] = gv.x;
-      g4[1] = gv.y;
-      g4[2] = gv.z;
-      g4[3] = gv.w;
-      G = add(add(add(mul(gv.x, c.x), mul(gv.y, c.y)), mul(gv.z, c.z)),
-              mul(gv.w, c.w));
-      ray = load_ray(a, r);
-      li = load_light(a);
-    }
-  }
+  const bool live = start_replay(a, out, g, ray_index(a), ray, li, g4, G);
   // The whole warp, lanes with no ray to replay too (march_replay).
   march_replay<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>(
       a, lut, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G, live);

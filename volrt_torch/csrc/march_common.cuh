@@ -11,8 +11,10 @@
 //
 // The math is the plain torch version's (volrt_torch/renderers/cuda/
 // march.py), op for op: samples at k = k0 + i*step with k <= kfar (the
-// ladder's and the round-1 kernels accumulate k += step in loops of their
-// own and share the per-sample pieces); trilinear taps at (p+1)*0.5*n - 0.5; the TF lerp at s*TF_SIZE - 0.5;
+// ladder's and the round-1 kernels accumulate k += step instead:
+// march_ladder.cu and the round-1 forward in loops of their own, the
+// round-1 backward in march_replay_round1); trilinear taps at
+// (p+1)*0.5*n - 0.5; the TF lerp at s*TF_SIZE - 0.5;
 // premultiplied front-to-back compositing; the ERT latch acc.a > threshold
 // after each composite. Every multiply and add of the forward chain is
 // rounded on its own (__fmul_rn/__fadd_rn: no FMA contraction), as torch
@@ -240,35 +242,27 @@ __device__ __forceinline__ void march_forward(const MarchArgs& a,
   }
 }
 
-// How a replayed sample's adds to dTF and dVol reach memory.
+// How a replayed sample's adds to dTF and dVol reach memory: through the
+// warp. A warp's lanes sample neighbouring pixels at the same step, so
+// their adds land on few addresses: on the benchmark pose a warp-step's 31
+// live lanes hit some 7 TF rows (10 lanes on the busiest) and each tap's
+// adds land on 5 voxels (volrt_torch/bench/scatter_stats.py). Adds to one
+// address serialise, and a float add to shared memory is a compare-and-swap
+// loop on this card (ATOMS.CAST.SPIN). So the lanes group by destination
+// with __match_any_sync, sum within each group in a shuffle tree
+// (reduce_peers), and the group's lowest lane adds once. dTF groups by TF
+// row lo, into the warp's own copy of the block's dTF with plain adds (no
+// two leaders of a warp share a row, and no other warp writes the copy);
+// dVol groups by the sample's trilinear cell, and the leader adds the
+// cell's eight sums with global atomics. On a warp whose lanes all differ
+// (a noise volume's TF rows) no shuffle round runs.
 //
-// kLane: every lane adds its own, 8 shared-memory atomics into the block's
-// dTF and 8 global atomics into dVol (16 with the diffuse tap). A warp's
-// lanes sample neighbouring pixels at the same step, so their adds land on
-// few addresses: on the benchmark pose a warp-step's 31 live lanes hit some
-// 7 TF rows (10 lanes on the busiest) and each tap's adds land on 5 voxels
-// (volrt_torch/bench/scatter_stats.py). Adds to one address serialise, and
-// a float add to shared memory is a compare-and-swap loop on this card
-// (ATOMS.CAST.SPIN), so the shared ones cost most.
-//
-// kWarp: the lanes group by destination with __match_any_sync, sum within
-// each group in a shuffle tree (reduce_peers), and the group's lowest lane
-// adds once. dTF groups by TF row lo, into the warp's own copy of the
-// block's dTF with plain adds (no two leaders of a warp share a row, and no
-// other warp writes the copy); dVol groups by the sample's trilinear cell,
-// and the leader adds the cell's eight sums with global atomics. On a warp
-// whose lanes all differ (a noise volume's TF rows) no shuffle round runs.
-// Every lane of the warp calls the kWarp functions together: march_replay
-// keeps the warp in one loop until its last ray ends, and a lane that adds
-// nothing (its ray ended or never started, or its sample has no density
-// cotangent) takes part with `add` false. So every collective takes the
-// full warp, and the plain adds cannot race with another subset of the
-// warp.
-//
-// Only the order of the sums differs between the two; kLane is kept for the
-// round-1 kernels (march_round1.cu).
-enum class Scatter { kLane, kWarp };
-
+// Every lane of the warp calls the scatter together: march_replay and
+// march_replay_round1 keep the warp in one loop until its last ray ends,
+// and a lane that adds nothing (its ray ended or never started, or its
+// sample has no density cotangent) takes part with `add` false. So every
+// collective takes the full warp, and the plain adds cannot race with
+// another subset of the warp.
 constexpr unsigned FULL_WARP = 0xffffffffu;
 constexpr int WARPS = TILE * TILE / 32;  // warps a block, dTF copies a block
 
@@ -336,15 +330,8 @@ __device__ __forceinline__ void add_taps(float* dv, const Taps& t,
   atomicAdd(dv + t.r11 + t.x1, w[7]);
 }
 
-// kLane: ds scattered to the sample's eight taps.
-__device__ __forceinline__ void scatter_taps(float* dv, const Taps& t,
-                                             float ds) {
-  float w[8];
-  tap_weights(t, ds, w);
-  add_taps(dv, t, w);
-}
-
-// kWarp: the same, summed over the warp's lanes that `add` to one cell.
+// ds times the trilinear weights, summed over the warp's lanes that `add`
+// to one cell, added to the cell's eight taps.
 __device__ __forceinline__ void scatter_taps_warp(float* dv, const Taps& t,
                                                   float ds, bool add) {
   if (!__any_sync(FULL_WARP, add)) return;
@@ -362,22 +349,11 @@ __device__ __forceinline__ void scatter_taps_warp(float* dv, const Taps& t,
   }
 }
 
-// kLane: dc times the TF lerp's weights, added to the block's dTF rows lo
-// and hi.
-__device__ __forceinline__ void scatter_tf(float (*dtf)[4], const Sample& q,
-                                           const float dc[4]) {
-  const float f0 = 1.f - q.f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    atomicAdd(&dtf[q.lo][c], dc[c] * f0);
-    atomicAdd(&dtf[q.hi][c], dc[c] * q.f);
-  }
-}
-
-// kWarp: the same, summed over the warp's lanes on one row lo, into the
-// warp's copy `wdtf`. Row lo takes dc (1 - f) and row lo + 1 takes dc f; a
-// clamped lerp (lo == hi, at either end of the TF) gives its whole dc to
-// row lo, so a group keyed by lo alone adds to rows lo and lo + 1.
+// dc times the TF lerp's weights, summed over the warp's lanes on one row
+// lo, added to the warp's copy `wdtf` of the block's dTF. Row lo takes
+// dc (1 - f) and row lo + 1 takes dc f; a clamped lerp (lo == hi, at
+// either end of the TF) gives its whole dc to row lo, so a group keyed by
+// lo alone adds to rows lo and lo + 1.
 __device__ __forceinline__ void scatter_tf_warp(float (*wdtf)[4],
                                                 const Sample& q,
                                                 const float dc[4], bool add) {
@@ -425,21 +401,19 @@ struct Chain {
 
 // One replayed sample q: its cotangent, its adds to dTF and dVol, and the
 // chain's step. g4 is the ray's cotangent, G its product with the forward's
-// colour; dtf is the block's [TF_SIZE][4] accumulator in shared memory
-// (kLane), or the warp's copy of it (kWarp). IN_RANGE drops the density
-// slope at the TF's end points and for a density outside (0, 1), as the v3
-// reference's flag does; without it the slope is (tf[hi] - tf[lo]) *
-// TF_SIZE of the clamped rows, zero only where they coincide, as the
-// round-1 reference takes it. S is how the adds reach memory (Scatter
-// above): with kLane only live lanes call this; with kWarp the whole warp
-// does, and a lane that is not `live` adds nothing.
-template <bool SHADE, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE, Scatter S>
+// colour; wdtf is the warp's [TF_SIZE][4] copy of the block's dTF. IN_RANGE
+// drops the density slope at the TF's end points and for a density outside
+// (0, 1), as the v3 reference's flag does; without it the slope is
+// (tf[hi] - tf[lo]) * TF_SIZE of the clamped rows, zero only where they
+// coincide, as the round-1 reference takes it. The whole warp calls this
+// (the scatter above), and a lane that is not `live` adds nothing.
+template <bool SHADE, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE>
 __device__ __forceinline__ void replay_sample(const float (*lut)[4],
-                                              float (*dtf)[4], float* d_vol,
+                                              float (*wdtf)[4], float* d_vol,
                                               const Light& li,
                                               const float g4[4], float G,
                                               const Sample& q, Chain& ch,
-                                              bool live = true) {
+                                              bool live) {
   const float T = sub(1.f, ch.acc_a);
   const float gc = add(add(add(mul(g4[0], q.c[0]), mul(g4[1], q.c[1])),
                            mul(g4[2], q.c[2])), mul(g4[3], q.c[3]));
@@ -451,13 +425,7 @@ __device__ __forceinline__ void replay_sample(const float (*lut)[4],
   float dc[4] = {mul(g4[0], T), mul(g4[1], T), mul(g4[2], T),
                  sub(mul(g4[3], T), t8)};
 
-  if (NEED_DTF) {
-    if (S == Scatter::kWarp) {
-      scatter_tf_warp(dtf, q, dc, live);
-    } else {
-      scatter_tf(dtf, q, dc);
-    }
-  }
+  if (NEED_DTF) scatter_tf_warp(wdtf, q, dc, live);
   if (NEED_DVOL) {
     // The clamped lerp has no slope outside its range (lo == hi there).
     const bool in_range = !IN_RANGE || (q.tc > 0.f && q.tc < TF_SIZE - 1.f &&
@@ -476,22 +444,42 @@ __device__ __forceinline__ void replay_sample(const float (*lut)[4],
       ds2 = li.kd * (dc[0] + dc[1] + dc[2]);
       ds -= ds2;
     }
-    if (S == Scatter::kWarp) {
-      if (SHADE) scatter_taps_warp(d_vol, q.t2, ds2, ds2 != 0.f);
-      scatter_taps_warp(d_vol, q.t, ds, ds != 0.f);
-    } else {
-      if (SHADE && ds2 != 0.f) scatter_taps(d_vol, q.t2, ds2);
-      if (ds != 0.f) scatter_taps(d_vol, q.t, ds);
-    }
+    if (SHADE) scatter_taps_warp(d_vol, q.t2, ds2, ds2 != 0.f);
+    scatter_taps_warp(d_vol, q.t, ds, ds != 0.f);
   }
 
   ch.acc_a = add(ch.acc_a, mul(q.c[3], T));
 }
 
-// The replay of one ray on the forward's lattice k0 + i*step, with the
-// kWarp scatter. Every lane of the warp calls it, those with no ray to
-// replay too (`live` false): the lanes stay in one loop until the warp's
-// last ray has ended, each adding only while its own ray is live.
+// What a backward kernel's replay of ray r (-1 outside the image) starts
+// from, given the forward's image `out` and its cotangent `g`: the ray, the
+// light, the cotangent g4 and G = g4 . out. Returns whether the ray
+// replays: it is alive and its cotangent is not all zero (a ray with none
+// sends no gradient anywhere). Where it returns false the outputs keep
+// what they came in with.
+__device__ __forceinline__ bool start_replay(const MarchArgs& a,
+                                             const float* out, const float* g,
+                                             int r, Ray& ray, Light& li,
+                                             float g4[4], float& G) {
+  if (r < 0 || !a.alive[r]) return false;
+  const float4 gv = reinterpret_cast<const float4*>(g)[r];
+  if (gv.x == 0.f && gv.y == 0.f && gv.z == 0.f && gv.w == 0.f) return false;
+  const float4 c = reinterpret_cast<const float4*>(out)[r];
+  g4[0] = gv.x;
+  g4[1] = gv.y;
+  g4[2] = gv.z;
+  g4[3] = gv.w;
+  G = add(add(add(mul(gv.x, c.x), mul(gv.y, c.y)), mul(gv.z, c.z)),
+          mul(gv.w, c.w));
+  ray = load_ray(a, r);
+  li = load_light(a);
+  return true;
+}
+
+// The replay of one ray on the forward's lattice k0 + i*step. Every lane
+// of the warp calls it, those with no ray to replay too (`live` false): the
+// lanes stay in one loop until the warp's last ray has ended, each adding
+// only while its own ray is live.
 template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const float (*lut)[4],
@@ -504,9 +492,36 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
   for (int i = 0; i < a.max_steps; ++i) {
     if (live) live = take_sample<SHADE>(a, lut, ray, li, i, q);
     if (!__any_sync(FULL_WARP, live)) break;
-    replay_sample<SHADE, NEED_DTF, NEED_DVOL, true, Scatter::kWarp>(
-        lut, wdtf, d_vol, li, g4, G, q, ch, live);
+    replay_sample<SHADE, NEED_DTF, NEED_DVOL, true>(lut, wdtf, d_vol, li, g4,
+                                                    G, q, ch, live);
     if (!NO_ERT && ch.acc_a > li.thr) live = false;
+  }
+}
+
+// The same on round 1's accumulating lattice (march_round1.cu), unshaded
+// and with no in-range flag on the slope: k starts at k0 and gains one
+// rounded `+ step` per sample, a live ray's first sample is always taken,
+// and the ray ends after its sample, when ERT latches or the next k exceeds
+// kfar (diff_tri.py:176-178), as the round-1 forward marches. take_sample's
+// test before the sample, on the k0 + i*step lattice, would add or drop a
+// ray's last sample here.
+template <bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+__device__ __forceinline__ void march_replay_round1(
+    const MarchArgs& a, const float (*lut)[4], float (*wdtf)[4],
+    float* d_vol, const Ray& ray, const Light& li, const float g4[4],
+    float G, bool live) {
+  Sample q{};
+  Chain ch;
+  float k = ray.ks;
+  for (int i = 0; i < a.max_steps; ++i) {
+    if (!__any_sync(FULL_WARP, live)) break;
+    if (live) sample_at<false>(a, lut, ray, li, k, q);
+    replay_sample<false, NEED_DTF, NEED_DVOL, false>(lut, wdtf, d_vol, li,
+                                                     g4, G, q, ch, live);
+    k = add(k, a.step);
+    if (live && ((!NO_ERT && ch.acc_a > li.thr) || !(k <= ray.ke))) {
+      live = false;
+    }
   }
 }
 

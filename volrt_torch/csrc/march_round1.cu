@@ -40,16 +40,22 @@
 //
 // What bounds them on the card: the forward as march_ladder.cu, gather
 // latency and L1/L2 traffic (eight dependent loads and some 80 f32
-// operations per sample); the backward as march_bwd.cu, its scatter: eight
-// global atomicAdds per sample into dVol, which collide the more the fewer
-// voxel columns a block's rays cross (a small volume under a large
-// viewport), and eight shared-memory adds into the block's dTF rows. What
-// the design does about it so far is march_common.cuh's kLane scatter: dTF
-// per block in shared memory, one global atomic per touched entry per
-// block; samples whose density cotangent is exactly zero skip their eight
-// adds; the forward is replayed, not stored. The warp-level kWarp scatter
-// of march_bwd.cu is not taken here yet. Voxel offsets are 32-bit, so a
-// volume holds under 2^31 voxels (the wrapper refuses more).
+// operations per sample); the backward as march_bwd.cu, the replay's gather
+// and its scatter: every composited sample adds to two TF rows and, where
+// the TF has a slope, to eight voxels, and a warp's lanes land on few of
+// them. The backward takes march_bwd.cu's design: march_common.cuh's
+// warp-level scatter (lanes that add to one TF row or one trilinear cell
+// sum among themselves and one lane adds; dTF with plain adds into the
+// warp's own copy of the block's accumulator, one atomic per touched entry
+// per block at the end; dVol with global atomics), for which the warp's
+// lanes replay in one loop until its last ray ends (march_replay_round1,
+// on this lattice), lanes with no ray too. What the warp cannot sum is the
+// adds of other warps and blocks to one voxel: on a small volume under a
+// large viewport (diff_tri's) many rays share a voxel, and the dVol
+// atomics collide across warps. Samples whose density cotangent is exactly
+// zero add nothing to dVol; the forward is replayed, not stored. Voxel
+// offsets are 32-bit, so a volume holds under 2^31 voxels (the wrapper
+// refuses more).
 //
 // Every multiply and add of the forward chain is rounded on its own
 // (march_common.cuh), in the plain torch versions' order
@@ -91,37 +97,22 @@ template <bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) round1_bwd_kernel(
     MarchArgs a, const float* out, const float* g, GradArgs gr) {
   __shared__ float lut[TF_SIZE][4];
-  __shared__ float dtf[NEED_DTF ? TF_SIZE : 1][4];
+  __shared__ float dtf[NEED_DTF ? WARPS * TF_SIZE : 1][4];
   stage_lut(a, lut);
-  if (NEED_DTF) clear_dtf(dtf, 1);
+  if (NEED_DTF) clear_dtf(dtf, WARPS);
   __syncthreads();
 
-  const int r = ray_index(a);
-  if (r >= 0 && a.alive[r]) {
-    const float4 gv = reinterpret_cast<const float4*>(g)[r];
-    // A ray with no cotangent sends no gradient anywhere.
-    if (gv.x != 0.f || gv.y != 0.f || gv.z != 0.f || gv.w != 0.f) {
-      const float4 c = reinterpret_cast<const float4*>(out)[r];
-      const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
-      const float G = add(add(add(mul(gv.x, c.x), mul(gv.y, c.y)),
-                              mul(gv.z, c.z)), mul(gv.w, c.w));
-      const Ray ray = load_ray(a, r);
-      const Light li = load_light(a);
-      Sample q;
-      Chain ch;
-      float k = ray.ks;
-      for (int i = 0; i < a.max_steps; ++i) {
-        sample_at<false>(a, lut, ray, li, k, q);
-        replay_sample<false, NEED_DTF, NEED_DVOL, false, Scatter::kLane>(
-            lut, dtf, gr.d_vol, li, g4, G, q, ch);
-        k = add(k, a.step);
-        if ((!NO_ERT && ch.acc_a > li.thr) || !(k <= ray.ke)) break;
-      }
-    }
-  }
+  Ray ray{};
+  Light li{};
+  float g4[4] = {0.f, 0.f, 0.f, 0.f};
+  float G = 0.f;
+  const bool live = start_replay(a, out, g, ray_index(a), ray, li, g4, G);
+  // The whole warp, lanes with no ray to replay too (march_replay_round1).
+  march_replay_round1<NO_ERT, NEED_DTF, NEED_DVOL>(
+      a, lut, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G, live);
   if (NEED_DTF) {
     __syncthreads();
-    flush_dtf(dtf, 1, gr.d_tf);
+    flush_dtf(dtf, WARPS, gr.d_tf);
   }
 }
 

@@ -51,7 +51,8 @@ def esl_start_raw(esl_empty: torch.Tensor, dims, block: int, block_size,
     (``volrt/renderers/batched.py:41-86``).
 
     The loop runs until a check every ``ROUNDS_PER_CHECK`` rounds finds
-    every ray stopped, and at most as many rounds as a ray has steps.
+    every ray stopped, and at most as many rounds as a ray has steps;
+    ``esl_start_raw.rounds`` holds the rounds of the last call.
     """
     dist = esl_mod.empty_distance_grid(esl_empty)
     min_bw = min(block_size)
@@ -59,7 +60,9 @@ def esl_start_raw(esl_empty: torch.Tensor, dims, block: int, block_size,
     # the safe radius in world units becomes one in ray parameters.
     dnorm = torch.sqrt((directions * directions).sum(-1) + 1e-20)
     k, stopped = knear, ~hit
+    esl_start_raw.rounds = 0
     for i in range(max_steps(step)):
+        esl_start_raw.rounds += 1
         pt = origins + directions * k[..., None]
         ix, iy, iz = (sampling.world_to_voxel_idx(pt, dims) // block).unbind(-1)
         m = dist[iz, iy, ix]
@@ -73,6 +76,9 @@ def esl_start_raw(esl_empty: torch.Tensor, dims, block: int, block_size,
         if i % ROUNDS_PER_CHECK == ROUNDS_PER_CHECK - 1 and stopped.all():
             break
     return k
+
+
+esl_start_raw.rounds = 0
 
 
 def ray_bundle(rc: Raycaster) -> tuple[torch.Tensor, ...]:

@@ -101,12 +101,15 @@ def fit(
     log_every: int = 0,
     logger=None,
     checkpoint_path: str | None = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
     fused: bool = False,
     grad_chunks: int = 0,
     volume_sharded: bool = False,
     shading: str | None = None,
     light_kd: float = 0.6,
     esl: bool = False,
+    esl_refresh_every: int = 0,
 ) -> tuple[DiffScene, list[float]]:
     """Fit the scene to targets; returns ``(scene, per-step losses)``.
 
@@ -117,12 +120,13 @@ def fit(
     (``render_diff_image``). ``shading`` is ``None``, ``"diffuse"`` or
     ``"phong"`` (gradient Blinn-Phong, through autograd only).
 
-    Not ported yet, each raising ``NotImplementedError``: ``mesh`` and
-    ``volume_sharded`` (ROADMAP.md, queue 1: ``dist/``), ``grad_chunks``
-    (ROADMAP.md, "Do not port"), ``esl`` (queue 1: ESL),
-    ``checkpoint_path`` (queue 1: ``train/checkpoint.py``) and
-    ``shading="phong"`` with ``fused=True`` (queue 1: Shading, the
-    kernels' phong mode).
+    Not ported yet, each raising ``NotImplementedError`` when given
+    another value than its default: ``mesh`` and ``volume_sharded``
+    (ROADMAP.md, queue 1: ``dist/``), ``grad_chunks`` (ROADMAP.md, "Do not
+    port"), ``esl`` and ``esl_refresh_every`` (queue 1: ESL),
+    ``checkpoint_path``, ``checkpoint_every`` and ``resume`` (queue 1:
+    ``train/checkpoint.py``) and ``shading="phong"`` with ``fused=True``
+    (queue 1: Shading, the kernels' phong mode).
     """
     for name, given, item in (
             ("mesh", mesh is not None, "queue 1: dist/"),
@@ -130,8 +134,12 @@ def fit(
             ("grad_chunks", grad_chunks and grad_chunks > 1,
              '"Do not port": loss_grads_v3_chunked'),
             ("esl", esl, "queue 1: ESL"),
+            ("esl_refresh_every", esl_refresh_every, "queue 1: ESL"),
             ("checkpoint_path", checkpoint_path is not None,
              "queue 1: train/checkpoint.py"),
+            ("checkpoint_every", checkpoint_every,
+             "queue 1: train/checkpoint.py"),
+            ("resume", resume, "queue 1: train/checkpoint.py"),
             ('shading="phong", fused=True', shading == "phong" and fused,
              "queue 1: Shading")):
         if given:
