@@ -50,17 +50,25 @@ Phases, each synchronised with the card, none catching its own failure:
 9. hold the ladder's two march kernels against their plain torch versions at
    32^3 / 64^2: ``march_tri`` in trilinear and in nearest mode (rungs 3 and
    2) and ``march_blocked`` (rung 4), in phase 3's modes, with the leading
-   ESL leap and without it; then hold rungs 0-5 against rung 0 on one
-   scene per interpolation, with the leap and without it. In nearest mode
-   the leap changes no image and every frame is held to rung 0 without it.
+   ESL leap and without it, unshaded images equal to the bit; the same on
+   an adversarial pose, orthographic rays along each axis on the voxel
+   lattice with a step of 2/N, where every floor and clamp of the
+   per-sample code sits on an integer or half-integer and rays graze the
+   faces at p = +-1; the kernels' division by 255 against ``__fdiv_rn`` on
+   every f32 in [0, 256), 0 mismatches; then hold rungs 0-5 against rung 0
+   on one scene per interpolation, with the leap and without it. In
+   nearest mode the leap changes no image and every frame is held to rung
+   0 without it.
    In trilinear mode it does, in the JAX package as here: a sample in an
    empty block lerps with the next block's voxels, which the block's
    minimum and maximum do not see. There the frames with the leap are
    held to rung 0 with the leap, and the leap's effect is printed;
 10. drive the ladder at full width, 256^3 / 1024^2 on the benchmark pose:
     rung 4's and rung 3's ``render_float`` with the launch counters reset
-    before and read after, each kernel held against its plain version and
-    timed, every rung's frame timed by ``bench_fwd_step``; then the frame
+    before and read after, each kernel's image equal to its plain
+    version's to the bit, timed, beside its variant's registers and the
+    SASS instructions of its march loop (a sample an iteration), every
+    rung's frame timed by ``bench_fwd_step``; then the frame
     ``cli render`` renders by default (rung 3, diffuse kd 0.6, ERT 0.95,
     the ESL leap, the camera at distance 3), timed with the leap and
     without it and held against rung 1;
@@ -129,7 +137,8 @@ from volrt_torch import _build, cli
 from volrt_torch.bench.harness import (
     bench_diff_step, bench_fwd_step, bench_pose, crop_bench_scene,
     diff_bench_scene, synthetic_volume, time_cuda)
-from volrt_torch.bench.step_ab import ptxas_report
+from volrt_torch.bench.step_ab import (
+    LADDER_ROWS, cuobjdump_sass, ptxas_report, sass_counts)
 from volrt_torch.core.tf import default_transfer_fn
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
@@ -139,9 +148,9 @@ from volrt_torch.diff.render import (
 from volrt_torch.renderers import (
     batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
 from volrt_torch.renderers.cuda.march import (
-    l2_step, l2_step_plain, march_blocked, march_blocked_plain, march_bwd,
-    march_bwd_plain, march_fwd, march_fwd_plain, march_tri, march_tri_plain,
-    max_steps)
+    div255_mismatches, l2_step, l2_step_plain, march_blocked,
+    march_blocked_plain, march_bwd, march_bwd_plain, march_fwd,
+    march_fwd_plain, march_tri, march_tri_plain, max_steps)
 from volrt_torch.renderers.cuda.round1 import (
     diff_blocked_bwd, diff_blocked_bwd_plain, diff_blocked_fwd,
     diff_blocked_fwd_plain, diff_tri_bwd, diff_tri_bwd_plain, diff_tri_fwd,
@@ -201,6 +210,9 @@ RTOL_GRAD_LATTICE = 2e-3
 # pow, rsqrt and sqrt round otherwise, the shade-tap class.
 ATOL_PHONG = 1e-5
 RTOL_GRAD_PHONG = 2e-3
+# The ladder kernel's variant that each of its rows runs on the benchmark
+# pose (unshaded, ERT off).
+LADDER_VARIANTS = dict(LADDER_ROWS)
 # Every march kernel's wrapper, for the launch counters.
 ROUND1 = {False: (diff_tri_fwd, diff_tri_bwd, diff_tri_fwd_plain,
                   diff_tri_bwd_plain),
@@ -266,7 +278,9 @@ def phase_card() -> None:
 
 
 def phase_build() -> dict:
-    """Build the kernels -> ``ptxas_report`` of the backward kernels."""
+    """Build the kernels -> ``{"ptxas": ptxas_report, "sass":
+    sass_counts}`` of the march kernels (the SASS empty where the toolkit
+    has no ``cuobjdump``)."""
     lib = _build.library_path()
     t0 = time.perf_counter()
     _build.load()
@@ -280,7 +294,7 @@ def phase_build() -> dict:
     for name, rep in report.items():
         print(f"[build] {name}: {len(rep['registers'])} variants, registers "
               f"{rep['registers']}, spill bytes {rep['spill_bytes']}")
-    return report
+    return {"ptxas": report, "sass": sass_counts(cuobjdump_sass(str(lib)))}
 
 
 def phase_small(dev: torch.device) -> None:
@@ -529,6 +543,11 @@ def _hold_image(got: torch.Tensor, want: torch.Tensor, shaded: bool) -> float:
     err = (got - want).abs().max().item()
     assert err <= ATOL_DIFFUSE if shaded else torch.equal(got, want), err
     return err
+
+
+def _held(shaded: bool) -> str:
+    """How :func:`_hold_image` holds an image."""
+    return f"atol {ATOL_DIFFUSE:g}" if shaded else "equal"
 
 
 def phase_small_adversaries(dev: torch.device) -> None:
@@ -804,7 +823,7 @@ def phase_ladder_small(dev: torch.device) -> None:
         cam = Camera(dims=(64, 64), perspective=persp)
         cam.toggle_perspective(update_mode=True)
         cam.set_camera_position((30.0, 20.0, 0.0))
-        for label, kd, thr, atol in SMALL_MODES:
+        for label, kd, thr, _ in SMALL_MODES:
             for esl in (False, True):
                 for rung in (2, 3, 4):
                     rc = make_raycaster(
@@ -820,18 +839,17 @@ def phase_ladder_small(dev: torch.device) -> None:
                     assert fn.launches == before + 1, "kernel did not launch"
                     want = plain(*args, **kw)
                     _sync()
-                    err = (got - want).abs().max().item()
-                    assert torch.isfinite(got).all(), "non-finite output"
                     assert got[:, 3].max().item() > 0.5, "empty render"
-                    assert err <= atol, (
-                        f"rung {rung} {label} persp={persp} esl={esl}: "
-                        f"kernel disagrees with plain: {err}")
+                    err = _hold_image(got, want, shaded=kd > 0)
                     key = (fn.__name__, "nearest" if rung == 2 else
                            "trilinear", label)
                     worst[key] = max(worst.get(key, 0.0), err)
     for (name, mode, label), err in worst.items():
         print(f"[ladder-small] 32^3/64^2 {name} {mode}, {label}: "
-              f"max|kernel-plain| = {err:.3g} over ortho/persp, ESL off/on")
+              f"max|kernel-plain| = {err:.3g} over ortho/persp, ESL off/on "
+              f"({_held('diffuse' in label)})")
+    _ladder_adversary(vol, dev)
+    _division_exhaustive(dev)
 
     # Rungs against rung 0, and the leap against no leap.
     cam = Camera(dims=(64, 64))
@@ -872,8 +890,105 @@ def phase_ladder_small(dev: torch.device) -> None:
             assert interp == "trilinear" or leap == 0.0
 
 
-def phase_ladder_main(dev: torch.device, fwd_frame: dict) -> dict:
-    """The ladder at 256^3 / 1024^2 -> the two kernels' entries."""
+def _grid_rays(n: int, axis: int, half: bool, dev: torch.device):
+    """``(o, d, k0, kfar, alive)`` of the ladder's adversarial pose on an
+    ``n^3`` volume: 64 x 64 orthographic rays along ``axis``, whose
+    positions across it lie on the half-voxel lattice, ``-1 + j / n``
+    (``t = (p + 1) * n / 2 - 0.5`` on every integer and half-integer from
+    -0.5, nearest mode's ``(p + 1) * n / 2`` on every half-integer),
+    the last row and column on the faces at p = +1 and the first at
+    p = -1, so that rays graze them. They march from the face at -1
+    (``half``: from half a step inside it) with a step of ``2 / n``, so
+    that ``k += step`` stays exact and every sample lands on the lattice
+    along the ray too, the last on the face at +1."""
+    j = torch.arange(64, dtype=torch.float32, device=dev)
+    across = -1.0 + j / n
+    across[-1] = 1.0
+    u, v = torch.meshgrid(across, torch.flip(across, (0,)), indexing="xy")
+    o = torch.stack([u.reshape(-1), v.reshape(-1),
+                     torch.full((64 * 64,), -2.0, device=dev)], -1)
+    d = torch.zeros_like(o)
+    d[:, 2] = 1.0
+    # Put the marching axis last: z, then y, then x.
+    perm = {2: [0, 1, 2], 1: [0, 2, 1], 0: [2, 1, 0]}[axis]
+    o, d = o[:, perm].contiguous(), d[:, perm].contiguous()
+    k0 = torch.full((64 * 64,), 1.0 + (1.0 / n if half else 0.0),
+                    device=dev)
+    kfar = torch.full((64 * 64,), 3.0, device=dev)
+    alive = torch.ones(64 * 64, dtype=torch.bool, device=dev)
+    return o, d, k0, kfar, alive
+
+
+def _ladder_adversary(vol: Volume, dev: torch.device) -> None:
+    """The ladder's kernels against their plain versions where the
+    per-sample code's floors and clamps are hardest: :func:`_grid_rays`
+    along each axis, from the face and from half a step inside, in every
+    mode of ``SMALL_MODES``; unshaded images equal to the bit."""
+    n = vol.dims[0]
+    rc = make_raycaster(vol, Camera(dims=(64, 64)).view(dev), esl=False,
+                        interpolation="trilinear")
+    tf = rc.transfer_fn.contiguous()
+    light = rc.view.light_pos.to(torch.float32)
+    step = 2.0 / n
+    worst = {}
+    for label, kd, thr, _ in SMALL_MODES:
+        scal = torch.cat([torch.tensor([thr, kd], device=dev), light,
+                          torch.zeros(3, device=dev)]).to(torch.float32)
+        kw = dict(ray_step=step, shade=kd > 0, no_ert=thr >= 1, width=64)
+        for axis in (0, 1, 2):
+            for half in (False, True):
+                rays = _grid_rays(n, axis, half, dev)
+                for fn, plain, volume, nearest in (
+                        (march_tri, march_tri_plain,
+                         vol.data.to(torch.float32), False),
+                        (march_tri, march_tri_plain,
+                         vol.data.to(torch.float32), True),
+                        (march_blocked, march_blocked_plain, vol.data,
+                         None)):
+                    extra = {} if nearest is None else {"nearest": nearest}
+                    args = (*rays, volume, tf, scal)
+                    before = fn.launches
+                    got = fn(*args, **kw, **extra)
+                    _sync()
+                    assert fn.launches == before + 1, "kernel did not launch"
+                    want = plain(*args, **kw, **extra)
+                    assert got[:, 3].max().item() > 0.5, "empty render"
+                    err = _hold_image(got, want, shaded=kd > 0)
+                    key = (fn.__name__, "nearest" if nearest else
+                           "trilinear", label)
+                    worst[key] = max(worst.get(key, 0.0), err)
+    for (name, mode, label), err in worst.items():
+        print(f"[ladder-small] adversarial grid pose {n}^3/64^2 {name} "
+              f"{mode}, {label}: max|kernel-plain| = {err:.3g} over the "
+              f"three axes, from the face and half a step in "
+              f"({_held('diffuse' in label)})")
+
+
+def _division_exhaustive(dev: torch.device) -> None:
+    """The ladder's division by 255 against ``__fdiv_rn`` on every f32 in
+    [0, 256) (``march.div255_mismatches``), in chunks."""
+    t0 = time.perf_counter()
+    top = int(np.float32(256.0).view(np.int32))
+    chunk = 1 << 27
+    bad = 0
+    for lo in range(0, top, chunk):
+        x = torch.arange(lo, min(lo + chunk, top), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        bad += div255_mismatches(x)
+    _sync()
+    print(f"[ladder-small] division by 255: {bad} mismatches against "
+          f"__fdiv_rn over all {top} f32 in [0, 256) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    assert bad == 0, f"{bad} quotients differ from __fdiv_rn"
+
+
+def phase_ladder_main(dev: torch.device, fwd_frame: dict,
+                      build: dict) -> dict:
+    """The ladder at 256^3 / 1024^2 -> the two kernels' entries, with the
+    registers of their variants on this pose and the SASS instructions
+    of their march loops, one sample an iteration (phase 2's ``build``)."""
+    ptxas = build["ptxas"]["march_ladder_kernel"]
+    sass = build["sass"].get("march_ladder_kernel", {})
     rc = bench_pose(256, 1024, dev)
     march_tri.launches = march_blocked.launches = 0
     img4, ovf4 = blocked.render_float(rc)
@@ -905,19 +1020,24 @@ def phase_ladder_main(dev: torch.device, fwd_frame: dict) -> dict:
         end.record()
         _sync()
         plain_ms = start.elapsed_time(end)
-        err = (image.reshape(-1, 4) - want).abs().max().item()
-        assert err <= ATOL_UNSHADED, f"{name} disagrees with plain: {err}"
+        err = _hold_image(image.reshape(-1, 4), want, shaded=False)
         times = time_cuda(lambda: fn(*args, **kw), 50)
         bound = _bound(args, kw, flops, images=1, grads=False)
-        print(f"[ladder] {name}: max|kernel-plain| = {err:.3g} (atol "
-              f"{ATOL_UNSHADED:g}); kernel {_spread(times)}; plain "
-              f"{plain_ms:.2f} ms (one call); bound {bound['bound_ms']:.4f} "
-              f"ms by {bound['bound_by']} for {_n_samples(args, kw)} "
-              f"samples, volume {args[5].numel() * args[5].element_size()} "
-              f"bytes")
+        variant = LADDER_VARIANTS[name]
+        regs = dict(zip(ptxas["variants"], ptxas["registers"]))[variant]
+        loop = sass.get("variants", {}).get(variant, {}).get("loop")
+        per_sample = loop["total"] if loop else None
+        print(f"[ladder] {name}: image equal to plain; kernel "
+              f"{_spread(times)}; plain {plain_ms:.2f} ms (one call); bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} for "
+              f"{_n_samples(args, kw)} samples, volume "
+              f"{args[5].numel() * args[5].element_size()} bytes; "
+              f"{variant}: {regs} registers, {per_sample} SASS instructions "
+              f"a sample ({loop})")
         out[name] = {"launches": launches.get(name, 0), "max_abs_err": err,
                      "ms": float(np.median(times)), "plain_ms": plain_ms,
-                     **bound, "library_ms": None}
+                     **bound, "library_ms": None, "registers": regs,
+                     "instr_per_sample": per_sample}
 
     # Every rung's frame by the one timer, beside rung 5's from phase 4.
     print(f"[ladder] frames, bench_fwd_step: rung 5 (f32 copy of the volume "
@@ -1131,7 +1251,7 @@ def _round1_scene(blocked: bool, dev: torch.device):
 def phase_round1_main(dev: torch.device, two_kernel_ms: float,
                       build: dict) -> dict:
     """The round-1 step at full width -> the four kernels' entries.
-    ``build`` is phase 2's ``ptxas_report``."""
+    ``build`` is phase 2's report."""
     entries = {}
     for blocked in (True, False):
         fwd, bwd, fwd_plain, bwd_plain = ROUND1[blocked]
@@ -1209,7 +1329,7 @@ def phase_round1_main(dev: torch.device, two_kernel_ms: float,
               f"{fwd_plain_ms[1]:.2f} ms (one call); bound "
               f"{bound_fwd['bound_ms']:.4f} ms by {bound_fwd['bound_by']} "
               f"for {_n_samples(args, kw)} samples")
-        rep = build["round1_bwd_kernel"]
+        rep = build["ptxas"]["round1_bwd_kernel"]
         print(f"{tag} {bwd.__name__} (zero-fill and kernel) "
               f"{_spread(t_bwd)}; plain {bwd_plain_ms[1]:.2f} ms (one call); "
               f"bound {bound_bwd['bound_ms']:.4f} ms by "
@@ -1292,7 +1412,7 @@ def main() -> int:
     step = run(phase_step, dev)
     run(phase_trainer)
     run(phase_ladder_small, dev)
-    ladder = run(phase_ladder_main, dev, fwd.pop("frame"))
+    ladder = run(phase_ladder_main, dev, fwd.pop("frame"), build)
     run(phase_ladder_cli)
     run(phase_round1_small, dev)
     round1 = run(phase_round1_main, dev, step["two_kernel_ms"], build)

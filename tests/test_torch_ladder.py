@@ -253,6 +253,17 @@ def test_shade_false_skips_the_tap():
                                mod.render_float(unlit)[0])
 
 
+def test_division_check_takes_its_plain_version_on_the_cpu():
+    """The ladder's division by 255 (``csrc/march_ladder.cu:div255``) gives
+    the IEEE quotient on a stride of every f32 in [0, 256), in the check's
+    plain version; the card runs the check over all of them."""
+    top = int(np.float32(256.0).view(np.int32))
+    x = torch.arange(0, top, 999_983, dtype=torch.int32).view(torch.float32)
+    assert march.div255_mismatches(x) == 0
+    with pytest.raises(ValueError):
+        march.div255_mismatches(x.double())
+
+
 @pytest.mark.parametrize("rung", [2, 3, 4])
 def test_march_rejects_what_the_kernel_does_not_take(rung):
     _, trc = _rcs("nearest" if rung == 2 else "trilinear", 0.0, 2.0, False,

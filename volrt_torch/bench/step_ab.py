@@ -1,4 +1,4 @@
-"""Time the step kernels of two source trees on one card, in turns.
+"""Time the march kernels of two source trees on one card, in turns.
 
     python volrt_torch/bench/step_ab.py --roots OLD NEW NEW OLD
 
@@ -8,6 +8,11 @@ that ``.gitignore`` lists). Every entry runs in a process of its own that
 imports ``volrt_torch`` from that root, builds its kernels and times, at
 256^3 / 1024^2 on the benchmark pose, ERT off, unshaded:
 
+- the ladder (scene ``ladder``): rung 4's ``march_blocked`` on the uint8
+  volume, rung 3's ``march_tri`` and rung 2's ``march_tri`` nearest on the
+  f32 copy, each with its wrapper; the three rungs' frames
+  (``bench_fwd_step``); and ``march_tri`` with its frame on the CLI's look
+  without the leap (rung 3, diffuse kd 0.6, ERT 0.95, distance 3);
 - scene ``a``, the benchmark's (``diff_bench_scene``), and scene ``b``, a
   uniform-noise f32 density of 256^3 from numpy (seed 5) under the same TF
   and pose, whose samples spread over the TF's rows;
@@ -22,16 +27,24 @@ imports ``volrt_torch`` from that root, builds its kernels and times, at
   ``blocked=False`` step on the ``[96, 96, 128]`` middle of the 128^3
   synthetic volume (scene ``crop``, ``chip_smoke.py`` phase 13's).
 
-Kernels are timed with their wrapper and the gradients' zero-fill, median
-of 20 calls after a warm-up (``harness.time_cuda``); the round-1
-backwards take the round-1 forward's image and the cotangent of a mean
-square against a zero target. Each process also prints the registers and
-spills that ``ptxas`` reported for each variant of the backward kernels,
-and their scatter opcodes in the SASS (:func:`sass_counts`). The parent
-prints every process's JSON line, then one table: each time per
-root in call order, and the ratio of the second root's median over its
-runs to the first root's. Needs a CUDA card; the roots' order is the
-caller's.
+``--ladder-only`` times the ladder alone. Kernels are timed with their
+wrapper and the gradients' zero-fill, median of 20 calls after a warm-up
+(``harness.time_cuda``); the round-1 backwards take the round-1
+forward's image and the cotangent of a mean square against a zero
+target.
+
+Each process also reports its build: the registers and spills that
+``ptxas`` gave each variant of the six march kernels
+(:func:`ptxas_report`), and from ``cuobjdump -sass`` (kept with
+``--sass-dir``) the scatter opcodes and the opcode classes of each
+variant and of its march loop (:func:`sass_counts`). The parent samples
+the SM clock with ``nvidia-smi`` while each process runs. It prints every
+process's JSON line, then one table of times (each root in call order,
+and the ratio of the second root's median over its runs to the first
+root's), then one of the ladder's variants on the pose: registers, loop
+instructions a sample by class, the SM clock, and the issue-slot
+yardstick (:func:`issue_ms`) beside the time. Needs a CUDA card; the
+roots' order is the caller's.
 """
 from __future__ import annotations
 
@@ -50,53 +63,165 @@ NOISE_SEED = 5
 # The backwards' leaf-skipping variants: (label, keywords).
 NEEDS = (("", {}), (" need_dtf=False", {"need_dtf": False}),
          (" need_dvol=False", {"need_dvol": False}))
+# The kernels whose build and SASS are reported: the forwards, then the
+# backwards.
+KERNELS = ("march_ladder_kernel", "march_fwd_kernel", "round1_fwd_kernel",
+           "l2_step_kernel", "march_bwd_kernel", "round1_bwd_kernel")
+# The scatter's opcodes, counted per kernel over its variants.
+SCATTER_OPS = ("ATOMS", "RED", "REDG", "ATOM", "ATOMG", "MATCH", "SHFL",
+               "VOTE")
+# Opcode classes of the march loop. Conversions run on a pipe that
+# retires 16 results a clock on each SM, against 128 for FP32 and 64 for
+# the integer ops; every class takes one issue slot a warp. What no class
+# names (MOV, PRMT, FMNMX, FSETP, ...) counts as "other". NOP is padding
+# and is not counted.
+OPCODE_CLASSES = {
+    "fp32": ("FADD", "FMUL", "FFMA"),
+    "int": ("IADD3", "IMAD", "LOP3", "IMNMX", "ISETP", "SEL", "VIADD",
+            "VIMNMX", "LEA", "SHF", "IADD", "IMUL"),
+    "conv": ("F2I", "I2F", "FRND", "I2FP", "F2IP", "F2F"),
+    "ldg": ("LDG",),
+    "lds": ("LDS",),
+    "mufu": ("MUFU",),
+    "branch": ("BRA", "BSSY", "BSYNC", "EXIT", "RET", "CALL", "BRX", "JMP",
+               "WARPSYNC"),
+}
+_CLASS_OF = {op: c for c, ops in OPCODE_CLASSES.items() for op in ops}
+# A template argument in a mangled name, and what the report calls it.
+_TEMPLATE_ARGS = {"h": "u8", "f": "f32", "Lb0E": "0", "Lb1E": "1"}
+
+
+def variant_name(mangled: str) -> str | None:
+    """``march_ladder_kernel<u8,0,0,1>`` for a mangled kernel name of
+    :data:`KERNELS` (template arguments in order: voxel type, then the
+    bools), None for any other function."""
+    for kernel in KERNELS:
+        m = re.search(kernel + r"(?:I((?:[hf]|Lb[01]E)*)E)?", mangled)
+        if m:
+            args = re.findall(r"[hf]|Lb[01]E", m.group(1) or "")
+            return (kernel + (f"<{','.join(_TEMPLATE_ARGS[a] for a in args)}>"
+                              if args else ""))
+    return None
 
 
 def ptxas_report(build_log: str) -> dict:
     """Registers and spill bytes that ptxas reported for each variant of
-    the backward kernels, in the build log's order."""
+    :data:`KERNELS`, in the build log's order, with the variants' names
+    (:func:`variant_name`)."""
     out = {}
     for chunk in build_log.split("Compiling entry function")[1:]:
-        name = re.match(r"\s*'([^']+)'", chunk).group(1)
-        kernel = next((k for k in ("l2_step_kernel", "march_bwd_kernel",
-                                   "round1_bwd_kernel") if k in name), None)
-        if kernel is None:
+        variant = variant_name(re.match(r"\s*'([^']+)'", chunk).group(1))
+        if variant is None:
             continue
         regs = int(re.search(r"Used (\d+) registers", chunk).group(1))
         spill = int(re.search(r"(\d+) bytes spill stores", chunk).group(1))
-        rep = out.setdefault(kernel, {"registers": [], "spill_bytes": []})
+        rep = out.setdefault(variant.split("<")[0], {
+            "registers": [], "spill_bytes": [], "variants": []})
         rep["registers"].append(regs)
         rep["spill_bytes"].append(spill)
+        rep["variants"].append(variant)
     return out
 
 
-def sass_counts(lib: str) -> dict:
-    """Scatter opcodes in the backward kernels' SASS (``cuobjdump -sass``),
-    summed over each kernel's variants: ``ATOMS`` (shared-memory atomics),
-    ``RED`` and ``ATOM`` (global), ``MATCH``, ``SHFL``, ``VOTE``. Empty
-    where the toolkit has no ``cuobjdump``."""
+def cuobjdump_sass(lib: str) -> str:
+    """``cuobjdump -sass`` of the library; empty where the toolkit has no
+    ``cuobjdump``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        return {}
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+        return ""
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    out, kernel = {}, None
+
+
+def parse_sass(sass: str) -> dict:
+    """The instructions of each variant of :data:`KERNELS` in
+    ``cuobjdump -sass`` text: ``{variant: [(address, opcode, branch
+    target or None), ...]}``, NOP left out. A branch target is read as an
+    address (``BRA 0x1a0``) or as a label (``BRA `(.L_x_3)``, with the
+    label's line before its instruction)."""
+    out, insts, labels, variant = {}, None, {}, None
+    pending = []
+
+    def close():
+        if insts is not None:
+            out[variant] = [(a, op, labels.get(t, t) if isinstance(t, str)
+                             else t) for a, op, t in insts]
+
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            kernel = next((k for k in ("l2_step_kernel", "march_bwd_kernel",
-                                       "round1_bwd_kernel")
-                           if k in m.group(1)), None)
+            close()
+            variant = variant_name(m.group(1))
+            insts = [] if variant else None
+            labels, pending = {}, []
             continue
-        m = re.search(
-            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if kernel is None or m is None:
+        if insts is None:
             continue
-        op = m.group(1).split(".")[0]
-        if op in ("ATOMS", "RED", "REDG", "ATOM", "ATOMG", "MATCH", "SHFL",
-                  "VOTE"):
-            counts = out.setdefault(kernel, {})
-            counts[op] = counts.get(op, 0) + 1
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if m is None:
+            continue
+        addr = int(m.group(1), 16)
+        for label in pending:
+            labels[label] = addr
+        pending = []
+        op = m.group(2).split(".")[0]
+        if op == "NOP":
+            continue
+        target = None
+        if op in ("BRA", "BRX", "JMP", "CALL"):
+            t = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", m.group(3))
+            if t:
+                target = t.group(1) or int(t.group(2), 16)
+        insts.append((addr, op, target))
+    close()
+    return out
+
+
+def opcode_classes(ops) -> dict:
+    """Counts of :data:`OPCODE_CLASSES` (and "other", and "total") over
+    the opcodes ``ops``."""
+    counts = dict.fromkeys((*OPCODE_CLASSES, "other"), 0)
+    for op in ops:
+        counts[_CLASS_OF.get(op, "other")] += 1
+    counts["total"] = sum(counts.values())
+    return counts
+
+
+def march_loop(insts: list) -> list:
+    """The instructions of a kernel's march loop: the longest span from a
+    backward branch's target to the branch itself (static; forward
+    branches inside it, the shade tap's, are counted as if taken never
+    and always). Empty where the kernel has no loop."""
+    best = (0, 0)
+    for addr, op, target in insts:
+        if isinstance(target, int) and target <= addr and (
+                addr - target > best[1] - best[0]):
+            best = (target, addr)
+    if best == (0, 0):
+        return []
+    return [i for i in insts if best[0] <= i[0] <= best[1]]
+
+
+def sass_counts(sass: str) -> dict:
+    """From ``cuobjdump -sass`` text: per kernel of :data:`KERNELS`, its
+    scatter opcodes (:data:`SCATTER_OPS`) summed over its variants, and
+    per variant the opcode classes of the whole kernel and of its march
+    loop (:func:`march_loop`): ``{kernel: {"ATOMS": n, ..., "variants":
+    {variant: {"kernel": classes, "loop": classes}}}}``."""
+    out = {}
+    for variant, insts in parse_sass(sass).items():
+        rep = out.setdefault(variant.split("<")[0], {"variants": {}})
+        for _, op, _ in insts:
+            if op in SCATTER_OPS:
+                rep[op] = rep.get(op, 0) + 1
+        rep["variants"][variant] = {
+            "kernel": opcode_classes(op for _, op, _ in insts),
+            "loop": opcode_classes(op for _, op, _ in march_loop(insts))}
     return out
 
 
@@ -113,7 +238,73 @@ def _round1_times(fwd, bwd, args, kw, med) -> dict:
     return t
 
 
-def child(root: str) -> dict:
+def _ladder_times(dev, med) -> tuple[dict, int]:
+    """``(times, warp-steps)``: the ladder's march kernels with their
+    wrappers on the benchmark pose (rung 4's ``march_blocked``, rung 3's
+    ``march_tri``, rung 2's ``march_tri`` nearest), the rungs' frames
+    (``bench_fwd_step``), and ``march_tri`` and its frame on the CLI's
+    look without the leap (rung 3, diffuse kd 0.6, ERT 0.95, the camera at
+    distance 3); and the pose's :func:`_warp_steps`."""
+    import torch
+
+    from volrt_torch.bench.harness import bench_fwd_step, bench_pose
+    from volrt_torch.core.types import make_raycaster
+    from volrt_torch.core.view import Camera
+    from volrt_torch.renderers import trilinear
+    from volrt_torch.renderers.cuda.march import march_blocked, march_tri
+
+    t, warp_steps = {}, None
+    with torch.no_grad():
+        for name, fn, interp, volume in (
+                ("march_blocked", march_blocked, "trilinear", None),
+                ("march_tri", march_tri, "trilinear", torch.float32),
+                ("march_tri nearest", march_tri, "nearest", torch.float32)):
+            rc = bench_pose(256, 1024, dev, interp)
+            args, kw = trilinear.ladder_args(
+                rc, rc.volume.data if volume is None
+                else rc.volume.data.to(volume))
+            if fn is march_tri:
+                kw["nearest"] = interp == "nearest"
+            t[name] = med(lambda: fn(*args, **kw))
+            if warp_steps is None:
+                warp_steps = _warp_steps(args, kw)
+        for rung in (4, 3, 2):
+            t[f"frame rung {rung}"] = bench_fwd_step(
+                256, 1024, iters=100, device=dev, renderer=rung)["ms"]
+        look = make_raycaster(bench_pose(256, 1024, dev).volume,
+                              Camera(dims=(1024, 1024)).view(dev),
+                              interpolation="trilinear").replace(esl=False)
+        args, kw = trilinear.ladder_args(
+            look, look.volume.data.to(torch.float32))
+        t["march_tri cli look"] = med(
+            lambda: march_tri(*args, nearest=False, **kw))
+        t["frame rung 3 cli look"] = med(
+            lambda: trilinear.render_float(look))
+    return t, warp_steps
+
+
+def _warp_steps(args, kw) -> int:
+    """Samples the ladder's kernel steps through on these rays with ERT
+    off, counted by warp (two image rows of 16 pixels, the kernel's 32
+    lanes): each warp takes as many steps as its longest ray. The ladder's
+    own lattice, ``k += step`` while ``k <= kfar``."""
+    import torch
+
+    from volrt_torch.renderers.cuda.march import max_steps
+
+    _, _, k, kfar, live = args[:5]
+    n = torch.zeros(k.shape, dtype=torch.int64, device=k.device)
+    for _ in range(max_steps(kw["ray_step"])):
+        n += live
+        k = k + kw["ray_step"]
+        live = live & (k <= kfar)
+    width = kw["width"]
+    per_warp = n.reshape(-1, 2, width // 16, 16).amax(dim=(1, 3))
+    return int(per_warp.sum())
+
+
+def child(root: str, sass_file: str | None = None,
+          ladder_only: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -134,10 +325,19 @@ def child(root: str) -> dict:
     dev = torch.device("cuda", 0)
     _build.load()
     lib = _build.library_path()
+    sass = cuobjdump_sass(str(lib))
+    if sass_file:
+        with open(sass_file, "w") as f:
+            f.write(sass)
     res = {"root": root,
            "build": ptxas_report((lib.parent / "build.log").read_text()),
-           "sass": sass_counts(str(lib))}
+           "sass": sass_counts(sass)}
     med = lambda fn: float(np.median(time_cuda(fn, ITERS)))  # noqa: E731
+    ladder, res["warp_steps"] = _ladder_times(dev, med)
+    leaves = {"ladder": ladder}
+    res["ms"] = leaves
+    if ladder_only:
+        return res
 
     scene_a, view, target = diff_bench_scene(256, 1024, device=dev)
     noise = np.random.default_rng(NOISE_SEED).uniform(
@@ -155,7 +355,6 @@ def child(root: str) -> dict:
             return torch.autograd.grad(loss, params)
         return med(step)
 
-    leaves = {}
     for name, scene in (("a", scene_a), ("b", scene_b)):
         t = {}
         with torch.no_grad():
@@ -196,35 +395,94 @@ def child(root: str) -> dict:
                                        med)
     leaves["crop"]["step round-1 blocked=False"] = round1_step(
         scene, view, target, False)
-    res["ms"] = leaves
     return res
+
+
+class ClockSampler:
+    """``nvidia-smi``'s SM clock and utilisation, sampled every 200 ms
+    while the ``with`` block runs; :meth:`summary` keeps the samples taken
+    while the card was busy (utilisation 50 % or more)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.out, _ = self.proc.communicate(timeout=60)
+
+    def summary(self) -> dict:
+        busy = []
+        for line in self.out.splitlines():
+            try:
+                clock, util = (float(v) for v in line.split(","))
+            except ValueError:
+                continue
+            if util >= 50:
+                busy.append(clock)
+        return {"sm_clock_mhz": float(np.median(busy)) if busy else None,
+                "sm_clock_mhz_min": min(busy, default=None),
+                "busy_samples": len(busy)}
+
+
+# The ladder's kernel variants on the benchmark pose (unshaded, ERT off)
+# and the times they run under, by the report's row names.
+LADDER_ROWS = (("march_blocked", "march_ladder_kernel<u8,0,0,1>"),
+               ("march_tri", "march_ladder_kernel<f32,0,0,1>"),
+               ("march_tri nearest", "march_ladder_kernel<f32,1,0,1>"))
+# Issue slots of one H100: 132 SMs of four schedulers, one warp
+# instruction a clock each.
+ISSUE_SLOTS = 132 * 4
+
+
+def issue_ms(instructions: int, warp_steps: int, clock_mhz: float) -> float:
+    """The issue-slot yardstick: the time the card takes to issue
+    ``instructions`` a warp-step for ``warp_steps`` warp-steps at
+    ``clock_mhz``, with every scheduler issuing every clock."""
+    return instructions * warp_steps / (ISSUE_SLOTS * clock_mhz * 1e3)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--roots", nargs="+", required=True,
                    help="source trees, timed in this order")
+    p.add_argument("--sass-dir", default=None,
+                   help="write each root's cuobjdump -sass here, as "
+                        "<call index>.sass")
+    p.add_argument("--ladder-only", action="store_true",
+                   help="time the ladder's kernels and frames only")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--sass-file", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.child:
-        print(json.dumps(child(args.roots[0])), flush=True)
+        print(json.dumps(child(args.roots[0], args.sass_file,
+                               args.ladder_only)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if args.sass_dir:
+        os.makedirs(args.sass_dir, exist_ok=True)
     runs = []
-    for root in args.roots:
-        res = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child",
-             "--roots", root], capture_output=True, text=True, check=False,
-            timeout=900)
+    for i, root in enumerate(args.roots):
+        cmd = [sys.executable, os.path.abspath(__file__), "--child",
+               "--roots", root] + ["--ladder-only"] * args.ladder_only
+        if args.sass_dir:
+            cmd += ["--sass-file", os.path.join(args.sass_dir, f"{i}.sass")]
+        with ClockSampler() as clock:
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 check=False, timeout=900)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)
             return res.returncode
-        line = res.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        runs.append(json.loads(line))
+        run = json.loads(res.stdout.strip().splitlines()[-1])
+        run["clock"] = clock.summary()
+        print(json.dumps(run), flush=True)
+        runs.append(run)
     # The ratio of the second distinct root's median to the first's.
     first, second = list(dict.fromkeys(args.roots))[:2] + [None] * (
         len(set(args.roots)) < 2)
@@ -240,6 +498,31 @@ def main(argv=None) -> int:
             ratio = f"{by[second] / by[first]:.3f}" if second else "-"
             print(f"| {scene} | {key} | "
                   + " | ".join(f"{v:.4f}" for v in row) + f" | {ratio} |")
+    # The ladder's variants on the pose: build, SASS of the march loop by
+    # opcode class, and the issue-slot yardstick beside the time.
+    print("| root | call | variant | registers | spill bytes | loop "
+          "instructions (" + ", ".join((*OPCODE_CLASSES, "other")) + ") | "
+          "SM MHz | issue ms | ms |")
+    print("| --- | --- | --- | --- | --- | --- | --- | --- | --- |")
+    for root, run in zip(args.roots, runs):
+        build = run["build"].get("march_ladder_kernel", {})
+        regs = dict(zip(build.get("variants", ()),
+                        zip(build.get("registers", ()),
+                            build.get("spill_bytes", ()))))
+        variants = run["sass"].get("march_ladder_kernel", {}).get(
+            "variants", {})
+        clock = run["clock"]["sm_clock_mhz"]
+        for name, variant in LADDER_ROWS:
+            loop = variants.get(variant, {}).get("loop")
+            r, spill = regs.get(variant, (None, None))
+            yard = (f"{issue_ms(loop['total'], run['warp_steps'], clock):.4f}"
+                    if loop and clock else "-")
+            classes = (f"{loop['total']} (" + ", ".join(
+                str(loop[c]) for c in (*OPCODE_CLASSES, "other")) + ")"
+                if loop else "-")
+            print(f"| {root} | {name} | `{variant}` | {r} | {spill} | "
+                  f"{classes} | {clock} | {yard} | "
+                  f"{run['ms']['ladder'][name]:.4f} |")
     return 0
 
 

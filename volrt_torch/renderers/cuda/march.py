@@ -292,6 +292,51 @@ def march_blocked(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
 march_blocked.launches = 0
 
 
+def div255_mismatches(x: torch.Tensor) -> int:
+    """How many of the f32 values ``x`` the ladder's division by 255 puts
+    elsewhere than the IEEE quotient ``x / 255``, bit for bit.
+
+    ``csrc/march_ladder.cu:div255`` divides in three rounded operations,
+    ``q = x * r`` with ``r = RN(1/255)``, ``e = fma(-q, 255, x)`` and
+    ``fma(e, r, q)``, where ``__fdiv_rn`` takes a longer sequence.
+    ``chip_smoke.py`` runs this over every f32 in [0, 256), the range of
+    the kernels' lerps of raw values 0..255, and needs 0. CUDA tensors
+    launch ``volrt_div255_check`` (one pass, one count); CPU tensors take
+    :func:`div255_mismatches_plain`.
+    """
+    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous f32 vector")
+    if x.device.type == "cpu":
+        return div255_mismatches_plain(x)
+    count = torch.zeros(1, dtype=torch.int64, device=x.device)
+    if x.numel():
+        _launch("volrt_div255_check", [_P, ctypes.c_longlong, _P], x.device,
+                x.data_ptr(), x.numel(), count.data_ptr())
+    return int(count.item())
+
+
+def div255_mismatches_plain(x: torch.Tensor) -> int:
+    """The plain version of :func:`div255_mismatches`: the three
+    operations in f64, where the products are exact and each f32 rounding
+    is taken once, against torch's f32 division."""
+    r = torch.tensor(1.0, dtype=torch.float32) / 255.0
+    x64, r64 = x.double(), r.double()
+    q = (x64 * r64).float()
+    e = (x64 - q.double() * 255.0).float()  # fma(-q, 255, x)
+    # fma(e, r, q): e r is exact in f64; q + e r as an unevaluated pair
+    # (Fast2Sum), rounded once to the nearest f32, ties to even.
+    s = e.double() * r64
+    hi = q.double() + s
+    lo = (q.double() - hi) + s
+    got = hi.float()
+    for side in (math.inf, -math.inf):
+        nb = torch.nextafter(got, torch.full_like(got, side))
+        mid = (hi == (got.double() + nb.double()) / 2) & (lo != 0)
+        got = torch.where(mid & ((lo > 0) == (side > 0)), nb, got)
+    want = x / torch.tensor(255.0, dtype=torch.float32)
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
 def _classify_nearest_raw(volume, premult_tf, pt, light_pos, kd):
     """Nearest mode in the kernel's order: the sample stays on the 0..255
     scale and the shade delta is scaled, ``(s_light - s) * (1/255) * kd``
