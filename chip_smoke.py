@@ -54,7 +54,12 @@ Phases, each synchronised with the card, none catching its own failure:
    an adversarial pose, orthographic rays along each axis on the voxel
    lattice with a step of 2/N, where every floor and clamp of the
    per-sample code sits on an integer or half-integer and rays graze the
-   faces at p = +-1; the kernels' division by 255 against ``__fdiv_rn`` on
+   faces at p = +-1; the same pose on the kernels that share that code
+   over a density in [0, 1]: ``march_fwd`` in phase 3's modes and the
+   round-1 forwards unshaded, images equal to the bit, and on its rays
+   ``march_bwd``, ``l2_step`` and the round-1 backwards in their three
+   ``need_*`` variants at phase 6's and 12's gradient tolerances; the
+   kernels' division by 255 against ``__fdiv_rn`` on
    every f32 in [0, 256), 0 mismatches; then hold rungs 0-5 against rung 0
    on one scene per interpolation, with the leap and without it. In
    nearest mode the leap changes no image and every frame is held to rung
@@ -67,8 +72,9 @@ Phases, each synchronised with the card, none catching its own failure:
     rung 4's and rung 3's ``render_float`` with the launch counters reset
     before and read after, each kernel's image equal to its plain
     version's to the bit, timed, beside its variant's registers and the
-    SASS instructions of its march loop (a sample an iteration), every
-    rung's frame timed by ``bench_fwd_step``; then the frame
+    SASS instructions of its march loop (a sample an iteration), and
+    rung 5's ``march_fwd`` variant's the same; every rung's frame timed by
+    ``bench_fwd_step``; then the frame
     ``cli render`` renders by default (rung 3, diffuse kd 0.6, ERT 0.95,
     the ESL leap, the camera at distance 3), timed with the leap and
     without it and held against rung 1;
@@ -94,8 +100,9 @@ Phases, each synchronised with the card, none catching its own failure:
     the pair's forward and backward per step, none of any other march
     kernel); each kernel held against its plain version and timed, the
     backward also with either scatter left out, beside its bound and the
-    registers ``ptxas`` gave its variants; the step timed beside phase 7's
-    two-kernel step;
+    registers ``ptxas`` gave its variants, the forward beside its variant's
+    registers and the SASS instructions of its march loop; the step timed
+    beside phase 7's two-kernel step;
 14. phong, which is torch ops only: rung 1's frame and the oracle's image
     and gradients (``render_diff_image(phong=True)``) on the card against
     the same on the CPU, at 32^3 / 64^2.
@@ -138,7 +145,7 @@ from volrt_torch.bench.harness import (
     bench_diff_step, bench_fwd_step, bench_pose, crop_bench_scene,
     diff_bench_scene, synthetic_volume, time_cuda)
 from volrt_torch.bench.step_ab import (
-    LADDER_ROWS, cuobjdump_sass, ptxas_report, sass_counts)
+    VARIANT_ROWS, cuobjdump_sass, ptxas_report, sass_counts)
 from volrt_torch.core.tf import default_transfer_fn
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
@@ -189,13 +196,13 @@ PEAK_F32_FLOPS = 67e12
 # and the eight voxels' weights and adds 35.
 FLOPS_FWD = 80
 FLOPS_BWD = 146
-# csrc/march_ladder.cu. Trilinear: the position and the next k 7, the taps
+# The ladder (raw units). Trilinear: the position and the next k 7, the taps
 # 15, the seven lerps 28, the division by 255 1, the TF coordinate and its
 # lerps 20, the composite 9. Nearest: the position and the next k 7, three
 # axes' indices 9, the composite 9.
 FLOPS_TRI = 80
 FLOPS_NEAREST = 25
-# csrc/march_round1.cu. Forward: the ladder's trilinear sample without the
+# Round 1 (a density). Forward: the ladder's trilinear sample without the
 # division. Replay: that without its three colour composites 73, and the
 # cotangent chain, TF rows, slope and voxels as above 72.
 FLOPS_ROUND1_FWD = 79
@@ -210,9 +217,9 @@ RTOL_GRAD_LATTICE = 2e-3
 # pow, rsqrt and sqrt round otherwise, the shade-tap class.
 ATOL_PHONG = 1e-5
 RTOL_GRAD_PHONG = 2e-3
-# The ladder kernel's variant that each of its rows runs on the benchmark
-# pose (unshaded, ERT off).
-LADDER_VARIANTS = dict(LADDER_ROWS)
+# The kernel variant that each forward row runs on the benchmark pose
+# (unshaded, ERT off), by the row's name.
+VARIANTS = {name: variant for _, name, variant, _ in VARIANT_ROWS}
 # Every march kernel's wrapper, for the launch counters.
 ROUND1 = {False: (diff_tri_fwd, diff_tri_bwd, diff_tri_fwd_plain,
                   diff_tri_bwd_plain),
@@ -431,6 +438,25 @@ def _hold(tag: str, what: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
+def _hold_needs(tag: str, grads: list, want_vol: torch.Tensor,
+                want_tf: torch.Tensor, rtol: float) -> dict:
+    """Hold a backward's gradients in its ``NEEDS`` variants (``grads``,
+    in that order) to the plain version's: a skipped leaf all zero, the
+    other within ``rtol`` of the largest entry. Returns the largest
+    relative difference of each leaf."""
+    worst = {}
+    for (what, need), got in zip(NEEDS, grads):
+        for i, leaf, want, skip in ((0, "d_density", want_vol, "need_dvol"),
+                                    (1, "d_premult_tf", want_tf, "need_dtf")):
+            if need.get(skip) is False:
+                assert not got[i].any(), f"{tag}{what} left a {leaf}"
+                continue
+            err = _hold(tag, f"{what} {leaf}", got[i], want, rtol, quiet=True)
+            worst[leaf] = max(worst.get(leaf, 0.0),
+                              err / want.abs().max().item())
+    return worst
+
+
 def phase_small_grads(dev: torch.device) -> None:
     rng = np.random.default_rng(11)
     target = torch.tensor(rng.uniform(0, 1, (64, 64, 4)).astype(np.float32),
@@ -593,22 +619,12 @@ def phase_small_adversaries(dev: torch.device) -> None:
                     want = l2_step_plain(*args, tgt, **kw)
                 img_err = _hold_image(l2[0][0], want[0], shaded)
                 worst = {}
-                for (what, need), got_bwd, got_l2 in zip(NEEDS, bwd, l2):
-                    for kernel, grads in (("march_bwd", got_bwd),
-                                          ("l2_step", got_l2[1:])):
-                        for leaf, got, r, skipped in (
-                                ("d_density", grads[0], want[1],
-                                 need.get("need_dvol") is False),
-                                ("d_premult_tf", grads[1], want[2],
-                                 need.get("need_dtf") is False)):
-                            if skipped:
-                                assert not got.any(), f"{tag} {kernel}{what}"
-                            else:
-                                err = _hold(tag, f"{kernel}{what} {leaf}",
-                                            got, r, rtol, quiet=True)
-                                key = (kernel, leaf)
-                                worst[key] = max(worst.get(key, 0.0),
-                                                 err / r.abs().max().item())
+                for kernel, grads in (("march_bwd", bwd),
+                                      ("l2_step", [x[1:] for x in l2])):
+                    for leaf, err in _hold_needs(f"{tag} {kernel}", grads,
+                                                 want[1], want[2],
+                                                 rtol).items():
+                        worst[kernel, leaf] = err
                 print(f"{tag} l2_step image max|kernel-plain| {img_err:.3g} "
                       f"({'atol ' + str(ATOL_DIFFUSE) if shaded else 'equal'}"
                       f"); gradients' max|kernel-plain| / max|plain| over "
@@ -849,6 +865,7 @@ def phase_ladder_small(dev: torch.device) -> None:
               f"max|kernel-plain| = {err:.3g} over ortho/persp, ESL off/on "
               f"({_held('diffuse' in label)})")
     _ladder_adversary(vol, dev)
+    _density_adversary(dev)
     _division_exhaustive(dev)
 
     # Rungs against rung 0, and the leap against no leap.
@@ -964,6 +981,85 @@ def _ladder_adversary(vol: Volume, dev: torch.device) -> None:
               f"({_held('diffuse' in label)})")
 
 
+def _density_adversary(dev: torch.device) -> None:
+    """Rung 5's and round 1's kernels, which classify a density in [0, 1]
+    through the ladder's per-sample code, against their plain versions on
+    the ladder's adversarial pose (:func:`_grid_rays`, 32^3, along each
+    axis, from the face and half a step in): ``march_fwd`` in every mode of
+    ``SMALL_MODES``, ``diff_tri_fwd`` and ``diff_blocked_fwd`` unshaded with
+    ERT off and at 0.95, unshaded images equal to the bit; and on the same
+    rays the backwards, ``march_bwd`` and ``l2_step`` (on the L2 step's own
+    cotangent, so that one plain step holds both) and the round-1 pair's,
+    each in its three ``need_*`` variants, at phase 6's and phase 12's
+    tolerances."""
+    n = 32
+    scene = scene_from_volume(synthetic_volume(n), default_transfer_fn(dev),
+                              2.0 / n, device=dev)
+    density, tf = scene.density.detach(), scene.premult_tf().detach()
+    light = Camera(dims=(64, 64)).view(dev).light_pos.to(torch.float32)
+    tgt = torch.tensor(np.random.default_rng(14).uniform(
+        0, 1, (64 * 64, 4)).astype(np.float32), device=dev)
+    worst = {}
+    for label, kd, thr, _ in SMALL_MODES:
+        shaded = kd > 0
+        rtol = RTOL_GRAD_DIFFUSE if shaded else RTOL_GRAD
+        scal = torch.cat([torch.tensor([thr, kd], device=dev), light,
+                          torch.tensor([0.0, 2.0 / tgt.numel(), 0.0],
+                                       device=dev)]).to(torch.float32)
+        kw = dict(ray_step=2.0 / n, shade=shaded, no_ert=thr >= 1, width=64)
+        kw1 = {k: v for k, v in kw.items() if k != "shade"}
+        for axis in (0, 1, 2):
+            for half in (False, True):
+                args = (*_grid_rays(n, axis, half, dev), density, tf, scal)
+                tag = (f"[density-adversary] axis {axis}"
+                       f"{', half a step in' if half else ''}, {label}:")
+                before = [fn.launches for fn in WRAPPERS]
+                out = march_fwd(*args, **kw)
+                g = (out - tgt) * (scal[6] * args[4][:, None])
+                bwd = [march_bwd(*args, out, g, **kw, **need)
+                       for _, need in NEEDS]
+                l2 = [l2_step(*args, tgt, **kw, **need) for _, need in NEEDS]
+                want = l2_step_plain(*args, tgt, **kw)
+                checks = [("march_fwd", out, march_fwd_plain(*args, **kw))]
+                holds = [("march_bwd", bwd, want[1:]),
+                         ("l2_step", [x[1:] for x in l2], want[1:])]
+                checks.append(("l2_step", l2[0][0], want[0]))
+                if not shaded:
+                    for fwd, bwd1, fwd_plain, bwd_plain in ROUND1.values():
+                        out1 = fwd(*args, **kw1)
+                        g1 = (out1 - tgt) * scal[6]
+                        checks.append((fwd.__name__, out1,
+                                       fwd_plain(*args, **kw1)))
+                        holds.append((bwd1.__name__,
+                                      [bwd1(*args, out1, g1, **kw1, **need)
+                                       for _, need in NEEDS],
+                                      bwd_plain(*args, out1, g1, **kw1)))
+                _sync()
+                counts = [fn.launches - b for fn, b in zip(WRAPPERS, before)]
+                assert counts == [
+                    1, 3, 3, 0, 0, *(0 if shaded else k for k in (1, 3, 1, 3))
+                ], f"{tag} launches {counts}"
+                for what, got, plain in checks:
+                    assert got[:, 3].max().item() > 0.5, f"{tag} {what} empty"
+                    err = _hold_image(got, plain, shaded)
+                    key = (what, label, "image")
+                    worst[key] = max(worst.get(key, 0.0), err)
+                for what, grads, (w_vol, w_tf) in holds:
+                    for leaf, err in _hold_needs(f"{tag} {what}", grads,
+                                                 w_vol, w_tf, rtol).items():
+                        key = (what, label, leaf)
+                        worst[key] = max(worst.get(key, 0.0), err)
+    for (what, label, leaf), err in worst.items():
+        shaded = "diffuse" in label
+        held = (_held(shaded) if leaf == "image" else
+                f"/ max|plain|, rtol "
+                f"{RTOL_GRAD_DIFFUSE if shaded else RTOL_GRAD:g}, over the "
+                f"three need variants")
+        print(f"[ladder-small] adversarial grid pose 32^3/64^2 {what} "
+              f"{leaf}, {label}: max|kernel-plain| = {err:.3g} over the "
+              f"three axes, from the face and half a step in ({held})")
+
+
 def _division_exhaustive(dev: torch.device) -> None:
     """The ladder's division by 255 against ``__fdiv_rn`` on every f32 in
     [0, 256) (``march.div255_mismatches``), in chunks."""
@@ -982,13 +1078,36 @@ def _division_exhaustive(dev: torch.device) -> None:
     assert bad == 0, f"{bad} quotients differ from __fdiv_rn"
 
 
+def _variant(build: dict, name: str) -> dict:
+    """The registers ``ptxas`` gave the kernel variant that the forward row
+    ``name`` runs on the benchmark pose (``VARIANTS``), and the SASS
+    instructions of its march loop, one sample an iteration, in all and by
+    opcode class (None where the toolkit has no ``cuobjdump``); from phase
+    2's ``build``."""
+    variant = VARIANTS[name]
+    kernel = variant.split("<")[0]
+    ptxas = build["ptxas"][kernel]
+    loop = build["sass"].get(kernel, {}).get("variants", {}).get(
+        variant, {}).get("loop")
+    return {"variant": variant,
+            "registers": dict(zip(ptxas["variants"],
+                                  ptxas["registers"]))[variant],
+            "instr_per_sample": loop["total"] if loop else None,
+            "loop": loop}
+
+
+def _print_variant(tag: str, v: dict) -> None:
+    print(f"{tag} {v['variant']}: {v['registers']} registers, "
+          f"{v['instr_per_sample']} SASS instructions a sample "
+          f"({v['loop']})")
+
+
 def phase_ladder_main(dev: torch.device, fwd_frame: dict,
                       build: dict) -> dict:
     """The ladder at 256^3 / 1024^2 -> the two kernels' entries, with the
     registers of their variants on this pose and the SASS instructions
-    of their march loops, one sample an iteration (phase 2's ``build``)."""
-    ptxas = build["ptxas"]["march_ladder_kernel"]
-    sass = build["sass"].get("march_ladder_kernel", {})
+    of their march loops, one sample an iteration (phase 2's ``build``);
+    rung 5's ``march_fwd`` variant beside them."""
     rc = bench_pose(256, 1024, dev)
     march_tri.launches = march_blocked.launches = 0
     img4, ovf4 = blocked.render_float(rc)
@@ -1023,21 +1142,22 @@ def phase_ladder_main(dev: torch.device, fwd_frame: dict,
         err = _hold_image(image.reshape(-1, 4), want, shaded=False)
         times = time_cuda(lambda: fn(*args, **kw), 50)
         bound = _bound(args, kw, flops, images=1, grads=False)
-        variant = LADDER_VARIANTS[name]
-        regs = dict(zip(ptxas["variants"], ptxas["registers"]))[variant]
-        loop = sass.get("variants", {}).get(variant, {}).get("loop")
-        per_sample = loop["total"] if loop else None
+        v = _variant(build, name)
         print(f"[ladder] {name}: image equal to plain; kernel "
               f"{_spread(times)}; plain {plain_ms:.2f} ms (one call); bound "
               f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} for "
               f"{_n_samples(args, kw)} samples, volume "
-              f"{args[5].numel() * args[5].element_size()} bytes; "
-              f"{variant}: {regs} registers, {per_sample} SASS instructions "
-              f"a sample ({loop})")
+              f"{args[5].numel() * args[5].element_size()} bytes")
+        _print_variant(f"[ladder] {name}:", v)
         out[name] = {"launches": launches.get(name, 0), "max_abs_err": err,
                      "ms": float(np.median(times)), "plain_ms": plain_ms,
-                     **bound, "library_ms": None, "registers": regs,
-                     "instr_per_sample": per_sample}
+                     **bound, "library_ms": None,
+                     "registers": v["registers"],
+                     "instr_per_sample": v["instr_per_sample"]}
+    # Rung 5's march beside them: the same loop on the v3 lattice over a
+    # density (phase 4 holds and times it).
+    _print_variant("[ladder] rung 5's march_fwd (phase 4):",
+                   _variant(build, "march_fwd"))
 
     # Every rung's frame by the one timer, beside rung 5's from phase 4.
     print(f"[ladder] frames, bench_fwd_step: rung 5 (f32 copy of the volume "
@@ -1088,7 +1208,9 @@ def phase_ladder_main(dev: torch.device, fwd_frame: dict,
               f"{_spread(times)}, wall {wall:.4f} ms a frame; march_tri "
               f"alone {_spread(march)}")
     return {"march_tri": out["march_tri"],
-            "march_blocked": out["march_blocked"]}
+            "march_blocked": out["march_blocked"],
+            "march_fwd": {k: _variant(build, "march_fwd")[k]
+                          for k in ("registers", "instr_per_sample")}}
 
 
 def phase_ladder_cli() -> None:
@@ -1166,18 +1288,8 @@ def phase_round1_small(dev: torch.device) -> None:
                     _hold_image(out, fwd_plain(*args, **kw), shaded=False)
                     assert out[:, 3].max() > 0.5, "empty small render"
                     want = bwd_plain(*args, out, cot, **kw)
-                    worst = {}
-                    for (what, need), got in zip(NEEDS, grads):
-                        for i, leaf, skip in (
-                                (0, "d_density", "need_dvol"),
-                                (1, "d_premult_tf", "need_dtf")):
-                            if need.get(skip) is False:
-                                assert not got[i].any(), f"{tag}{what} {leaf}"
-                                continue
-                            err = _hold(tag, f"{bwd.__name__}{what} {leaf}",
-                                        got[i], want[i], RTOL_GRAD, quiet=True)
-                            worst[leaf] = max(worst.get(leaf, 0.0),
-                                              err / want[i].abs().max().item())
+                    worst = _hold_needs(f"{tag} {bwd.__name__}", grads,
+                                        *want, RTOL_GRAD)
                     print(f"{tag} image equal to plain; {bwd.__name__}'s "
                           f"max|kernel-plain| / max|plain| over the three "
                           f"need variants (rtol {RTOL_GRAD:g}): "
@@ -1329,6 +1441,8 @@ def phase_round1_main(dev: torch.device, two_kernel_ms: float,
               f"{fwd_plain_ms[1]:.2f} ms (one call); bound "
               f"{bound_fwd['bound_ms']:.4f} ms by {bound_fwd['bound_by']} "
               f"for {_n_samples(args, kw)} samples")
+        v = _variant(build, fwd.__name__)
+        _print_variant(f"{tag} {fwd.__name__}", v)
         rep = build["ptxas"]["round1_bwd_kernel"]
         print(f"{tag} {bwd.__name__} (zero-fill and kernel) "
               f"{_spread(t_bwd)}; plain {bwd_plain_ms[1]:.2f} ms (one call); "
@@ -1340,7 +1454,8 @@ def phase_round1_main(dev: torch.device, two_kernel_ms: float,
         entries[fwd.__name__] = {
             "launches": counts[fwd.__name__], "max_abs_err": err_fwd,
             "ms": float(np.median(t_fwd)), "plain_ms": fwd_plain_ms[1],
-            **bound_fwd, "library_ms": None}
+            **bound_fwd, "library_ms": None, "registers": v["registers"],
+            "instr_per_sample": v["instr_per_sample"]}
         entries[bwd.__name__] = {
             "launches": counts[bwd.__name__], "max_abs_err": err_bwd,
             "ms": float(np.median(t_bwd)), "plain_ms": bwd_plain_ms[1],
@@ -1427,7 +1542,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "march_fwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_fwd.cu",
-         "replaces": f"{pallas}:1128", **fwd},
+         "replaces": f"{pallas}:1128", **fwd, **ladder["march_fwd"]},
         {"name": "march_bwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_bwd.cu",
          "replaces": f"{pallas}:1435", **step["march_bwd"]},

@@ -254,7 +254,7 @@ def test_shade_false_skips_the_tap():
 
 
 def test_division_check_takes_its_plain_version_on_the_cpu():
-    """The ladder's division by 255 (``csrc/march_ladder.cu:div255``) gives
+    """The ladder's division by 255 (``csrc/march_common.cuh:div255``) gives
     the IEEE quotient on a stride of every f32 in [0, 256), in the check's
     plain version; the card runs the check over all of them."""
     top = int(np.float32(256.0).view(np.int32))

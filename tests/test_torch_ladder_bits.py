@@ -1,25 +1,31 @@
-"""The bit-level identities that ``volrt_torch/csrc/march_ladder.cu``'s
-per-sample code rests on, checked in numpy over the inputs the kernel can
-give them.
+"""The bit-level identities that the per-sample code of the port's march
+kernels (``volrt_torch/csrc/march_common.cuh``, shared by every kernel)
+rests on, checked in numpy over the inputs the kernels can give them.
 
 Each replaces a rounded operation of the plain march (``floorf`` and a
 clamped float-to-int conversion, truncation, the TF's clamped rows, an
-IEEE division by 255) with another sequence that must give the same
-bits, so that the kernel's unshaded images stay equal to the plain
-versions' to the bit. One more, a byte widened through the exponent, is
-the alternative to ``I2F`` that the kernel was measured against and does
-not take. numpy's float32 arithmetic rounds to nearest as the
-card's ``__fmul_rn`` / ``__fadd_rn`` do; the card's round-down add
-(``__fadd_rd``) and its fused multiply-adds are emulated exactly here.
-The division is also checked on the card over every f32 in [0, 256)
-(``chip_smoke.py`` phase 9).
+IEEE division by 255, an int-to-float conversion of the sample count)
+with another sequence that must give the same bits, so that the kernels'
+unshaded images stay equal to the plain versions' to the bit. One more, a
+byte widened through the exponent, is the alternative to ``I2F`` that the
+ladder was measured against and does not take. numpy's float32
+arithmetic rounds to nearest as the card's ``__fmul_rn`` / ``__fadd_rn``
+do; the card's round-down add (``__fadd_rd``) and its fused multiply-adds
+are emulated exactly here. The last tests emulate the whole shared
+classification of a density in [0, 1] (rung 5, round 1, the replays) and
+hold it to ``march_fwd_plain`` bit for bit. The division is also checked
+on the card over every f32 in [0, 256) (``chip_smoke.py`` phase 9).
 """
 from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
-# csrc/march_ladder.cu: the round-down bias 1.5 * 2^23 and its bits.
+from volrt_torch.renderers.cuda.march import (
+    MAX_STEPS_LIMIT, march_fwd_plain, max_steps)
+
+# csrc/march_common.cuh: the round-down bias 1.5 * 2^23 and its bits.
 BIAS = np.float32(12582912.0)
 BIAS_BITS = 0x4B400000
 BYTE_BITS = 0x4B000000  # 2^23: its low byte takes a voxel of 0..255
@@ -210,3 +216,175 @@ def test_division_by_255_in_three_rounded_operations():
         got = np.where(mid & toward, nb, got)
     want = x / np.float32(255.0)
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# The shared classification's volume: three edges, so that a stride or an
+# axis taken for another shows.
+SHAPE = (12, 20, 32)  # D, H, W
+
+
+def padded_rows(tf: np.ndarray) -> np.ndarray:
+    """The TF as the kernels stage it: a copy of the first and last rows
+    around it, padded row j + 1 being row j."""
+    return np.concatenate([tf[:1], tf, tf[-1:]])
+
+
+def cell_axis(p: np.ndarray, n: int, stride: int):
+    """``march_common.cuh:cell_axis``: the first tap's offset, the step to
+    the second and the second tap's weight along one axis."""
+    t = ((p + f32(1)) * f32(0.5 * n) - f32(0.5)).astype(np.float32)
+    fi, ff = magic_floor(t)
+    f = (t - ff).astype(np.float32)
+    off = np.clip(fi, 0, n - 1) * stride
+    step = np.where(fi.astype(np.uint32) < np.uint32(n - 1), stride, 0)
+    return off, step, f
+
+
+def classify_density(vol: np.ndarray, tf: np.ndarray, p: np.ndarray):
+    """``march_common.cuh:classify<float, Units::kDensity, false, false>``
+    in numpy: the cell at ``p (N, 3)``, its eight taps lerped along x,
+    then y, then z, and the TF lerped from the padded rows -> premultiplied
+    RGBA ``(N, 4)``, every product and sum rounded on its own."""
+    depth, h, w = vol.shape
+    flat = vol.reshape(-1)
+    ox, sx, fx = cell_axis(p[:, 0], w, 1)
+    oy, sy, fy = cell_axis(p[:, 1], h, w)
+    oz, sz, fz = cell_axis(p[:, 2], depth, w * h)
+    b00 = ox + oy + oz
+    b01, b10 = b00 + sy, b00 + sz
+    b11 = b10 + sy
+    gx, gy, gz = (f32(1) - fx, f32(1) - fy, f32(1) - fz)
+
+    def lerp_x(b):
+        return flat[b] * gx + flat[b + sx] * fx
+
+    s = ((lerp_x(b00) * gy + lerp_x(b01) * fy) * gz
+         + (lerp_x(b10) * gy + lerp_x(b11) * fy) * fz).astype(np.float32)
+    tc = (s * f32(TF_SIZE) - f32(0.5)).astype(np.float32)
+    fi, ff = magic_floor(tc)
+    f = (tc - ff).astype(np.float32)[:, None]
+    j = np.clip(fi, -1, TF_SIZE - 1)
+    rows = padded_rows(tf)
+    return (rows[j + 1] * (f32(1) - f) + rows[j + 2] * f).astype(np.float32)
+
+
+def lattice_rays(axis: int | None, rng) -> tuple[np.ndarray, ...]:
+    """``(o, d, k)`` of samples on rung 5's lattice ``k = k0 + i*step``
+    (``i`` counted in f32). Along ``axis``: orthographic rays whose
+    positions across it lie on the half-voxel lattice of each edge
+    (``-1 + m / n``, where every floor of the taps sits on an integer or a
+    half-integer), their f32 neighbours and the faces at +-1, marching
+    from the face at -1 or half a step inside it with a step of ``2 / n``,
+    every sample on the lattice along the ray too, the last on the face at
+    +1. ``axis`` None: random rays through the cube at random k."""
+    if axis is None:
+        o = f32(rng.uniform(-1.5, 1.5, (20_000, 3)))
+        d = f32(rng.normal(size=(20_000, 3)))
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+        k = f32(rng.uniform(0, 1.5, 20_000))
+        p = o + d * k[:, None]
+        keep = (np.abs(p) <= 1.02).all(axis=1)
+        return o[keep], d[keep], k[keep]
+    across = []
+    for ax in range(3):
+        n = SHAPE[2 - ax]
+        c = f32(-1.0 + np.arange(2 * n + 1) / n)
+        c = np.concatenate([c, np.nextafter(c, f32(-2)), np.nextafter(c, f32(2))])
+        across.append(c[(c >= -1) & (c <= 1)])
+    a, b = [across[ax] for ax in range(3) if ax != axis]
+    u, v = (x.reshape(-1) for x in np.meshgrid(a, b, indexing="ij"))
+    n = SHAPE[2 - axis]
+    step = f32(2.0 / n)
+    out_o, out_k = [], []
+    for k0 in (f32(1.0), f32(1.0 + 1.0 / n)):
+        i = np.arange(max_steps(float(step)), dtype=np.float32)
+        k = (k0 + i * step).astype(np.float32)
+        k = k[k <= f32(3.0)]
+        out_k.append(np.repeat(k[None], u.size, 0).reshape(-1))
+        o = np.zeros((u.size, 3), np.float32)
+        o[:, [ax for ax in range(3) if ax != axis]] = np.stack([u, v], 1)
+        o[:, axis] = -2.0
+        out_o.append(np.repeat(o, k.size, 0))
+    o, k = np.concatenate(out_o), np.concatenate(out_k)
+    d = np.zeros_like(o)
+    d[:, axis] = 1.0
+    return o, d, k
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2, None])
+def test_shared_classification_of_a_density_is_the_plain_march(axis):
+    """The shared per-sample code over a density in [0, 1] (round-down
+    floors, the taps as a base and three steps, the padded TF rows)
+    against ``march_fwd_plain``'s colour of each sample, bit for bit, on
+    the adversarial grid pose along each axis and on random rays. Each
+    sample goes to the plain march as a ray of one sample (``k0 = kfar =
+    k``), whose image is the sample's colour: ``0 + c * (1 - 0)``."""
+    rng = np.random.default_rng(21)
+    vol = f32(rng.uniform(0, 1, SHAPE))
+    vol.reshape(-1)[rng.choice(vol.size, 400, replace=False)] = 0.0
+    vol.reshape(-1)[rng.choice(vol.size, 400, replace=False)] = 1.0
+    tf = f32(rng.uniform(0, 1, (TF_SIZE, 4)))
+    o, d, k = lattice_rays(axis, rng)
+    p = (o + d * k[:, None]).astype(np.float32)
+    want = classify_density(vol, tf, p)
+    t = torch.from_numpy
+    n = o.shape[0]
+    scal = torch.tensor([2.0, 0.0, 0.0, 0.0, 2.0, 0.0, 0.0, 0.0])
+    got = march_fwd_plain(t(o), t(d), t(k), t(k), torch.ones(n, dtype=torch.bool),
+                          t(vol), t(tf), scal, ray_step=0.1, shade=False,
+                          no_ert=True, width=n).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_the_float_sample_count_is_exact():
+    """Rung 5's kernels count a ray's samples in f32, ``i = i + 1`` from 0
+    (``march_common.cuh:march_forward``, ``march_replay``), where the plain
+    march takes ``float(i)``: equal for every count the wrappers allow,
+    all of [0, 2^24), and the step that would need 2^24 samples is
+    refused. The smallest default step of a volume of 4096 voxels an edge
+    needs some 7,100."""
+    limit = MAX_STEPS_LIMIT
+    assert limit == 2 ** 24
+    count = np.cumsum(np.ones(limit, np.float32), dtype=np.float32) - f32(1)
+    assert np.array_equal(count, np.arange(limit, dtype=np.float64))
+    step = 2.0 / 4096 - 2.0 / 4096 ** 2
+    assert max_steps(step) < 7_200
+    assert max_steps(2.0 * np.sqrt(3.0) / (limit - 4)) < limit
+    with pytest.raises(ValueError, match="samples a ray"):
+        max_steps(2.0 * np.sqrt(3.0) / (limit - 2))
+
+
+@pytest.mark.parametrize("where", ["below", "rows", "above"])
+def test_replay_tf_row_and_slope_from_the_padded_rows(where):
+    """The replays read the TF through the forward's ``j = clamp(floor(tc),
+    -1, 127)``: their scatter's row ``max(j, 0)``, the one-row lerp ``j
+    in {-1, 127}``, and the slope from padded rows ``j + 2`` and ``j + 1``.
+    Against the clamped lerp's ``lo``, ``hi`` and ``f`` over all 128 rows
+    (every row's interval, its ends and their neighbours) and past both
+    clamped ends."""
+    rng = np.random.default_rng(7)
+    if where == "rows":
+        edges = f32(np.arange(TF_SIZE + 1) - 0.5)
+        tc = np.concatenate([f32(rng.uniform(-0.5, TF_SIZE - 0.5, 100_000)),
+                             edges, np.nextafter(edges, f32(-1e9)),
+                             np.nextafter(edges, f32(1e9)), f32(np.arange(TF_SIZE))])
+        s = ((tc + f32(0.5)) / f32(TF_SIZE)).astype(np.float32)
+    else:
+        s = f32(rng.uniform(-2, 0, 10_000) if where == "below"
+                else rng.uniform(1, 3, 10_000))
+    tc = (s * f32(TF_SIZE) - f32(0.5)).astype(np.float32)
+    fl = np.floor(tc)
+    i = np.clip(fl, -1, TF_SIZE).astype(np.int64)
+    lo, hi = np.clip(i, 0, TF_SIZE - 1), np.clip(i + 1, 0, TF_SIZE - 1)
+    f = (tc - fl).astype(np.float32)
+    fi, ff = magic_floor(tc)
+    j = np.clip(fi, -1, TF_SIZE - 1)
+    assert np.array_equal((tc - ff).astype(np.float32).view(np.int32),
+                          f.view(np.int32))
+    assert np.array_equal(np.maximum(j, 0), lo)
+    assert np.array_equal((j < 0) | (j == TF_SIZE - 1), lo == hi)
+    tf = f32(rng.uniform(0, 1, (TF_SIZE, 4)))
+    rows = padded_rows(tf)
+    assert np.array_equal(rows[j + 2] - rows[j + 1], tf[hi] - tf[lo])
+    if where != "rows":
+        assert (lo == hi).all() and (lo == (0 if where == "below" else 127)).all()

@@ -1,17 +1,28 @@
 """``volrt_torch/bench/step_ab.py``'s readers of the build: the SASS
 parser (opcode classes of each kernel variant and of its march loop, the
-scatter opcodes) and the ptxas report, on canned ``cuobjdump -sass`` and
-``nvcc -Xptxas -v`` text. CPU only: the card's toolkit makes the real
-text."""
+scatter opcodes, the digest that tells two builds' variants equal) and the
+ptxas report, on canned ``cuobjdump -sass`` and ``nvcc -Xptxas -v`` text;
+and, from the sources' text, that the kernels keep one copy of the
+per-sample code. CPU only: the card's toolkit makes the real text."""
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
+import pytest
+
 from volrt_torch.bench.step_ab import (
-    OPCODE_CLASSES, issue_ms, march_loop, parse_sass, ptxas_report,
-    sass_counts, variant_name)
+    KERNELS, OPCODE_CLASSES, VARIANT_ROWS, issue_ms, march_loop, parse_sass,
+    ptxas_report, sass_counts, variant_name)
+
+CSRC = Path(__file__).resolve().parent.parent / "volrt_torch" / "csrc"
 
 LADDER = "_ZN12_GLOBAL__N_119march_ladder_kernelIfLb0ELb0ELb1EEEvN5volrt9MarchArgsEPKT_Pf"
 L2 = "_ZN12_GLOBAL__N_114l2_step_kernelILb0ELb1ELb1ELb1EEEvN5volrt9MarchArgsEPKfPfNS1_8GradArgsE"
 OTHER = "_ZN12_GLOBAL__N_119div255_check_kernelEPKfxPy"
+# Rung 5's forward and round 1's, under the names nvcc gives them.
+FWD = "_ZN12_GLOBAL__N_116march_fwd_kernelILb0ELb1EEEvN5volrt9MarchArgsEPf"
+ROUND1 = "_ZN12_GLOBAL__N_117round1_fwd_kernelILb1EEEvN5volrt9MarchArgsEPf"
 
 # Two kernels of KERNELS and one that is not. The ladder's loop runs from
 # 0x0080 to its backward branch at 0x01a0 (address form, with the
@@ -166,12 +177,14 @@ def test_parse_sass_keeps_the_kernels_their_branches_and_no_nop():
                           "l2_step_kernel<0,1,1,1>"}
     ladder = insts["march_ladder_kernel<f32,0,0,1>"]
     assert len(ladder) == 30  # 32 instructions, two NOP
-    assert ("NOP" not in {op for _, op, _ in ladder})
-    assert (0x1a0, "BRA", 0x80) in ladder
+    assert ("NOP" not in {op for _, op, _, _ in ladder})
+    assert (0x1a0, "BRA", 0x80, "@!P0 BRA P1, 0x80") in ladder
     step = insts["l2_step_kernel<0,1,1,1>"]
-    # Labels resolve to the address of the instruction after them.
-    assert (0x30, "BRA", 0x60) in step and (0x70, "BRA", 0x10) in step
-    assert (0x90, "BRA", 0x90) in step
+    # Labels resolve to the address of the instruction after them, in the
+    # branch target and in the text.
+    assert (0x30, "BRA", 0x60, "@!P0 BRA `(0x60)") in step
+    assert (0x70, "BRA", 0x10, "@P1 BRA `(0x10)") in step
+    assert (0x90, "BRA", 0x90, "BRA `(0x90)") in step
 
 
 def test_march_loop_is_the_longest_backward_branch():
@@ -180,9 +193,9 @@ def test_march_loop_is_the_longest_backward_branch():
     assert (loop[0][0], loop[-1][0]) == (0x80, 0x1a0)
     assert len(loop) == 18  # 0x80..0x1a0, the NOP at 0x160 left out
     loop = march_loop(insts["l2_step_kernel<0,1,1,1>"])
-    assert [a for a, _, _ in loop] == [0x10, 0x20, 0x30, 0x40, 0x50, 0x60,
-                                       0x70]
-    assert march_loop([(0, "EXIT", None)]) == []
+    assert [a for a, _, _, _ in loop] == [0x10, 0x20, 0x30, 0x40, 0x50,
+                                          0x60, 0x70]
+    assert march_loop([(0, "EXIT", None, "EXIT")]) == []
 
 
 def test_sass_counts_by_class_and_scatter_opcode():
@@ -223,3 +236,63 @@ def test_ptxas_report_names_each_variant():
 def test_issue_yardstick():
     # 180 instructions over 8.4e6 warp-steps on 528 schedulers at 1980 MHz.
     assert abs(issue_ms(180, 8_400_000, 1980.0) - 1.4463) < 1e-4
+
+
+def test_variant_names_and_loops_of_the_v3_and_round1_forwards():
+    """``march_fwd_kernel`` (two bools) and ``round1_fwd_kernel`` (one) are
+    named and their loops read as the ladder's are: the canned text with
+    the ladder's and the step's names swapped for theirs."""
+    assert variant_name(FWD) == "march_fwd_kernel<0,1>"
+    assert variant_name(ROUND1) == "round1_fwd_kernel<1>"
+    sass = SASS.replace(LADDER, FWD).replace(L2, ROUND1)
+    insts = parse_sass(sass)
+    assert set(insts) == {"march_fwd_kernel<0,1>", "round1_fwd_kernel<1>"}
+    loop = march_loop(insts["march_fwd_kernel<0,1>"])
+    assert (loop[0][0], loop[-1][0], len(loop)) == (0x80, 0x1a0, 18)
+    counts = sass_counts(sass)
+    assert counts["march_fwd_kernel"]["variants"]["march_fwd_kernel<0,1>"][
+        "loop"]["conv"] == 3
+    assert counts["round1_fwd_kernel"]["variants"]["round1_fwd_kernel<1>"][
+        "loop"]["total"] == 7
+    # Every variant the report's rows name is a variant of a kernel the
+    # reader knows, forwards and replays.
+    for _, _, variant, _ in VARIANT_ROWS:
+        assert variant.split("<")[0] in KERNELS
+    assert {v.split("<")[0] for _, _, v, _ in VARIANT_ROWS} == set(KERNELS)
+
+
+def test_sass_digest_reads_code_not_label_numbers():
+    """Two builds of one variant have one digest, though the labels that
+    cuobjdump numbers over the whole file move when another function
+    changes; an operand that changes, changes it."""
+    digest = lambda text: sass_counts(text)["l2_step_kernel"]["variants"][  # noqa: E731
+        "l2_step_kernel<0,1,1,1>"]["digest"]
+    renumbered = SASS.replace(".L_x_1", ".L_x_7").replace(".L_x_2", ".L_x_9")
+    assert digest(renumbered) == digest(SASS)
+    assert digest(SASS.replace("SHFL.DOWN PT, R5, R4, 0x1",
+                               "SHFL.DOWN PT, R5, R4, 0x2")) != digest(SASS)
+
+
+def _code(path: Path) -> str:
+    """A source's text without its comments."""
+    return re.sub(r"//[^\n]*", "", path.read_text())
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_no_kernel_source_has_per_sample_code_of_its_own(name):
+    """The per-sample code has one copy, ``march_common.cuh``'s: a ``.cu``
+    file defines kernels, their launches and entry points, and no device
+    function (no tap, TF-lerp, floor or classification helper)."""
+    assert "__device__" not in _code(CSRC / name)
+
+
+@pytest.mark.parametrize("helper", ["axis_taps", "make_taps", "Taps", "voxel",
+                                    "sample_taps", "sample", "tf_lerp",
+                                    "stage_lut", "ladder_axis",
+                                    "ladder_sample"])
+def test_the_old_per_sample_helpers_are_gone(helper):
+    """The helpers that the shared code replaced are defined and called
+    nowhere under ``csrc/``."""
+    for path in CSRC.iterdir():
+        assert not re.search(r"\b" + helper + r"\b\s*[({]|struct\s+" + helper
+                             + r"\b", _code(path)), (path.name, helper)

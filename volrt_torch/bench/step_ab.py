@@ -10,14 +10,15 @@ imports ``volrt_torch`` from that root, builds its kernels and times, at
 
 - the ladder (scene ``ladder``): rung 4's ``march_blocked`` on the uint8
   volume, rung 3's ``march_tri`` and rung 2's ``march_tri`` nearest on the
-  f32 copy, each with its wrapper; the three rungs' frames
+  f32 copy, each with its wrapper; the frames of rungs 5, 4, 3 and 2
   (``bench_fwd_step``); and ``march_tri`` with its frame on the CLI's look
   without the leap (rung 3, diffuse kd 0.6, ERT 0.95, distance 3);
 - scene ``a``, the benchmark's (``diff_bench_scene``), and scene ``b``, a
   uniform-noise f32 density of 256^3 from numpy (seed 5) under the same TF
   and pose, whose samples spread over the TF's rows;
 - on each: ``l2_step`` whole, ``need_dtf=False`` and ``need_dvol=False``;
-  ``march_bwd`` the same three ways; ``march_fwd``; the one-launch step
+  ``march_bwd`` the same three ways (on ``a`` also whole with ERT at 0.95,
+  the trainer's default threshold); ``march_fwd``; the one-launch step
   (``l2_loss_grads_v3_onepass``) and the two-kernel step (autograd through
   ``render_image_v3``), each timed as ``bench_diff_step`` times them;
 - the round-1 routes beside them: ``diff_blocked_fwd`` and
@@ -27,7 +28,9 @@ imports ``volrt_torch`` from that root, builds its kernels and times, at
   ``blocked=False`` step on the ``[96, 96, 128]`` middle of the 128^3
   synthetic volume (scene ``crop``, ``chip_smoke.py`` phase 13's).
 
-``--ladder-only`` times the ladder alone. Kernels are timed with their
+``--forwards-only`` times the forward kernels alone: the ladder, rung
+5's frame, ``march_fwd`` and ``diff_blocked_fwd`` on scene ``a``, and
+``diff_tri_fwd`` on the crop. Kernels are timed with their
 wrapper and the gradients' zero-fill, median of 20 calls after a warm-up
 (``harness.time_cuda``); the round-1 backwards take the round-1
 forward's image and the cotangent of a mean square against a zero
@@ -36,19 +39,22 @@ target.
 Each process also reports its build: the registers and spills that
 ``ptxas`` gave each variant of the six march kernels
 (:func:`ptxas_report`), and from ``cuobjdump -sass`` (kept with
-``--sass-dir``) the scatter opcodes and the opcode classes of each
-variant and of its march loop (:func:`sass_counts`). The parent samples
-the SM clock with ``nvidia-smi`` while each process runs. It prints every
-process's JSON line, then one table of times (each root in call order,
-and the ratio of the second root's median over its runs to the first
-root's), then one of the ladder's variants on the pose: registers, loop
-instructions a sample by class, the SM clock, and the issue-slot
-yardstick (:func:`issue_ms`) beside the time. Needs a CUDA card; the
-roots' order is the caller's.
+``--sass-dir``) the scatter opcodes, the opcode classes of each variant
+and of its march loop, and a digest of each variant's instructions
+(:func:`sass_counts`). The parent samples the SM clock with
+``nvidia-smi`` while each process runs. It prints every process's JSON
+line, then one table of times (each root in call order, and the ratio of
+the second root's median over its runs to the first root's), then one of
+the variants that :data:`VARIANT_ROWS` names, the forwards' and the
+replays': registers, spills, loop instructions a sample by class, whether
+the SASS is the first root's, the SM clock, and for the forwards the
+issue-slot yardstick (:func:`issue_ms`) beside the time. Needs a CUDA
+card; the roots' order is the caller's.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -136,16 +142,23 @@ def cuobjdump_sass(lib: str) -> str:
 def parse_sass(sass: str) -> dict:
     """The instructions of each variant of :data:`KERNELS` in
     ``cuobjdump -sass`` text: ``{variant: [(address, opcode, branch
-    target or None), ...]}``, NOP left out. A branch target is read as an
-    address (``BRA 0x1a0``) or as a label (``BRA `(.L_x_3)``, with the
-    label's line before its instruction)."""
+    target or None, text), ...]}``, NOP left out. A branch target is read
+    as an address (``BRA 0x1a0``) or as a label (``BRA `(.L_x_3)``, with
+    the label's line before its instruction). The text is the
+    instruction's, predicate and operands, its labels written as the
+    addresses they name (label numbers run over the whole file, so they
+    move when another function changes)."""
     out, insts, labels, variant = {}, None, {}, None
     pending = []
 
     def close():
-        if insts is not None:
-            out[variant] = [(a, op, labels.get(t, t) if isinstance(t, str)
-                             else t) for a, op, t in insts]
+        if insts is None:
+            return
+        out[variant] = [
+            (a, op, labels.get(t, t) if isinstance(t, str) else t,
+             re.sub(r"\.L_x_\d+", lambda m: hex(labels.get(m.group(0), -1)),
+                    text))
+            for a, op, t, text in insts]
 
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -161,23 +174,23 @@ def parse_sass(sass: str) -> dict:
         if m:
             pending.append(m.group(1))
             continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                      r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*))", line)
         if m is None:
             continue
         addr = int(m.group(1), 16)
         for label in pending:
             labels[label] = addr
         pending = []
-        op = m.group(2).split(".")[0]
+        op = m.group(3).split(".")[0]
         if op == "NOP":
             continue
         target = None
         if op in ("BRA", "BRX", "JMP", "CALL"):
-            t = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", m.group(3))
+            t = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", m.group(4))
             if t:
                 target = t.group(1) or int(t.group(2), 16)
-        insts.append((addr, op, target))
+        insts.append((addr, op, target, " ".join(m.group(2).split())))
     close()
     return out
 
@@ -198,7 +211,7 @@ def march_loop(insts: list) -> list:
     branches inside it, the shade tap's, are counted as if taken never
     and always). Empty where the kernel has no loop."""
     best = (0, 0)
-    for addr, op, target in insts:
+    for addr, _, target, _ in insts:
         if isinstance(target, int) and target <= addr and (
                 addr - target > best[1] - best[0]):
             best = (target, addr)
@@ -211,28 +224,33 @@ def sass_counts(sass: str) -> dict:
     """From ``cuobjdump -sass`` text: per kernel of :data:`KERNELS`, its
     scatter opcodes (:data:`SCATTER_OPS`) summed over its variants, and
     per variant the opcode classes of the whole kernel and of its march
-    loop (:func:`march_loop`): ``{kernel: {"ATOMS": n, ..., "variants":
-    {variant: {"kernel": classes, "loop": classes}}}}``."""
+    loop (:func:`march_loop`) and a digest of its instructions (address,
+    opcode and operands; equal digests, equal SASS): ``{kernel: {"ATOMS":
+    n, ..., "variants": {variant: {"kernel": classes, "loop": classes,
+    "digest": hex}}}}``."""
     out = {}
     for variant, insts in parse_sass(sass).items():
         rep = out.setdefault(variant.split("<")[0], {"variants": {}})
-        for _, op, _ in insts:
+        for _, op, _, _ in insts:
             if op in SCATTER_OPS:
                 rep[op] = rep.get(op, 0) + 1
+        text = "\n".join(f"{a:x} {t}" for a, _, _, t in insts)
         rep["variants"][variant] = {
-            "kernel": opcode_classes(op for _, op, _ in insts),
-            "loop": opcode_classes(op for _, op, _ in march_loop(insts))}
+            "kernel": opcode_classes(op for _, op, _, _ in insts),
+            "loop": opcode_classes(i[1] for i in march_loop(insts)),
+            "digest": hashlib.sha1(text.encode()).hexdigest()[:12]}
     return out
 
 
-def _round1_times(fwd, bwd, args, kw, med) -> dict:
-    """A round-1 pair's forward, and its backward whole and with either
-    scatter left out, on one scene's ray arguments."""
+def _round1_times(fwd, bwd, args, kw, med, forwards_only: bool) -> dict:
+    """A round-1 pair's forward, and unless ``forwards_only`` its backward
+    whole and with either scatter left out, on one scene's ray
+    arguments."""
     kw = {k: v for k, v in kw.items() if k != "shade"}
     out = fwd(*args, **kw)
     g = out * (2.0 / out.numel())
     t = {fwd.__name__: med(lambda: fwd(*args, **kw))}
-    for label, need in NEEDS:
+    for label, need in () if forwards_only else NEEDS:
         t[bwd.__name__ + label] = med(
             lambda: bwd(*args, out, g, **need, **kw))
     return t
@@ -241,10 +259,10 @@ def _round1_times(fwd, bwd, args, kw, med) -> dict:
 def _ladder_times(dev, med) -> tuple[dict, int]:
     """``(times, warp-steps)``: the ladder's march kernels with their
     wrappers on the benchmark pose (rung 4's ``march_blocked``, rung 3's
-    ``march_tri``, rung 2's ``march_tri`` nearest), the rungs' frames
-    (``bench_fwd_step``), and ``march_tri`` and its frame on the CLI's
-    look without the leap (rung 3, diffuse kd 0.6, ERT 0.95, the camera at
-    distance 3); and the pose's :func:`_warp_steps`."""
+    ``march_tri``, rung 2's ``march_tri`` nearest), the frames of rungs
+    5, 4, 3 and 2 (``bench_fwd_step``), and ``march_tri`` and its frame on
+    the CLI's look without the leap (rung 3, diffuse kd 0.6, ERT 0.95, the
+    camera at distance 3); and the pose's :func:`_warp_steps`."""
     import torch
 
     from volrt_torch.bench.harness import bench_fwd_step, bench_pose
@@ -267,8 +285,8 @@ def _ladder_times(dev, med) -> tuple[dict, int]:
                 kw["nearest"] = interp == "nearest"
             t[name] = med(lambda: fn(*args, **kw))
             if warp_steps is None:
-                warp_steps = _warp_steps(args, kw)
-        for rung in (4, 3, 2):
+                warp_steps = _warp_steps(args, kw, accumulate=True)
+        for rung in (5, 4, 3, 2):
             t[f"frame rung {rung}"] = bench_fwd_step(
                 256, 1024, iters=100, device=dev, renderer=rung)["ms"]
         look = make_raycaster(bench_pose(256, 1024, dev).volume,
@@ -283,28 +301,36 @@ def _ladder_times(dev, med) -> tuple[dict, int]:
     return t, warp_steps
 
 
-def _warp_steps(args, kw) -> int:
-    """Samples the ladder's kernel steps through on these rays with ERT
-    off, counted by warp (two image rows of 16 pixels, the kernel's 32
-    lanes): each warp takes as many steps as its longest ray. The ladder's
-    own lattice, ``k += step`` while ``k <= kfar``."""
+def _warp_steps(args, kw, accumulate: bool) -> int:
+    """Samples a forward kernel steps through on these rays with ERT off,
+    counted by warp (two image rows of 16 pixels, the kernel's 32 lanes):
+    each warp takes as many steps as its longest ray. On the accumulating
+    lattice of the ladder and round 1 (``accumulate``: ``k += step``, the
+    first sample always taken, while the next ``k <= kfar``), or on rung
+    5's ``k0 + i*step <= kfar``."""
     import torch
 
     from volrt_torch.renderers.cuda.march import max_steps
 
-    _, _, k, kfar, live = args[:5]
-    n = torch.zeros(k.shape, dtype=torch.int64, device=k.device)
-    for _ in range(max_steps(kw["ray_step"])):
+    _, _, k0, kfar, live = args[:5]
+    n = torch.zeros(k0.shape, dtype=torch.int64, device=k0.device)
+    k = k0
+    lattice = torch.arange(max_steps(kw["ray_step"]), dtype=torch.float32,
+                           device=k0.device) * kw["ray_step"]
+    for i in range(lattice.numel()):
+        if not accumulate:
+            live = live & (k0 + lattice[i] <= kfar)
         n += live
-        k = k + kw["ray_step"]
-        live = live & (k <= kfar)
+        if accumulate:
+            k = k + kw["ray_step"]
+            live = live & (k <= kfar)
     width = kw["width"]
     per_warp = n.reshape(-1, 2, width // 16, 16).amax(dim=(1, 3))
     return int(per_warp.sum())
 
 
 def child(root: str, sass_file: str | None = None,
-          ladder_only: bool = False) -> dict:
+          forwards_only: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -333,17 +359,19 @@ def child(root: str, sass_file: str | None = None,
            "build": ptxas_report((lib.parent / "build.log").read_text()),
            "sass": sass_counts(sass)}
     med = lambda fn: float(np.median(time_cuda(fn, ITERS)))  # noqa: E731
-    ladder, res["warp_steps"] = _ladder_times(dev, med)
+    ladder, steps = _ladder_times(dev, med)
+    res["warp_steps"] = {"ladder": steps}
     leaves = {"ladder": ladder}
     res["ms"] = leaves
-    if ladder_only:
-        return res
 
     scene_a, view, target = diff_bench_scene(256, 1024, device=dev)
-    noise = np.random.default_rng(NOISE_SEED).uniform(
-        0.0, 1.0, (256, 256, 256)).astype(np.float32)
-    scene_b = scene_from_arrays(noise, default_transfer_fn("cpu").numpy(),
-                                scene_a.ray_step, device=dev)
+    scenes = [("a", scene_a)]
+    if not forwards_only:
+        noise = np.random.default_rng(NOISE_SEED).uniform(
+            0.0, 1.0, (256, 256, 256)).astype(np.float32)
+        scenes.append(("b", scene_from_arrays(
+            noise, default_transfer_fn("cpu").numpy(), scene_a.ray_step,
+            device=dev)))
 
     def round1_step(scene, view, target, blocked):
         params = [scene.density, scene.tf_base]
@@ -355,23 +383,40 @@ def child(root: str, sass_file: str | None = None,
             return torch.autograd.grad(loss, params)
         return med(step)
 
-    for name, scene in (("a", scene_a), ("b", scene_b)):
+    for name, scene in scenes:
         t = {}
         with torch.no_grad():
             args, kw = fwd_v3.ray_args(
                 view, scene.density, scene.premult_tf(), scene.ray_step,
                 2.0, 0.0, loss_scale=2.0 / (1024 * 1024 * 4))
+            if name == "a":
+                res["warp_steps"]["a"] = _warp_steps(args, kw, False)
+                res["warp_steps"]["a accumulating"] = _warp_steps(args, kw,
+                                                                  True)
             tgt = target.reshape(-1, 4)
             out = march_fwd(*args, **kw)
             g = out * args[7][6]
             t["march_fwd"] = med(lambda: march_fwd(*args, **kw))
-            for label, need in NEEDS:
+            for label, need in () if forwards_only else NEEDS:
                 t["l2_step" + label] = med(
                     lambda: l2_step(*args, tgt, **need, **kw))
                 t["march_bwd" + label] = med(
                     lambda: march_bwd(*args, out, g, **need, **kw))
+            if name == "a" and not forwards_only:
+                e_args, e_kw = fwd_v3.ray_args(
+                    view, scene.density, scene.premult_tf(), scene.ray_step,
+                    0.95, 0.0, loss_scale=2.0 / (1024 * 1024 * 4))
+                e_out = march_fwd(*e_args, **e_kw)
+                e_g = e_out * e_args[7][6]
+                t["l2_step ERT 0.95"] = med(
+                    lambda: l2_step(*e_args, tgt, **e_kw))
+                t["march_bwd ERT 0.95"] = med(
+                    lambda: march_bwd(*e_args, e_out, e_g, **e_kw))
             t.update(_round1_times(diff_blocked_fwd, diff_blocked_bwd, args,
-                                   kw, med))
+                                   kw, med, forwards_only))
+        leaves[name] = t
+        if forwards_only:
+            continue
         t["step onepass"] = med(lambda: diff_v3.l2_loss_grads_v3_onepass(
             scene, view, target, ray_threshold=2.0)[0])
         params = [scene.density, scene.tf_base]
@@ -384,17 +429,18 @@ def child(root: str, sass_file: str | None = None,
         if name == "a":
             t["step round-1 blocked=True"] = round1_step(scene, view, target,
                                                          True)
-        leaves[name] = t
 
     # The diff_tri pair where chip_smoke.py runs it: the [96, 96, 128] crop.
     scene, view, target = crop_bench_scene(1024, device=dev)
     with torch.no_grad():
         args, kw = fwd_v3.ray_args(view, scene.density, scene.premult_tf(),
                                    scene.ray_step, 2.0, 0.0)
+        res["warp_steps"]["crop accumulating"] = _warp_steps(args, kw, True)
         leaves["crop"] = _round1_times(diff_tri_fwd, diff_tri_bwd, args, kw,
-                                       med)
-    leaves["crop"]["step round-1 blocked=False"] = round1_step(
-        scene, view, target, False)
+                                       med, forwards_only)
+    if not forwards_only:
+        leaves["crop"]["step round-1 blocked=False"] = round1_step(
+            scene, view, target, False)
     return res
 
 
@@ -428,11 +474,28 @@ class ClockSampler:
                 "busy_samples": len(busy)}
 
 
-# The ladder's kernel variants on the benchmark pose (unshaded, ERT off)
-# and the times they run under, by the report's row names.
-LADDER_ROWS = (("march_blocked", "march_ladder_kernel<u8,0,0,1>"),
-               ("march_tri", "march_ladder_kernel<f32,0,0,1>"),
-               ("march_tri nearest", "march_ladder_kernel<f32,1,0,1>"))
+# The variants the report's rows run on the benchmark pose (unshaded,
+# ERT off unless named; the backwards whole): (scene, time key, variant, the key in
+# the child's ``warp_steps`` of the lattice its warps step on). The
+# forwards' loop holds one sample an iteration, so their loop
+# instructions are a sample's and the issue-slot yardstick reads them;
+# a replay's loop also holds its scatter's branches and shuffle rounds,
+# and has no yardstick (None).
+VARIANT_ROWS = (
+    ("ladder", "march_blocked", "march_ladder_kernel<u8,0,0,1>", "ladder"),
+    ("ladder", "march_tri", "march_ladder_kernel<f32,0,0,1>", "ladder"),
+    ("ladder", "march_tri nearest", "march_ladder_kernel<f32,1,0,1>",
+     "ladder"),
+    ("a", "march_fwd", "march_fwd_kernel<0,1>", "a"),
+    ("a", "diff_blocked_fwd", "round1_fwd_kernel<1>", "a accumulating"),
+    ("crop", "diff_tri_fwd", "round1_fwd_kernel<1>", "crop accumulating"),
+    ("a", "march_bwd", "march_bwd_kernel<0,1,1,1>", None),
+    ("a", "l2_step", "l2_step_kernel<0,1,1,1>", None),
+    ("a", "march_bwd ERT 0.95", "march_bwd_kernel<0,0,1,1>", None),
+    ("a", "l2_step ERT 0.95", "l2_step_kernel<0,0,1,1>", None),
+    ("a", "diff_blocked_bwd", "round1_bwd_kernel<1,1,1>", None),
+    ("crop", "diff_tri_bwd", "round1_bwd_kernel<1,1,1>", None),
+)
 # Issue slots of one H100: 132 SMs of four schedulers, one warp
 # instruction a clock each.
 ISSUE_SLOTS = 132 * 4
@@ -445,6 +508,18 @@ def issue_ms(instructions: int, warp_steps: int, clock_mhz: float) -> float:
     return instructions * warp_steps / (ISSUE_SLOTS * clock_mhz * 1e3)
 
 
+def _variant(run: dict, variant: str) -> tuple:
+    """``(registers, spill bytes, SASS report)`` of one variant in a
+    child's run (None where the build or the SASS lacks it)."""
+    kernel = variant.split("<")[0]
+    build = run["build"].get(kernel, {})
+    regs = dict(zip(build.get("variants", ()),
+                    zip(build.get("registers", ()),
+                        build.get("spill_bytes", ()))))
+    sass = run["sass"].get(kernel, {}).get("variants", {}).get(variant, {})
+    return (*regs.get(variant, (None, None)), sass)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--roots", nargs="+", required=True,
@@ -452,14 +527,14 @@ def main(argv=None) -> int:
     p.add_argument("--sass-dir", default=None,
                    help="write each root's cuobjdump -sass here, as "
                         "<call index>.sass")
-    p.add_argument("--ladder-only", action="store_true",
-                   help="time the ladder's kernels and frames only")
+    p.add_argument("--forwards-only", action="store_true",
+                   help="time the forward kernels and frames only")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--sass-file", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.child:
         print(json.dumps(child(args.roots[0], args.sass_file,
-                               args.ladder_only)), flush=True)
+                               args.forwards_only)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -470,7 +545,7 @@ def main(argv=None) -> int:
     runs = []
     for i, root in enumerate(args.roots):
         cmd = [sys.executable, os.path.abspath(__file__), "--child",
-               "--roots", root] + ["--ladder-only"] * args.ladder_only
+               "--roots", root] + ["--forwards-only"] * args.forwards_only
         if args.sass_dir:
             cmd += ["--sass-file", os.path.join(args.sass_dir, f"{i}.sass")]
         with ClockSampler() as clock:
@@ -498,31 +573,43 @@ def main(argv=None) -> int:
             ratio = f"{by[second] / by[first]:.3f}" if second else "-"
             print(f"| {scene} | {key} | "
                   + " | ".join(f"{v:.4f}" for v in row) + f" | {ratio} |")
-    # The ladder's variants on the pose: build, SASS of the march loop by
-    # opcode class, and the issue-slot yardstick beside the time.
+    # The rows' variants: build, SASS of the march loop by opcode class,
+    # whether the SASS is the first root's, and the issue-slot yardstick
+    # beside the time.
     print("| root | call | variant | registers | spill bytes | loop "
           "instructions (" + ", ".join((*OPCODE_CLASSES, "other")) + ") | "
-          "SM MHz | issue ms | ms |")
-    print("| --- | --- | --- | --- | --- | --- | --- | --- | --- |")
+          "SASS as first root's | SM MHz | issue ms | ms |")
+    print("| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- |")
     for root, run in zip(args.roots, runs):
-        build = run["build"].get("march_ladder_kernel", {})
-        regs = dict(zip(build.get("variants", ()),
-                        zip(build.get("registers", ()),
-                            build.get("spill_bytes", ()))))
-        variants = run["sass"].get("march_ladder_kernel", {}).get(
-            "variants", {})
         clock = run["clock"]["sm_clock_mhz"]
-        for name, variant in LADDER_ROWS:
-            loop = variants.get(variant, {}).get("loop")
-            r, spill = regs.get(variant, (None, None))
-            yard = (f"{issue_ms(loop['total'], run['warp_steps'], clock):.4f}"
-                    if loop and clock else "-")
+        for scene, name, variant, lattice in VARIANT_ROWS:
+            if name not in run["ms"].get(scene, {}):
+                continue
+            r, spill, sass = _variant(run, variant)
+            loop = sass.get("loop")
+            same = sass.get("digest") == _variant(runs[0], variant)[2].get(
+                "digest")
+            yard = (f"{issue_ms(loop['total'], run['warp_steps'][lattice],
+                                clock):.4f}"
+                    if loop and clock and lattice else "-")
             classes = (f"{loop['total']} (" + ", ".join(
                 str(loop[c]) for c in (*OPCODE_CLASSES, "other")) + ")"
                 if loop else "-")
             print(f"| {root} | {name} | `{variant}` | {r} | {spill} | "
-                  f"{classes} | {clock} | {yard} | "
-                  f"{run['ms']['ladder'][name]:.4f} |")
+                  f"{classes} | {'yes' if same else 'no'} | {clock} | "
+                  f"{yard} | {run['ms'][scene][name]:.4f} |")
+    # Every variant of every kernel: how many keep the first root's SASS.
+    print("| kernel | " + " | ".join(args.roots) + " |")
+    print("| --- |" + " --- |" * len(args.roots))
+    for kernel in KERNELS:
+        base = runs[0]["sass"].get(kernel, {}).get("variants", {})
+        cells = []
+        for run in runs:
+            mine = run["sass"].get(kernel, {}).get("variants", {})
+            same = sum(v.get("digest") == base.get(k, {}).get("digest")
+                       for k, v in mine.items())
+            cells.append(f"{same} of {len(mine)} as the first root's")
+        print(f"| {kernel} | " + " | ".join(cells) + " |")
     return 0
 
 

@@ -33,9 +33,9 @@ using namespace volrt;
 template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
     MarchArgs a, const float* tgt, float* out, GradArgs gr) {
-  __shared__ float lut[TF_SIZE][4];
+  __shared__ float4 lut[LUT_ROWS];
   __shared__ float dtf[NEED_DTF ? WARPS * TF_SIZE : 1][4];
-  stage_lut(a, lut);
+  stage_padded_lut(a, lut);
   if (NEED_DTF) clear_dtf(dtf, WARPS);
   __syncthreads();
 

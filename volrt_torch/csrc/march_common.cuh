@@ -1,24 +1,47 @@
-// Per-sample device code shared by the port's march kernels (march_fwd.cu,
-// march_bwd.cu, l2_step.cu, march_ladder.cu, march_round1.cu): ray loading, the clamp-addressed
-// trilinear taps, the TF lerp, the one-tap diffuse, the composite with its
-// ERT latch, and the replay march that carries the analytic backward.
+// The per-sample code of every march kernel of the port (march_fwd.cu,
+// march_bwd.cu, l2_step.cu, march_ladder.cu, march_round1.cu), and the
+// loops and the backward's replay built on it: ray loading, the trilinear
+// cell and its clamp-addressed taps, nearest mode's voxel, the TF lerp from
+// padded rows, the one-tap diffuse, the composite with its ERT latch, and
+// the warp-level scatter of the analytic backward.
 //
 // One copy, so that the backward's replay takes exactly the forward's
 // samples, opens the shade gate on the same samples and crosses the ERT
 // latch at the same sample: a second copy that rounded one product
 // differently could flip a gate and send gradient to a sample the forward
-// never composited.
+// never composited. Every kernel classifies its samples through classify()
+// below, templated on the volume's units (raw 0..255, or a density in
+// [0, 1]) and on the mode; no .cu file holds per-sample code of its own.
 //
-// The math is the plain torch version's (volrt_torch/renderers/cuda/
-// march.py), op for op: samples at k = k0 + i*step with k <= kfar (the
-// ladder's and the round-1 kernels accumulate k += step instead:
-// march_ladder.cu and the round-1 forward in loops of their own, the
-// round-1 backward in march_replay_round1); trilinear taps at
-// (p+1)*0.5*n - 0.5; the TF lerp at s*TF_SIZE - 0.5;
+// The math is the plain torch versions' (volrt_torch/renderers/cuda/
+// march.py, round1.py), op for op: trilinear taps at (p+1)*0.5*n - 0.5,
+// lerped along x, then y, then z; the TF lerp at s*TF_SIZE - 0.5;
 // premultiplied front-to-back compositing; the ERT latch acc.a > threshold
 // after each composite. Every multiply and add of the forward chain is
 // rounded on its own (__fmul_rn/__fadd_rn: no FMA contraction), as torch
-// rounds them.
+// rounds them, and every place where this code takes another operation
+// than the plain version (a round-down add for a floor, padded TF rows for
+// two clamps, three operations for a division by 255, a float counter for
+// a conversion) gives the same bits (tests/test_torch_ladder_bits.py; the
+// division on the card, chip_smoke.py phase 9). So unshaded images equal
+// the plain versions' to the bit.
+//
+// Two lattices. Rung 5 and the v3 backward sample at k = k0 + i*step with
+// k <= kfar tested before the sample (march_forward, march_replay). The
+// ladder and round 1 accumulate k += step from k0, take a live ray's first
+// sample always, and end the ray after the sample where ERT latches or the
+// next k exceeds kfar (march_accumulating, march_replay_round1).
+//
+// What bounds the forward marches on the card (bench/step_ab.py, PERF.md
+// section 6): instruction issue, then load latency. Not device memory and
+// not the FP32 rate: each rounded multiply and add is an instruction of its
+// own, a trilinear sample some 130 of them, and at 1024^2 rays of 257
+// samples the issue slots of 132 SMs alone take some 80 % of a forward's
+// time; taking the eight loads away saves 10-15 %. So the per-sample code
+// is written for fewer instructions: no floorf, float-to-int conversion or
+// int-to-float conversion on the unshaded f32 path (they run on a pipe
+// that retires 16 results a clock an SM, against 128 for FP32), the eight
+// tap addresses as a base and three steps, the TF as padded float4 rows.
 
 #pragma once
 
@@ -35,9 +58,6 @@ constexpr float SHADE_LIGHT_OFFSET = 0.01f;
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float lerp(float a, float b, float f) {
-  return add(mul(a, sub(1.f, f)), mul(b, f));
-}
 
 struct MarchArgs {
   const float* o;       // [N, 3] ray origins
@@ -45,7 +65,8 @@ struct MarchArgs {
   const float* k0;      // [N] first sample's ray parameter
   const float* kfar;    // [N] exit parameter
   const bool* alive;    // [N] ray hits the cube
-  const float* vol;     // [D, H, W] density
+  const float* vol;     // [D, H, W] density (null where the kernel takes
+                        // its volume apart: the ladder's)
   int w, h, depth;
   const float* tf;      // [TF_SIZE, 4] premultiplied RGBA
   const float* scal;    // [8]: threshold, kd, light xyz, unused, loss scale, unused
@@ -68,25 +89,6 @@ struct Light {
   float thr, kd, lx, ly, lz;
 };
 
-// The eight clamp-addressed taps of one trilinear sample.
-struct Taps {
-  int r00, r01, r10, r11;  // row offsets of (z0,y0), (z0,y1), (z1,y0), (z1,y1)
-  int x0, x1;
-  float fx, fy, fz;
-};
-
-// One classified (and shaded) sample.
-struct Sample {
-  Taps t;        // the sample's own taps
-  Taps t2;       // the light tap's, valid where gate
-  float s;       // density
-  int lo, hi;    // TF rows
-  float f;       // TF lerp weight of row hi
-  float tc;      // TF coordinate s*TF_SIZE - 0.5, unclamped
-  float c[4];    // premultiplied RGBA, shaded
-  bool gate;     // the diffuse tap fired
-};
-
 __device__ __forceinline__ Ray load_ray(const MarchArgs& a, int r) {
   return Ray{a.o[3 * r], a.o[3 * r + 1], a.o[3 * r + 2],
              a.d[3 * r], a.d[3 * r + 1], a.d[3 * r + 2],
@@ -97,78 +99,156 @@ __device__ __forceinline__ Light load_light(const MarchArgs& a) {
   return Light{a.scal[0], a.scal[1], a.scal[2], a.scal[3], a.scal[4]};
 }
 
-// Stages the premultiplied LUT in shared memory. The caller synchronises.
-__device__ __forceinline__ void stage_lut(const MarchArgs& a,
-                                          float (*lut)[4]) {
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  for (int i = tid; i < TF_SIZE * 4; i += TILE * TILE) {
-    lut[i / 4][i % 4] = a.tf[i];
-  }
+// Ray index of this thread in raster order, or -1 outside the image.
+__device__ __forceinline__ int ray_index(const MarchArgs& a) {
+  const int x = blockIdx.x * TILE + threadIdx.x;
+  const int y = blockIdx.y * TILE + threadIdx.y;
+  return (x < a.width && y < a.n / a.width) ? y * a.width + x : -1;
 }
 
-// Clamp-addressed taps and weight along one axis of n voxels.
-__device__ __forceinline__ void axis_taps(float p, int n, int& i0, int& i1,
+// floor(t) without FRND or F2I. For |t| < 2^22, t + 1.5 * 2^23 rounded
+// down lies in [2^23, 2^24), where the f32 values are the integers: it is
+// FLOOR_BIAS + floor(t) exactly, so its bits less FLOOR_BITS are floor(t)
+// as an int and it less FLOOR_BIAS is floor(t) as a float.
+constexpr float FLOOR_BIAS = 0x1.8p23f;
+constexpr int FLOOR_BITS = 0x4B400000;
+
+__device__ __forceinline__ float floor_biased(float t) {
+  return __fadd_rd(t, FLOOR_BIAS);
+}
+__device__ __forceinline__ int floor_int(float m) {
+  return __float_as_int(m) - FLOOR_BITS;
+}
+
+// The volume's edges as the per-sample code takes them: n and n / 2 per
+// axis (n / 2 is an f32 for any n under 2^24), and the z stride w * h.
+struct Grid {
+  float hx, hy, hz;
+  int w, h, depth, wh;
+};
+
+__device__ __forceinline__ Grid make_grid(const MarchArgs& a) {
+  return Grid{0.5f * a.w, 0.5f * a.h, 0.5f * a.depth, a.w, a.h, a.depth,
+              a.w * a.h};
+}
+
+// The trilinear cell of one sample: the offset of its first tap, the step
+// to the second tap along x, y and z (the axis's stride, or 0 where both
+// taps clamp to one voxel), and the second taps' weights. Its eight taps
+// are base + {0, sx} + {0, sy} + {0, sz}.
+struct Cell {
+  unsigned base;
+  int sx, sy, sz;
+  float fx, fy, fz;
+};
+
+// One axis of a cell at p: the first tap's offset (its clamped index
+// times the axis's stride), the step to the second tap and the second
+// tap's weight t - floor(t), for t = (p + 1) * 0.5 * n - 0.5. The plain
+// version's floor, clamped taps and weight for |t| < 2^22, that is for
+// |p| < 2^23 / n - 1; the kernels' positions lie in the cube up to
+// rounding, the light tap 0.01 beyond (tests/test_torch_ladder_bits.py).
+__device__ __forceinline__ void cell_axis(float p, float half_n, int n,
+                                          int stride, int& off, int& step,
                                           float& f) {
-  const float t = sub(mul(mul(add(p, 1.f), 0.5f), static_cast<float>(n)), 0.5f);
-  const float fl = floorf(t);
-  f = sub(t, fl);
-  // Clamped before the conversion, so no position can address outside.
-  const int i = static_cast<int>(fminf(fmaxf(fl, -1.f), static_cast<float>(n)));
-  i0 = min(max(i, 0), n - 1);
-  i1 = min(max(i + 1, 0), n - 1);
+  // (p + 1) * 0.5 * n in one product: the product by 0.5 is exact.
+  const float t = sub(mul(add(p, 1.f), half_n), 0.5f);
+  const float m = floor_biased(t);
+  f = sub(t, sub(m, FLOOR_BIAS));
+  const int i = floor_int(m);
+  off = min(max(i, 0), n - 1) * stride;
+  step = static_cast<unsigned>(i) < static_cast<unsigned>(n - 1) ? stride : 0;
 }
 
-__device__ __forceinline__ Taps make_taps(const MarchArgs& a, float px,
-                                          float py, float pz) {
-  int x0, x1, y0, y1, z0, z1;
-  Taps t;
-  axis_taps(px, a.w, x0, x1, t.fx);
-  axis_taps(py, a.h, y0, y1, t.fy);
-  axis_taps(pz, a.depth, z0, z1, t.fz);
-  t.x0 = x0;
-  t.x1 = x1;
-  t.r00 = (z0 * a.h + y0) * a.w;
-  t.r01 = (z0 * a.h + y1) * a.w;
-  t.r10 = (z1 * a.h + y0) * a.w;
-  t.r11 = (z1 * a.h + y1) * a.w;
+__device__ __forceinline__ Cell cell_at(const Grid& g, float px, float py,
+                                        float pz) {
+  Cell t;
+  int ox, oy, oz;
+  cell_axis(px, g.hx, g.w, 1, ox, t.sx, t.fx);
+  cell_axis(py, g.hy, g.h, g.w, oy, t.sy, t.fy);
+  cell_axis(pz, g.hz, g.depth, g.wh, oz, t.sz, t.fz);
+  t.base = ox + oy + oz;
   return t;
 }
 
-// One voxel as f32, converted after the fetch (V is float or unsigned char).
+// One voxel as f32, a uint8 one widened by I2F, at an unsigned offset
+// (its address arithmetic zero-extends, which measured 1 % faster on the
+// uint8 rung than a signed index).
 template <typename V>
-__device__ __forceinline__ float voxel(const V* v, int i) {
+__device__ __forceinline__ float fetch(const V* v, unsigned i) {
   return static_cast<float>(__ldg(v + i));
 }
 
-// The trilinear sample of eight taps, in the volume's own units: lerped
-// along x, then y, then z.
+// The trilinear sample of a cell in the volume's own units: the eight
+// taps lerped along x, then y, then z, every product and sum rounded on
+// its own.
 template <typename V>
-__device__ __forceinline__ float sample_taps(const V* v, const Taps& t) {
-  const float c00 = lerp(voxel(v, t.r00 + t.x0), voxel(v, t.r00 + t.x1), t.fx);
-  const float c01 = lerp(voxel(v, t.r01 + t.x0), voxel(v, t.r01 + t.x1), t.fx);
-  const float c10 = lerp(voxel(v, t.r10 + t.x0), voxel(v, t.r10 + t.x1), t.fx);
-  const float c11 = lerp(voxel(v, t.r11 + t.x0), voxel(v, t.r11 + t.x1), t.fx);
-  return lerp(lerp(c00, c01, t.fy), lerp(c10, c11, t.fy), t.fz);
+__device__ __forceinline__ float trilinear(const V* vol, const Cell& t) {
+  const unsigned b00 = t.base, b01 = b00 + t.sy;  // rows (z0,y0), (z0,y1)
+  const unsigned b10 = b00 + t.sz, b11 = b10 + t.sy;  // (z1,y0), (z1,y1)
+  const float gx = sub(1.f, t.fx), gy = sub(1.f, t.fy), gz = sub(1.f, t.fz);
+  const float c00 = add(mul(fetch(vol, b00), gx), mul(fetch(vol, b00 + t.sx), t.fx));
+  const float c01 = add(mul(fetch(vol, b01), gx), mul(fetch(vol, b01 + t.sx), t.fx));
+  const float c10 = add(mul(fetch(vol, b10), gx), mul(fetch(vol, b10 + t.sx), t.fx));
+  const float c11 = add(mul(fetch(vol, b11), gx), mul(fetch(vol, b11 + t.sx), t.fx));
+  return add(mul(add(mul(c00, gy), mul(c01, t.fy)), gz),
+             mul(add(mul(c10, gy), mul(c11, t.fy)), t.fz));
 }
 
-__device__ __forceinline__ float sample(const MarchArgs& a, const Taps& t) {
-  return sample_taps(a.vol, t);
+// x / 255 rounded to nearest, as __fdiv_rn(x, 255.f) rounds it, in three
+// operations: the product by R = RN(1/255), its exact residual, and one
+// correction. Equal to __fdiv_rn on every f32 in [0, 256), where the
+// lerps of raw values 0..255 lie (chip_smoke.py phase 9 checks every one
+// on the card). The fused multiply-adds belong to this division, not to
+// the forward chain, whose products and sums stay apart.
+__device__ __forceinline__ float div255(float x) {
+  constexpr float R = 0x1.010102p-8f;
+  const float q = __fmul_rn(x, R);
+  return __fmaf_rn(__fmaf_rn(-q, 255.f, x), R, q);
 }
 
-// The linearly interpolated TF at density s in [0, 1]: the coordinate
-// tc = s*TF_SIZE - 0.5, its two clamped rows, the weight f of row hi, and
-// the premultiplied RGBA c.
-__device__ __forceinline__ void tf_lerp(const float (*lut)[4], float s,
-                                        float& tc, int& lo, int& hi, float& f,
-                                        float c[4]) {
-  tc = sub(mul(s, static_cast<float>(TF_SIZE)), 0.5f);
-  const float fl = floorf(tc);
-  f = sub(tc, fl);
-  const int j = static_cast<int>(fminf(fmaxf(fl, -1.f), static_cast<float>(TF_SIZE)));
-  lo = min(max(j, 0), TF_SIZE - 1);
-  hi = min(max(j + 1, 0), TF_SIZE - 1);
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) c[ch] = lerp(lut[lo][ch], lut[hi][ch], f);
+// What a volume holds: raw voxel values 0..255 (the ladder's rungs 2-4),
+// divided by 255 after the lerps; or a density in [0, 1] (rung 5, round
+// 1, the replays), taken as it is.
+enum class Units { kRaw, kDensity };
+
+template <Units U>
+__device__ __forceinline__ float density_of(float x) {
+  return U == Units::kRaw ? div255(x) : x;
+}
+
+// The TF in shared memory as RGBA rows, padded with a copy of its first
+// and last rows: padded row j + 1 is row j. The lerp's rows clamp(j, 0,
+// 127) and clamp(j + 1, 0, 127) are then padded rows j' + 1 and j' + 2
+// for j' = clamp(j, -1, 127): one clamp and two 16-byte loads. The caller
+// synchronises.
+constexpr int LUT_ROWS = TF_SIZE + 2;
+
+__device__ __forceinline__ void stage_padded_lut(const MarchArgs& a,
+                                                 float4* lut) {
+  const int tid = threadIdx.y * TILE + threadIdx.x;
+  if (tid < LUT_ROWS) {
+    const float* row = a.tf + 4 * min(max(tid - 1, 0), TF_SIZE - 1);
+    lut[tid] = make_float4(row[0], row[1], row[2], row[3]);
+  }
+}
+
+// The nearest voxel's offset along one axis: clamp(trunc((p + 1) * 0.5 *
+// n), 0, n - 1) times the stride (reference: common.h:105-110). The floor
+// stands in for the truncation: the two differ only on (-1, 0), where
+// both clamp to 0.
+__device__ __forceinline__ int nearest_off(float p, float half_n, int n,
+                                           int stride) {
+  const int i = floor_int(floor_biased(mul(add(p, 1.f), half_n)));
+  return min(max(i, 0), n - 1) * stride;
+}
+
+template <typename V>
+__device__ __forceinline__ float nearest_voxel(const V* vol, const Grid& g,
+                                               float px, float py, float pz) {
+  return fetch(vol, nearest_off(px, g.hx, g.w, 1) +
+                        nearest_off(py, g.hy, g.h, g.w) +
+                        nearest_off(pz, g.hz, g.depth, g.wh));
 }
 
 // Where the diffuse tap samples: SHADE_LIGHT_OFFSET from p toward the light.
@@ -182,6 +262,103 @@ __device__ __forceinline__ void light_tap(const Light& li, float px, float py,
   qz = add(pz, mul(__fdiv_rn(vz, len), SHADE_LIGHT_OFFSET));
 }
 
+// One classified (and shaded) sample. The forwards read its colour; the
+// replays read the rest too, and the compiler drops what a caller leaves
+// unread.
+struct Sample {
+  Cell t;        // the sample's own cell (trilinear mode)
+  Cell t2;       // the light tap's, valid where gate
+  float s;       // the sample: a density in [0, 1], raw in nearest mode
+  float tc;      // TF coordinate s*TF_SIZE - 0.5, unclamped
+  int j;         // floor(tc) clamped to [-1, TF_SIZE - 1]: the lerp reads
+                 // padded rows j + 1 and j + 2
+  float f;       // the weight of the second row
+  float c[4];    // premultiplied RGBA, shaded
+  bool gate;     // the diffuse tap fired
+};
+
+// The lerped TF at q.s: q.tc, q.j, q.f and the colour q.c.
+__device__ __forceinline__ void tf_rgba(const float4* lut, Sample& q) {
+  q.tc = sub(mul(q.s, static_cast<float>(TF_SIZE)), 0.5f);
+  const float m = floor_biased(q.tc);
+  q.f = sub(q.tc, sub(m, FLOOR_BIAS));
+  q.j = min(max(floor_int(m), -1), TF_SIZE - 1);
+  const float4 lo = lut[q.j + 1], hi = lut[q.j + 2];
+  const float g = sub(1.f, q.f);
+  q.c[0] = add(mul(lo.x, g), mul(hi.x, q.f));
+  q.c[1] = add(mul(lo.y, g), mul(hi.y, q.f));
+  q.c[2] = add(mul(lo.z, g), mul(hi.z, q.f));
+  q.c[3] = add(mul(lo.w, g), mul(hi.w, q.f));
+}
+
+// The sample at (px, py, pz) -> q, its premultiplied, shaded RGBA in q.c.
+// Trilinear mode lerps the taps of its cell, takes the density in U's
+// units and lerps the TF; nearest mode (raw values only) reads one voxel
+// and the TF bucket int(v) / 2 with no lerp, and scales the shade delta by
+// 1/255.
+template <typename V, Units U, bool NEAREST, bool SHADE>
+__device__ __forceinline__ void classify(const Grid& g, const V* vol,
+                                         const float4* lut, const Light& li,
+                                         float px, float py, float pz,
+                                         Sample& q) {
+  static_assert(!NEAREST || U == Units::kRaw, "nearest mode reads raw values");
+  if (NEAREST) {
+    q.s = nearest_voxel(vol, g, px, py, pz);
+    // int(s) / 2 on raw s >= 0: the floor halved.
+    const int bucket =
+        min(max(floor_int(floor_biased(q.s)) >> 1, 0), TF_SIZE - 1);
+    const float4 row = lut[bucket + 1];
+    q.c[0] = row.x;
+    q.c[1] = row.y;
+    q.c[2] = row.z;
+    q.c[3] = row.w;
+  } else {
+    q.t = cell_at(g, px, py, pz);
+    q.s = density_of<U>(trilinear(vol, q.t));
+    tf_rgba(lut, q);
+  }
+  q.gate = false;
+  if (SHADE && q.c[3] > SHADE_ALPHA_GATE && li.kd > SHADE_KD_GATE) {
+    q.gate = true;
+    float qx, qy, qz, delta;
+    light_tap(li, px, py, pz, qx, qy, qz);
+    if (NEAREST) {
+      const float sl = nearest_voxel(vol, g, qx, qy, qz);
+      delta = mul(sub(sl, q.s), static_cast<float>(1.0 / 255.0));
+    } else {
+      q.t2 = cell_at(g, qx, qy, qz);
+      delta = sub(density_of<U>(trilinear(vol, q.t2)), q.s);
+    }
+    const float diffuse = mul(delta, li.kd);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) q.c[ch] = add(q.c[ch], diffuse);
+  }
+}
+
+// The classified sample of a density ray at ray parameter k.
+template <bool SHADE>
+__device__ __forceinline__ void sample_at(const MarchArgs& a, const Grid& g,
+                                          const float4* lut, const Ray& ray,
+                                          const Light& li, float k,
+                                          Sample& q) {
+  classify<float, Units::kDensity, false, SHADE>(
+      g, a.vol, lut, li, add(ray.ox, mul(ray.dx, k)),
+      add(ray.oy, mul(ray.dy, k)), add(ray.oz, mul(ray.dz, k)), q);
+}
+
+// Sample i of the ray on the lattice k0 + i*step, i counted in f32 (exact
+// below 2^24, where max_steps lies): false once the ray has left the cube.
+template <bool SHADE>
+__device__ __forceinline__ bool take_sample(const MarchArgs& a, const Grid& g,
+                                            const float4* lut, const Ray& ray,
+                                            const Light& li, float i,
+                                            Sample& q) {
+  const float k = add(ray.ks, mul(i, a.step));
+  if (!(k <= ray.ke)) return false;
+  sample_at<SHADE>(a, g, lut, ray, li, k, q);
+  return true;
+}
+
 // Front-to-back premultiplied compositing of one sample's colour.
 __device__ __forceinline__ void composite(float acc[4], const float c[4]) {
   const float om = sub(1.f, acc[3]);
@@ -189,57 +366,57 @@ __device__ __forceinline__ void composite(float acc[4], const float c[4]) {
   for (int ch = 0; ch < 4; ++ch) acc[ch] = add(acc[ch], mul(c[ch], om));
 }
 
-// The classified (and shaded) sample at ray parameter k.
-template <bool SHADE>
-__device__ __forceinline__ void sample_at(const MarchArgs& a,
-                                          const float (*lut)[4],
-                                          const Ray& ray, const Light& li,
-                                          float k, Sample& q) {
-  const float px = add(ray.ox, mul(ray.dx, k));
-  const float py = add(ray.oy, mul(ray.dy, k));
-  const float pz = add(ray.oz, mul(ray.dz, k));
-  q.t = make_taps(a, px, py, pz);
-  q.s = sample(a, q.t);
-
-  tf_lerp(lut, q.s, q.tc, q.lo, q.hi, q.f, q.c);
-
-  q.gate = false;
-  if (SHADE && q.c[3] > SHADE_ALPHA_GATE && li.kd > SHADE_KD_GATE) {
-    q.gate = true;
-    float qx, qy, qz;
-    light_tap(li, px, py, pz, qx, qy, qz);
-    q.t2 = make_taps(a, qx, qy, qz);
-    const float diffuse = mul(sub(sample(a, q.t2), q.s), li.kd);
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) q.c[ch] = add(q.c[ch], diffuse);
-  }
-}
-
-// Sample i of the ray on the lattice k0 + i*step: false once the ray has
-// left the cube.
-template <bool SHADE>
-__device__ __forceinline__ bool take_sample(const MarchArgs& a,
-                                            const float (*lut)[4],
-                                            const Ray& ray, const Light& li,
-                                            int i, Sample& q) {
-  const float k = add(ray.ks, mul(static_cast<float>(i), a.step));
-  if (!(k <= ray.ke)) return false;
-  sample_at<SHADE>(a, lut, ray, li, k, q);
-  return true;
-}
-
-// The forward march of one live ray: acc must come in as zeros.
+// The forward march of one live ray on the lattice k0 + i*step: acc must
+// come in as zeros. One sample an iteration, so that the loop's SASS counts
+// a sample.
 template <bool SHADE, bool NO_ERT>
 __device__ __forceinline__ void march_forward(const MarchArgs& a,
-                                              const float (*lut)[4],
+                                              const float4* lut,
                                               const Ray& ray, const Light& li,
                                               float acc[4]) {
+  const Grid g = make_grid(a);
+  const float n = static_cast<float>(a.max_steps);
   Sample q;
-  for (int i = 0; i < a.max_steps; ++i) {
-    if (!take_sample<SHADE>(a, lut, ray, li, i, q)) break;
+#pragma unroll 1
+  for (float i = 0.f; i < n; i = add(i, 1.f)) {
+    if (!take_sample<SHADE>(a, g, lut, ray, li, i, q)) break;
     composite(acc, q.c);
     if (!NO_ERT && acc[3] > li.thr) break;
   }
+}
+
+// The forward march of this thread's ray on the accumulating lattice of
+// the ladder and round 1 (k starts at k0 and gains one rounded `+ step` a
+// sample; the first sample of a live ray is always taken, and the ray ends
+// after the sample where ERT latches or the next k exceeds kfar), its
+// image written to out. The caller has staged the padded LUT.
+template <typename V, Units U, bool NEAREST, bool SHADE, bool NO_ERT>
+__device__ __forceinline__ void march_accumulating(const MarchArgs& a,
+                                                   const V* vol,
+                                                   const float4* lut,
+                                                   float* out) {
+  const int r = ray_index(a);
+  if (r < 0) return;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (a.alive[r]) {
+    const Ray ray = load_ray(a, r);
+    const Light li = load_light(a);
+    const Grid g = make_grid(a);
+    float k = ray.ks;
+    Sample q;
+    // One sample an iteration, so that the loop's SASS counts a sample.
+#pragma unroll 1
+    for (int i = 0; i < a.max_steps; ++i) {
+      classify<V, U, NEAREST, SHADE>(g, vol, lut, li,
+                                     add(ray.ox, mul(ray.dx, k)),
+                                     add(ray.oy, mul(ray.dy, k)),
+                                     add(ray.oz, mul(ray.dz, k)), q);
+      composite(acc, q.c);
+      k = add(k, a.step);
+      if ((!NO_ERT && acc[3] > li.thr) || !(k <= ray.ke)) break;
+    }
+  }
+  reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
 // How a replayed sample's adds to dTF and dVol reach memory: through the
@@ -251,7 +428,7 @@ __device__ __forceinline__ void march_forward(const MarchArgs& a,
 // loop on this card (ATOMS.CAST.SPIN). So the lanes group by destination
 // with __match_any_sync, sum within each group in a shuffle tree
 // (reduce_peers), and the group's lowest lane adds once. dTF groups by TF
-// row lo, into the warp's own copy of the block's dTF with plain adds (no
+// row, into the warp's own copy of the block's dTF with plain adds (no
 // two leaders of a warp share a row, and no other warp writes the copy);
 // dVol groups by the sample's trilinear cell, and the leader adds the
 // cell's eight sums with global atomics. On a warp whose lanes all differ
@@ -301,7 +478,7 @@ __device__ __forceinline__ bool reduce_peers(unsigned peers, float (&v)[N]) {
 }
 
 // ds times the eight trilinear weights, in the order of add_taps' taps.
-__device__ __forceinline__ void tap_weights(const Taps& t, float ds,
+__device__ __forceinline__ void tap_weights(const Cell& t, float ds,
                                             float (&w)[8]) {
   const float gx = 1.f - t.fx, gy = 1.f - t.fy, gz = 1.f - t.fz;
   const float w00 = ds * gz * gy, w01 = ds * gz * t.fy;
@@ -316,23 +493,25 @@ __device__ __forceinline__ void tap_weights(const Taps& t, float ds,
   w[7] = w11 * t.fx;
 }
 
-// w added to the eight taps. Two taps that clamp to one voxel add twice, as
-// the forward read it twice.
-__device__ __forceinline__ void add_taps(float* dv, const Taps& t,
+// w added to the cell's eight taps. Two taps that clamp to one voxel add
+// twice (a step of 0), as the forward read it twice.
+__device__ __forceinline__ void add_taps(float* dv, const Cell& t,
                                          const float (&w)[8]) {
-  atomicAdd(dv + t.r00 + t.x0, w[0]);
-  atomicAdd(dv + t.r00 + t.x1, w[1]);
-  atomicAdd(dv + t.r01 + t.x0, w[2]);
-  atomicAdd(dv + t.r01 + t.x1, w[3]);
-  atomicAdd(dv + t.r10 + t.x0, w[4]);
-  atomicAdd(dv + t.r10 + t.x1, w[5]);
-  atomicAdd(dv + t.r11 + t.x0, w[6]);
-  atomicAdd(dv + t.r11 + t.x1, w[7]);
+  const unsigned b00 = t.base, b01 = b00 + t.sy;
+  const unsigned b10 = b00 + t.sz, b11 = b10 + t.sy;
+  atomicAdd(dv + b00, w[0]);
+  atomicAdd(dv + (b00 + t.sx), w[1]);
+  atomicAdd(dv + b01, w[2]);
+  atomicAdd(dv + (b01 + t.sx), w[3]);
+  atomicAdd(dv + b10, w[4]);
+  atomicAdd(dv + (b10 + t.sx), w[5]);
+  atomicAdd(dv + b11, w[6]);
+  atomicAdd(dv + (b11 + t.sx), w[7]);
 }
 
 // ds times the trilinear weights, summed over the warp's lanes that `add`
 // to one cell, added to the cell's eight taps.
-__device__ __forceinline__ void scatter_taps_warp(float* dv, const Taps& t,
+__device__ __forceinline__ void scatter_taps_warp(float* dv, const Cell& t,
                                                   float ds, bool add) {
   if (!__any_sync(FULL_WARP, add)) return;
   float w[8];
@@ -341,8 +520,8 @@ __device__ __forceinline__ void scatter_taps_warp(float* dv, const Taps& t,
   // add takes a key of its own that no cell has (cells' high words are
   // under 2^31), so it groups with no one.
   const unsigned long long cell =
-      add ? (static_cast<unsigned long long>(t.r11 + t.x1) << 32) |
-                static_cast<unsigned>(t.r00 + t.x0)
+      add ? (static_cast<unsigned long long>(t.base + t.sx + t.sy + t.sz)
+             << 32) | t.base
           : ~0ull - lane_id();
   if (reduce_peers(__match_any_sync(FULL_WARP, cell), w) && add) {
     add_taps(dv, t, w);
@@ -350,14 +529,14 @@ __device__ __forceinline__ void scatter_taps_warp(float* dv, const Taps& t,
 }
 
 // dc times the TF lerp's weights, summed over the warp's lanes on one row
-// lo, added to the warp's copy `wdtf` of the block's dTF. Row lo takes
-// dc (1 - f) and row lo + 1 takes dc f; a clamped lerp (lo == hi, at
-// either end of the TF) gives its whole dc to row lo, so a group keyed by
-// lo alone adds to rows lo and lo + 1.
+// lo = clamp(j, 0, 127), added to the warp's copy `wdtf` of the block's
+// dTF. Row lo takes dc (1 - f) and row lo + 1 takes dc f; a clamped lerp
+// (j = -1 or 127, both rows one) gives its whole dc to row lo, so a group
+// keyed by lo alone adds to rows lo and lo + 1.
 __device__ __forceinline__ void scatter_tf_warp(float (*wdtf)[4],
                                                 const Sample& q,
                                                 const float dc[4], bool add) {
-  const bool one_row = q.lo == q.hi;
+  const bool one_row = q.j < 0 || q.j == TF_SIZE - 1;
   float v[8];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -365,11 +544,11 @@ __device__ __forceinline__ void scatter_tf_warp(float (*wdtf)[4],
     v[4 + c] = one_row ? 0.f : dc[c] * q.f;
   }
   // A lane that does not add takes a key above the TF's rows, its own.
-  const int row = add ? q.lo : TF_SIZE + lane_id();
+  const int row = add ? max(q.j, 0) : TF_SIZE + lane_id();
   const bool lead = reduce_peers(__match_any_sync(FULL_WARP, row), v) && add;
   // The leaders' rows lo differ, so their plain adds to row lo cannot
   // collide; row lo + 1 may be another leader's lo, so it waits for the
-  // warp. Row TF_SIZE - 1 has only lo == hi, and nothing for the next row.
+  // warp. Row TF_SIZE - 1 has only one-row lerps, and nothing for the next.
   if (lead) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) wdtf[row][c] += v[c];
@@ -404,11 +583,12 @@ struct Chain {
 // colour; wdtf is the warp's [TF_SIZE][4] copy of the block's dTF. IN_RANGE
 // drops the density slope at the TF's end points and for a density outside
 // (0, 1), as the v3 reference's flag does; without it the slope is
-// (tf[hi] - tf[lo]) * TF_SIZE of the clamped rows, zero only where they
-// coincide, as the round-1 reference takes it. The whole warp calls this
-// (the scatter above), and a lane that is not `live` adds nothing.
+// (tf[hi] - tf[lo]) * TF_SIZE of the clamped rows (padded rows j + 2 and
+// j + 1), zero only where they coincide, as the round-1 reference takes
+// it. The whole warp calls this (the scatter above), and a lane that is
+// not `live` adds nothing.
 template <bool SHADE, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE>
-__device__ __forceinline__ void replay_sample(const float (*lut)[4],
+__device__ __forceinline__ void replay_sample(const float4* lut,
                                               float (*wdtf)[4], float* d_vol,
                                               const Light& li,
                                               const float g4[4], float G,
@@ -427,15 +607,16 @@ __device__ __forceinline__ void replay_sample(const float (*lut)[4],
 
   if (NEED_DTF) scatter_tf_warp(wdtf, q, dc, live);
   if (NEED_DVOL) {
-    // The clamped lerp has no slope outside its range (lo == hi there).
+    // The clamped lerp has no slope outside its range (one row there).
     const bool in_range = !IN_RANGE || (q.tc > 0.f && q.tc < TF_SIZE - 1.f &&
                                         q.s > 0.f && q.s < 1.f);
     float ds = 0.f, ds2 = 0.f;
     if (live && in_range) {
+      const float4 lo = lut[q.j + 1], hi = lut[q.j + 2];
+      const float slope[4] = {hi.x - lo.x, hi.y - lo.y, hi.z - lo.z,
+                              hi.w - lo.w};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ds += (lut[q.hi][c] - lut[q.lo][c]) * TF_SIZE * dc[c];
-      }
+      for (int c = 0; c < 4; ++c) ds += slope[c] * TF_SIZE * dc[c];
     }
     if (SHADE && live && q.gate) {
       // diffuse = kd * (s2 - s): rgb cotangents flow -kd into this
@@ -482,15 +663,17 @@ __device__ __forceinline__ bool start_replay(const MarchArgs& a,
 // only while its own ray is live.
 template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __device__ __forceinline__ void march_replay(const MarchArgs& a,
-                                             const float (*lut)[4],
+                                             const float4* lut,
                                              float (*wdtf)[4], float* d_vol,
                                              const Ray& ray, const Light& li,
                                              const float g4[4], float G,
                                              bool live) {
+  const Grid g = make_grid(a);
+  const float n = static_cast<float>(a.max_steps);
   Sample q{};
   Chain ch;
-  for (int i = 0; i < a.max_steps; ++i) {
-    if (live) live = take_sample<SHADE>(a, lut, ray, li, i, q);
+  for (float i = 0.f; i < n; i = add(i, 1.f)) {
+    if (live) live = take_sample<SHADE>(a, g, lut, ray, li, i, q);
     if (!__any_sync(FULL_WARP, live)) break;
     replay_sample<SHADE, NEED_DTF, NEED_DVOL, true>(lut, wdtf, d_vol, li, g4,
                                                     G, q, ch, live);
@@ -507,15 +690,16 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
 // ray's last sample here.
 template <bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __device__ __forceinline__ void march_replay_round1(
-    const MarchArgs& a, const float (*lut)[4], float (*wdtf)[4],
+    const MarchArgs& a, const float4* lut, float (*wdtf)[4],
     float* d_vol, const Ray& ray, const Light& li, const float g4[4],
     float G, bool live) {
+  const Grid g = make_grid(a);
   Sample q{};
   Chain ch;
   float k = ray.ks;
   for (int i = 0; i < a.max_steps; ++i) {
     if (!__any_sync(FULL_WARP, live)) break;
-    if (live) sample_at<false>(a, lut, ray, li, k, q);
+    if (live) sample_at<false>(a, g, lut, ray, li, k, q);
     replay_sample<false, NEED_DTF, NEED_DVOL, false>(lut, wdtf, d_vol, li,
                                                      g4, G, q, ch, live);
     k = add(k, a.step);
@@ -545,13 +729,6 @@ __device__ __forceinline__ void flush_dtf(const float (*dtf)[4], int copies,
     for (int k = 0; k < copies; ++k) v += dtf[k * TF_SIZE + i / 4][i % 4];
     if (v != 0.f) atomicAdd(d_tf + i, v);
   }
-}
-
-// Ray index of this thread in raster order, or -1 outside the image.
-__device__ __forceinline__ int ray_index(const MarchArgs& a) {
-  const int x = blockIdx.x * TILE + threadIdx.x;
-  const int y = blockIdx.y * TILE + threadIdx.y;
-  return (x < a.width && y < a.n / a.width) ? y * a.width + x : -1;
 }
 
 inline dim3 march_grid(const MarchArgs& a) {

@@ -8,18 +8,27 @@
 // window planning, brick DMA, x-phase copies or band groups exist, and the
 // window-overflow count is 0 by construction.
 //
-// What bounds it on the card: gather latency and L2 traffic, not
-// arithmetic. Each sample is eight dependent-address loads and ~60 flops.
-// At 256^3 the f32 density is 64 MiB, more than the 50 MB L2 (a uint8
-// copy would be 16 MiB), so a frame streams the volume from device memory
-// at least once. The answer here is the 16x16 pixel block: neighbouring
-// rays of a block march through neighbouring voxels, so most of a warp's
-// taps fall on the same few cache lines and hit in L1 or L2. The
-// 128x4 TF LUT is staged in shared memory. Moving to uint8 or bf16
-// storage, and TMA-staged bricks, is later work.
+// What bounds it on the card (bench/step_ab.py, PERF.md section 6): the
+// same as the ladder's forward march (march_ladder.cu), whose loop it
+// shares but for the lattice: instruction issue, then load latency. Not
+// device memory (the 64 MiB density is 0.02 ms at 3.35 TB/s, against a
+// march of some 1.4 ms) and not the FP32 rate. Each rounded multiply and
+// add is an instruction of its own, and at 1024^2 rays of 257 samples the
+// issue slots alone take some 77 % of the kernel's time; taps from the
+// address with no load measured 11 % faster.
 //
-// The per-sample code is march_common.cuh's, shared with the backward
-// kernels. It is the plain torch version's math (volrt_torch/renderers/
+// What the design does about it: the per-sample code is march_common.cuh's
+// classify (Units::kDensity: a density in [0, 1], no division), shared with
+// the ladder, round 1 and the backward's replay, with its fewer
+// instructions a sample (no floorf, float-to-int or int-to-float
+// conversion on the unshaded path; the taps as a base and three steps; the
+// TF as padded float4 rows), each giving the plain version's bits. The
+// sample count i of the lattice k0 + i*step is carried as an f32 that
+// gains 1 a sample, exact below 2^24, in place of a conversion a sample.
+// The 16x16 pixel block keeps a warp's taps on few cache lines.
+// Moving to uint8 or bf16 storage, and TMA-staged bricks, is later work.
+//
+// It is the plain torch version's math (volrt_torch/renderers/
 // cuda/march.py:march_fwd_plain), op for op, every multiply and add rounded
 // on its own, so the two differ only through the light tap's square root.
 
@@ -32,8 +41,8 @@ using namespace volrt;
 template <bool SHADE, bool NO_ERT>
 __global__ void __launch_bounds__(TILE * TILE) march_fwd_kernel(MarchArgs a,
                                                                 float* out) {
-  __shared__ float lut[TF_SIZE][4];
-  stage_lut(a, lut);
+  __shared__ float4 lut[LUT_ROWS];
+  stage_padded_lut(a, lut);
   __syncthreads();
 
   const int r = ray_index(a);

@@ -38,23 +38,25 @@
 // division by 1 - c.a guarded at 1e-6. A ray that is not alive, or whose
 // cotangent is zero, sends nothing.
 //
-// What bounds them on the card: the forward as march_ladder.cu, gather
-// latency and L1/L2 traffic (eight dependent loads and some 80 f32
-// operations per sample); the backward as march_bwd.cu, the replay's gather
-// and its scatter: every composited sample adds to two TF rows and, where
-// the TF has a slope, to eight voxels, and a warp's lanes land on few of
-// them. The backward takes march_bwd.cu's design: march_common.cuh's
-// warp-level scatter (lanes that add to one TF row or one trilinear cell
-// sum among themselves and one lane adds; dTF with plain adds into the
-// warp's own copy of the block's accumulator, one atomic per touched entry
-// per block at the end; dVol with global atomics), for which the warp's
-// lanes replay in one loop until its last ray ends (march_replay_round1,
-// on this lattice), lanes with no ray too. What the warp cannot sum is the
-// adds of other warps and blocks to one voxel: on a small volume under a
-// large viewport (diff_tri's) many rays share a voxel, and the dVol
-// atomics collide across warps. Samples whose density cotangent is exactly
-// zero add nothing to dVol; the forward is replayed, not stored. Voxel
-// offsets are 32-bit, so a volume holds under 2^31 voxels (the wrapper
+// What bounds them on the card (bench/step_ab.py, PERF.md section 6). The
+// forward is the ladder's march over a density: instruction issue, then load
+// latency, not device memory and not the FP32 rate; its design is the
+// ladder's (march_common.cuh: classify with Units::kDensity, no division;
+// march_accumulating, one body with march_ladder_kernel). The backward as
+// march_bwd.cu, the replay's march and its scatter: every composited sample
+// adds to two TF rows and, where the TF has a slope, to eight voxels, and a
+// warp's lanes land on few of them. The backward takes march_bwd.cu's
+// design: march_common.cuh's warp-level scatter (lanes that add to one TF
+// row or one trilinear cell sum among themselves and one lane adds; dTF with
+// plain adds into the warp's own copy of the block's accumulator, one atomic
+// per touched entry per block at the end; dVol with global atomics), for
+// which the warp's lanes replay in one loop until its last ray ends
+// (march_replay_round1, on this lattice), lanes with no ray too. What the
+// warp cannot sum is the adds of other warps and blocks to one voxel: on a
+// small volume under a large viewport (diff_tri's) many rays share a voxel,
+// and the dVol atomics collide across warps. Samples whose density cotangent
+// is exactly zero add nothing to dVol; the forward is replayed, not stored.
+// Voxel offsets are 32-bit, so a volume holds under 2^31 voxels (the wrapper
 // refuses more).
 //
 // Every multiply and add of the forward chain is rounded on its own
@@ -68,37 +70,24 @@ namespace {
 
 using namespace volrt;
 
+// The ladder's march (march_ladder.cu) over a density in [0, 1],
+// unshaded: one body, march_common.cuh:march_accumulating.
 template <bool NO_ERT>
 __global__ void __launch_bounds__(TILE * TILE)
     round1_fwd_kernel(MarchArgs a, float* out) {
-  __shared__ float lut[TF_SIZE][4];
-  stage_lut(a, lut);
+  __shared__ float4 lut[LUT_ROWS];
+  stage_padded_lut(a, lut);
   __syncthreads();
-
-  const int r = ray_index(a);
-  if (r < 0) return;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (a.alive[r]) {
-    const Ray ray = load_ray(a, r);
-    const Light li = load_light(a);
-    Sample q;
-    float k = ray.ks;
-    for (int i = 0; i < a.max_steps; ++i) {
-      sample_at<false>(a, lut, ray, li, k, q);
-      composite(acc, q.c);
-      k = add(k, a.step);
-      if ((!NO_ERT && acc[3] > li.thr) || !(k <= ray.ke)) break;
-    }
-  }
-  reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  march_accumulating<float, Units::kDensity, false, false, NO_ERT>(
+      a, a.vol, lut, out);
 }
 
 template <bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) round1_bwd_kernel(
     MarchArgs a, const float* out, const float* g, GradArgs gr) {
-  __shared__ float lut[TF_SIZE][4];
+  __shared__ float4 lut[LUT_ROWS];
   __shared__ float dtf[NEED_DTF ? WARPS * TF_SIZE : 1][4];
-  stage_lut(a, lut);
+  stage_padded_lut(a, lut);
   if (NEED_DTF) clear_dtf(dtf, WARPS);
   __syncthreads();
 

@@ -65,6 +65,9 @@ from volrt_torch.renderers.common import (
 TILE = 16
 # Rays per lockstep chunk of the plain marches: keeps 1024^2 in memory.
 PLAIN_CHUNK = 1 << 18
+# Samples a ray may take, at most (exclusive): the kernels' f32 count of
+# them is exact below 2^24.
+MAX_STEPS_LIMIT = 1 << 24
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,8 +86,14 @@ _GRAD_ARGTYPES = _RAY_ARGTYPES + [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
 def max_steps(ray_step: float) -> int:
     """Samples a ray may take: the cube's chord over the step, plus two
     (as ``volrt/diff/render.py:_march_n_steps``). Every ray a view builds
-    has ``|d| >= 1``, so none needs more."""
-    return int(math.ceil(2.0 * math.sqrt(3.0) / ray_step)) + 2
+    has ``|d| >= 1``, so none needs more. The v3 kernels count a ray's
+    samples in f32, exact below 2^24 (``csrc/march_common.cuh:
+    march_forward``), so a step that needs more is refused."""
+    n = int(math.ceil(2.0 * math.sqrt(3.0) / ray_step)) + 2
+    if n >= MAX_STEPS_LIMIT:
+        raise ValueError(f"ray_step {ray_step} needs {n} samples a ray, "
+                         f"{MAX_STEPS_LIMIT} or more")
+    return n
 
 
 def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
@@ -296,7 +305,7 @@ def div255_mismatches(x: torch.Tensor) -> int:
     """How many of the f32 values ``x`` the ladder's division by 255 puts
     elsewhere than the IEEE quotient ``x / 255``, bit for bit.
 
-    ``csrc/march_ladder.cu:div255`` divides in three rounded operations,
+    ``csrc/march_common.cuh:div255`` divides in three rounded operations,
     ``q = x * r`` with ``r = RN(1/255)``, ``e = fma(-q, 255, x)`` and
     ``fma(e, r, q)``, where ``__fdiv_rn`` takes a longer sequence.
     ``chip_smoke.py`` runs this over every f32 in [0, 256), the range of
