@@ -103,9 +103,25 @@ Phases, each synchronised with the card, none catching its own failure:
     registers ``ptxas`` gave its variants, the forward beside its variant's
     registers and the SASS instructions of its march loop; the step timed
     beside phase 7's two-kernel step;
-14. phong, which is torch ops only: rung 1's frame and the oracle's image
-    and gradients (``render_diff_image(phong=True)``) on the card against
-    the same on the CPU, at 32^3 / 64^2.
+14. phong as torch ops: rung 1's frame and the oracle's image and
+    gradients (``render_diff_image(phong=True)``) on the card against the
+    same on the CPU, at 32^3 / 64^2;
+15. phong as a mode of the v3 kernels (``march_fwd``, ``march_bwd``,
+    ``l2_step``). At 32^3 / 64^2, ERT off and at 0.95, on the default pose
+    and on phase 9's grid pose (whose rays graze the faces, where the
+    gradient's taps clip): each kernel against its plain version, the
+    images' alpha equal to the bit and their colour within 1e-5, the
+    backwards in their three ``need_*`` variants within 2e-3 of the
+    largest entry; on the default pose ``render_image_v3(phong=True)``
+    under autograd and the one-launch step against autograd through
+    ``render_diff_image(phong=True)``. Then at full width, 256^3 / 1024^2
+    on the benchmark pose, ERT off, kd 0.6, with the launch counters reset
+    before and read after each: rung 5's phong frame
+    (``bench_fwd_step(shading="phong")``), the phong one-launch step and
+    the phong two-kernel step; each kernel alone held against its plain
+    version and timed beside its bound (phong's operations counted on the
+    samples whose gate opens), its registers and spills. The three
+    kernels' entries of the ``kernels`` line carry these as ``phong``.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -146,6 +162,8 @@ from volrt_torch.bench.harness import (
     diff_bench_scene, synthetic_volume, time_cuda)
 from volrt_torch.bench.step_ab import (
     VARIANT_ROWS, cuobjdump_sass, ptxas_report, sass_counts)
+from volrt_torch.constants import SHADE_ALPHA_GATE
+from volrt_torch.core import sampling
 from volrt_torch.core.tf import default_transfer_fn
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
@@ -214,9 +232,27 @@ FLOPS_ROUND1_BWD = 145
 ATOL_LATTICE = 2e-4
 RTOL_GRAD_LATTICE = 2e-3
 # Phong on the card against phong on the CPU, torch ops both: the card's
-# pow, rsqrt and sqrt round otherwise, the shade-tap class.
+# pow, rsqrt and sqrt round otherwise, the shade-tap class. Phase 15 holds
+# the kernels' phong mode to its plain version with the same gradient
+# class; their alpha to the bit (phong leaves it alone) and their colour
+# within 1e-5: kernel and plain version take the same rounded operations,
+# 1 / sqrt(x) as a rounded square root and a rounded division on both
+# (csrc/march_common.cuh:rsqrt_rn), so the f32 class of phase 3 holds.
 ATOL_PHONG = 1e-5
 RTOL_GRAD_PHONG = 2e-3
+ATOL_PHONG_RGB = 1e-5
+# Phong's f32 operations a gated sample, counted by hand from
+# csrc/march_common.cuh (shade_phong, phong_chain), on top of FLOPS_FWD /
+# FLOPS_BWD. Forward: the six shifted axes 48 (two clips, the shift, the
+# floor and the weight), six trilinear samples 168 and their differences
+# 3, the normal's and the light's and the half vector's norms and
+# directions 36, the two dots 13, the powers 4, the specular, lit and
+# colour 10. Replay: the forward's again, the chain 54 (drgb, dlit, the
+# masks, dnh, the powers, dc, dn, dn.g, dg), the six cells' weights and
+# adds 168.
+FLOPS_PHONG_FWD = 282
+FLOPS_PHONG_BWD = 504
+PHONG_KD = 0.6
 # The kernel variant that each forward row runs on the benchmark pose
 # (unshaded, ERT off), by the row's name.
 VARIANTS = {name: variant for _, name, variant, _ in VARIANT_ROWS}
@@ -341,18 +377,21 @@ def _n_samples(args, kw) -> int:
 
 
 def _bound(args, kw, flops_per_sample: int, images: int,
-           grads: bool) -> dict:
+           grads: bool, extra_ops: int = 0) -> dict:
     """``bound_ms`` and ``bound_by`` of one kernel call on these inputs.
     ``images`` counts the f32[N, 4] tensors beside the ray tensors (the
     output, a target, a cotangent); ``grads`` adds the two gradients, each
-    zero-filled and then written."""
+    zero-filled and then written; ``extra_ops`` are f32 operations on top
+    of ``flops_per_sample`` a composited sample (phong's, on the samples
+    whose gate opens)."""
     o, d, k0, kfar, alive, density, tf, scal = args
     nbytes = sum(t.numel() * t.element_size() for t in args)
     nbytes += images * o.shape[0] * 16
     if grads:
         nbytes += 2 * (density.numel() + tf.numel()) * 4
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = _n_samples(args, kw) * flops_per_sample / PEAK_F32_FLOPS * 1e3
+    t_ops = ((_n_samples(args, kw) * flops_per_sample + extra_ops)
+             / PEAK_F32_FLOPS * 1e3)
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1502,6 +1541,276 @@ def phase_phong(dev: torch.device) -> None:
           RTOL_GRAD_PHONG)
 
 
+def _n_gated(args, kw) -> int:
+    """Composited samples of these rays (ERT off) whose phong gate opens,
+    TF alpha above 0.05 (kd 0.6 passes its gate): what phong's operations
+    are counted on."""
+    o, d, k0, kfar, alive, density, tf = args[:7]
+    n = 0
+    for i in range(max_steps(kw["ray_step"])):
+        k = k0 + i * kw["ray_step"]
+        pt = o + d * k[:, None]
+        a = sampling.tf_lookup_linear(
+            tf, sampling.sample_trilinear_f(density, pt))[:, 3]
+        n += int((alive & (k <= kfar) & (a > SHADE_ALPHA_GATE)).sum())
+    return n
+
+
+def _phong_small(dev: torch.device) -> None:
+    """The three kernels' phong mode against their plain versions at 32^3 /
+    64^2, ERT off and at 0.95, on the default pose and on phase 9's grid
+    pose (rays along each axis on the half-voxel lattice, grazing the
+    faces, where the gradient's clipped taps sit on the clip): every
+    kernel's image with alpha equal to the bit and colour within
+    ATOL_PHONG_RGB; march_bwd and l2_step in their three need_* variants;
+    on the default pose the kernels under autograd and the one-launch step
+    against autograd through render_diff_image(phong=True)."""
+    n = 32
+    scene = scene_from_volume(synthetic_volume(n), default_transfer_fn(dev),
+                              0.06, device=dev)
+    density, tf = scene.density.detach(), scene.premult_tf().detach()
+    rng = np.random.default_rng(15)
+    target = torch.tensor(rng.uniform(0, 1, (64, 64, 4)).astype(np.float32),
+                          device=dev)
+    tgt = target.reshape(-1, 4)
+    cam = Camera(dims=(64, 64))
+    cam.set_camera_position((30.0, 20.0, 0.0))
+    view = cam.view(dev)
+    scale = 2.0 / tgt.numel()
+    worst = {}
+    for thr in (2.0, 0.95):
+        label = "ERT off" if thr >= 1 else "ERT 0.95"
+        poses = [("default pose", *fwd_v3.ray_args(
+            view, density, tf, 0.06, thr, PHONG_KD, loss_scale=scale,
+            phong=True))]
+        scal = torch.cat([torch.tensor([thr, PHONG_KD], device=dev),
+                          view.light_pos.to(torch.float32),
+                          torch.tensor([0.0, scale, 0.0], device=dev)]
+                         ).to(torch.float32)
+        for axis in (0, 1, 2):
+            for half in (False, True):
+                poses.append((
+                    f"grid pose axis {axis}{', half a step in' if half else ''}",
+                    (*_grid_rays(n, axis, half, dev), density, tf, scal),
+                    dict(ray_step=2.0 / n, shade=False, phong=True,
+                         no_ert=thr >= 1, width=64)))
+        for pose, args, kw in poses:
+            tag = f"[phong-kernels] 32^3/64^2 {pose}, {label}:"
+            assert kw["phong"] and not kw["shade"]
+            before = [fn.launches for fn in WRAPPERS]
+            out = march_fwd(*args, **kw)
+            g = (out - tgt) * (args[7][6] * args[4][:, None])
+            bwd = [march_bwd(*args, out, g, **kw, **need) for _, need in NEEDS]
+            l2 = [l2_step(*args, tgt, **kw, **need) for _, need in NEEDS]
+            _sync()
+            counts = [fn.launches - b for fn, b in zip(WRAPPERS, before)]
+            assert counts == [1, 3, 3, 0, 0, 0, 0, 0, 0], f"{tag} {counts}"
+            want = l2_step_plain(*args, tgt, **kw)
+            plain_out = march_fwd_plain(*args, **kw)
+            unshaded = march_fwd_plain(*args, **{**kw, "phong": False})
+            _sync()
+            assert (plain_out[:, :3] - unshaded[:, :3]).abs().max() > 1e-3, (
+                f"{tag} phong left the colour alone")
+            for what, img, ref in (("march_fwd", out, plain_out),
+                                   ("l2_step", l2[0][0], want[0])):
+                assert torch.isfinite(img).all(), f"{tag} {what}"
+                assert img[:, 3].max().item() > 0.5, f"{tag} {what} empty"
+                assert torch.equal(img[:, 3], ref[:, 3]), (
+                    f"{tag} {what} alpha differs from the plain version's")
+                err = (img[:, :3] - ref[:, :3]).abs().max().item()
+                assert err <= ATOL_PHONG_RGB, f"{tag} {what} rgb {err}"
+                key = (what, label, "rgb")
+                worst[key] = max(worst.get(key, 0.0), err)
+            for kernel, grads in (("march_bwd", bwd),
+                                  ("l2_step", [x[1:] for x in l2])):
+                for leaf, err in _hold_needs(f"{tag} {kernel}", grads,
+                                             want[1], want[2],
+                                             RTOL_GRAD_PHONG).items():
+                    key = (kernel, label, leaf)
+                    worst[key] = max(worst.get(key, 0.0), err)
+
+        # The kernels under autograd, and the one-launch step, against
+        # autograd through the oracle on the default pose.
+        tag = f"[phong-kernels] 32^3/64^2 default pose, {label}:"
+        leaves = [scene.density, scene.tf_base]
+        kw_r = dict(ray_threshold=thr, light_kd=PHONG_KD, phong=True)
+        loss_k = torch.mean(
+            (diff_v3.render_image_v3(scene, view, **kw_r) - target) ** 2)
+        g_two = torch.autograd.grad(loss_k, leaves)
+        loss_a = torch.mean(
+            (render_diff_image(scene, view, **kw_r) - target) ** 2)
+        g_auto = torch.autograd.grad(loss_a, leaves)
+        loss_1, g_one = diff_v3.l2_loss_grads_v3_onepass(
+            scene, view, target, **kw_r)
+        _sync()
+        rel = abs(loss_1.item() - loss_k.item()) / loss_k.item()
+        print(f"{tag} losses: one-launch {loss_1.item():.8g}, two-kernel "
+              f"{loss_k.item():.8g} (rel {rel:.3g}, rtol 1e-6), autograd "
+              f"oracle {loss_a.item():.8g}")
+        assert rel <= 1e-6
+        assert abs(loss_k.item() - loss_a.item()) <= 2e-3 * loss_a.item()
+        for what, got, want in (
+                ("MarchFunction d_density vs autograd", g_two[0], g_auto[0]),
+                ("MarchFunction d_tf_base vs autograd", g_two[1], g_auto[1]),
+                ("one-launch d_density vs autograd", g_one["density"],
+                 g_auto[0]),
+                ("one-launch d_tf_base vs autograd", g_one["tf_base"],
+                 g_auto[1])):
+            _hold(tag, what, got, want, RTOL_GRAD_PHONG)
+    for (what, label, leaf), err in worst.items():
+        held = (f"atol {ATOL_PHONG_RGB:g}, alpha equal" if leaf == "rgb"
+                else f"/ max|plain|, rtol {RTOL_GRAD_PHONG:g}, over the "
+                     f"three need variants")
+        print(f"[phong-kernels] 32^3/64^2 {what} {leaf}, {label}: "
+              f"max|kernel-plain| = {err:.3g} over the default and the "
+              f"grid poses ({held})")
+
+
+def _phong_variant(build: dict, variant: str) -> dict:
+    """Registers and spill bytes ptxas gave a phong variant."""
+    rep = build["ptxas"][variant.split("<")[0]]
+    regs, spills = dict(zip(rep["variants"], zip(rep["registers"],
+                                                  rep["spill_bytes"])))[variant]
+    return {"variant": variant, "registers": regs, "spill_bytes": spills}
+
+
+def _phong_main(dev: torch.device, build: dict) -> dict:
+    """Phong at full width, 256^3 / 1024^2 on the benchmark pose, ERT off,
+    kd 0.6 -> the three kernels' phong entries: rung 5's phong frame
+    (bench_fwd_step(shading="phong")), the phong one-launch step and the
+    phong two-kernel step, with the launch counters reset before each and
+    read after; each kernel alone, timed and held against its plain
+    version, beside its bound, registers and spills."""
+    tag = "[phong-kernels] 256^3/1024^2"
+    for fn in WRAPPERS:
+        fn.launches = 0
+    frame = bench_fwd_step(256, 1024, iters=20, device=dev, shading="phong")
+    _sync()
+    counts = [fn.launches for fn in WRAPPERS]
+    print(f"{tag} rung 5's phong frame (bench_fwd_step(shading=\"phong\")):"
+          f" median {frame['ms']:.4f} ms, p90 {frame['ms_p90']:.4f} ms over "
+          f"{frame['iters']} calls, {frame['ray_steps_per_s']:.6g} "
+          f"rays*steps/s; launches {counts}")
+    assert counts == [21, 0, 0, 0, 0, 0, 0, 0, 0], counts
+    fwd_launches = counts[0]
+
+    scene, view, target = diff_bench_scene(256, 1024, device=dev)
+    leaves = [scene.density, scene.tf_base]
+    kw_r = dict(ray_threshold=2.0, light_kd=PHONG_KD, phong=True)
+    steps = {}
+    for route in ("one-launch", "two-kernel"):
+        if route == "one-launch":
+            def step():
+                return diff_v3.l2_loss_grads_v3_onepass(
+                    scene, view, target, **kw_r)[0]
+        else:
+            def step():
+                img = diff_v3.render_image_v3(scene, view, **kw_r)
+                loss = torch.mean((img - target) ** 2)
+                torch.autograd.grad(loss, leaves)
+                return loss
+        for fn in WRAPPERS:
+            fn.launches = 0
+        times = time_cuda(step, 10)
+        loss = step()
+        _sync()
+        counts = [fn.launches for fn in WRAPPERS]
+        steps[route] = (times, loss.item(), counts)
+        print(f"{tag} phong {route} step {_spread(times)}, loss "
+              f"{loss.item():.8g}; launches over 10 + 2 steps {counts}")
+        assert np.isfinite(loss.item()) and loss.item() > 0
+    assert steps["one-launch"][2] == [0, 0, 12, 0, 0, 0, 0, 0, 0]
+    assert steps["two-kernel"][2] == [12, 12, 0, 0, 0, 0, 0, 0, 0]
+    assert abs(steps["one-launch"][1] - steps["two-kernel"][1]) <= (
+        1e-6 * steps["two-kernel"][1])
+
+    # The kernels alone on the step's inputs, against their plain versions.
+    tgt = target.reshape(-1, 4)
+    with torch.no_grad():
+        args, kw = fwd_v3.ray_args(
+            view, scene.density, scene.premult_tf(), scene.ray_step, 2.0,
+            PHONG_KD, loss_scale=2.0 / tgt.numel(), phong=True)
+        out, d_vol, d_tf = l2_step(*args, tgt, **kw)
+        g = (out - tgt) * args[7][6]
+        b_vol, b_tf = march_bwd(*args, out, g, **kw)
+        fwd_out = march_fwd(*args, **kw)
+        _sync()
+        (p_out, p_vol, p_tf), l2_plain_ms = _once(
+            lambda: l2_step_plain(*args, tgt, **kw))
+        p_fwd, fwd_plain_ms = _once(lambda: march_fwd_plain(*args, **kw))
+        _, bwd_plain_ms = _once(lambda: march_bwd_plain(*args, out, g, **kw))
+        err_img = 0.0
+        for what, img, ref in (("march_fwd", fwd_out, p_fwd),
+                               ("l2_step", out, p_out)):
+            assert torch.equal(img[:, 3], ref[:, 3]), f"{tag} {what} alpha"
+            e = (img[:, :3] - ref[:, :3]).abs().max().item()
+            print(f"{tag} {what} image vs plain: alpha equal, max|rgb diff| "
+                  f"= {e:.3g} (atol {ATOL_PHONG_RGB:g})")
+            assert e <= ATOL_PHONG_RGB
+            err_img = max(err_img, e)
+        err_l2 = max(
+            _hold(tag, "l2_step d_density vs plain", d_vol, p_vol,
+                  RTOL_GRAD_PHONG),
+            _hold(tag, "l2_step d_premult_tf vs plain", d_tf, p_tf,
+                  RTOL_GRAD_PHONG))
+        err_bwd = max(
+            _hold(tag, "march_bwd d_density vs plain", b_vol, p_vol,
+                  RTOL_GRAD_PHONG),
+            _hold(tag, "march_bwd d_premult_tf vs plain", b_tf, p_tf,
+                  RTOL_GRAD_PHONG))
+        t = {"march_fwd": time_cuda(lambda: march_fwd(*args, **kw), 20),
+             "l2_step": time_cuda(lambda: l2_step(*args, tgt, **kw), 10),
+             "march_bwd": time_cuda(lambda: march_bwd(*args, out, g, **kw),
+                                    10)}
+        gated = _n_gated(args, kw)
+    samples = _n_samples(args, kw)
+    bounds = {
+        "march_fwd": _bound(args, kw, FLOPS_FWD, images=1, grads=False,
+                            extra_ops=gated * FLOPS_PHONG_FWD),
+        "march_bwd": _bound(args, kw, FLOPS_BWD, images=2, grads=True,
+                            extra_ops=gated * FLOPS_PHONG_BWD),
+        "l2_step": _bound(args, kw, FLOPS_FWD + FLOPS_BWD, images=2,
+                          grads=True,
+                          extra_ops=gated * (FLOPS_PHONG_FWD
+                                             + FLOPS_PHONG_BWD))}
+    plain = {"march_fwd": fwd_plain_ms, "march_bwd": bwd_plain_ms,
+             "l2_step": l2_plain_ms}
+    errs = {"march_fwd": err_img, "march_bwd": err_bwd, "l2_step": err_l2}
+    launches = {"march_fwd": fwd_launches,
+                "march_bwd": steps["two-kernel"][2][1],
+                "l2_step": steps["one-launch"][2][2]}
+    variants = {"march_fwd": "march_fwd_kernel<2,1>",
+                "march_bwd": "march_bwd_kernel<2,1,1,1>",
+                "l2_step": "l2_step_kernel<2,1,1,1>"}
+    frames = {"march_fwd": ("frame_ms", frame["ms"]),
+              "march_bwd": ("step_ms", float(np.median(steps["two-kernel"][0]))),
+              "l2_step": ("step_ms", float(np.median(steps["one-launch"][0])))}
+    entries = {}
+    print(f"{tag} {samples} composited samples, {gated} of them gated "
+          f"({gated / samples:.4f})")
+    for name in ("march_fwd", "march_bwd", "l2_step"):
+        v = _phong_variant(build, variants[name])
+        b = bounds[name]
+        print(f"{tag} {name} phong ({v['variant']}, {v['registers']} "
+              f"registers, {v['spill_bytes']} bytes spilled): "
+              f"{_spread(t[name])}; plain {plain[name]:.2f} ms (one call); "
+              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
+              f"{frames[name][0]} {frames[name][1]:.4f}")
+        entries[name] = {
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": float(np.median(t[name])), "plain_ms": plain[name], **b,
+            "library_ms": None, **v, frames[name][0]: frames[name][1]}
+    return entries
+
+
+def phase_phong_kernels(dev: torch.device, build: dict) -> dict:
+    """Phong as a mode of the v3 kernels: at 32^3 / 64^2 against the plain
+    versions and the oracle (:func:`_phong_small`), then at full width
+    (:func:`_phong_main`) -> the three kernels' phong entries."""
+    _phong_small(dev)
+    return _phong_main(dev, build)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -1532,6 +1841,7 @@ def main() -> int:
     run(phase_round1_small, dev)
     round1 = run(phase_round1_main, dev, step["two_kernel_ms"], build)
     run(phase_phong, dev)
+    phong = run(phase_phong_kernels, dev, build)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -1542,13 +1852,16 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "march_fwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_fwd.cu",
-         "replaces": f"{pallas}:1128", **fwd, **ladder["march_fwd"]},
+         "replaces": f"{pallas}:1128", **fwd, **ladder["march_fwd"],
+         "phong": phong["march_fwd"]},
         {"name": "march_bwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_bwd.cu",
-         "replaces": f"{pallas}:1435", **step["march_bwd"]},
+         "replaces": f"{pallas}:1435", **step["march_bwd"],
+         "phong": phong["march_bwd"]},
         {"name": "l2_step", "route": "cuda",
          "source": "volrt_torch/csrc/l2_step.cu",
-         "replaces": f"{pallas}:2397", **step["l2_step"]},
+         "replaces": f"{pallas}:2397", **step["l2_step"],
+         "phong": phong["l2_step"]},
         {"name": "march_tri", "route": "cuda",
          "source": "volrt_torch/csrc/march_ladder.cu",
          "replaces": "volrt/renderers/pallas/trilinear.py:56",

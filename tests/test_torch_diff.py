@@ -278,7 +278,8 @@ def test_grad_wrappers_on_cpu_take_plain_path_and_check_inputs():
 
 def test_unported_arguments_raise():
     """(f) What the differentiable path has not ported yet says so; what it
-    has ported since (phong in the oracle, the round-1 routes) runs."""
+    has ported since (phong in the oracle and in the v3 kernels, the
+    round-1 routes) runs."""
     _, (scene, view, target) = _pair(dims=(8, 8))
     o = torch.zeros((1, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -294,6 +295,17 @@ def test_unported_arguments_raise():
                               light_pos=view.light_pos)
     assert one.shape == (1, 4) and torch.isfinite(one).all()
     for kw in (dict(esl=True), dict(phong=True), dict(fast=True)):
+        if kw.get("phong"):
+            # Phong is a mode of the v3 kernels: each route runs it.
+            img = tdiff_v3.render_image_v3(scene, view, light_kd=0.6, **kw)
+            torch.testing.assert_close(img.detach(), lit.detach(),
+                                       atol=ATOL_IMG, rtol=0)
+            loss, g = tdiff_v3.l2_loss_grads_v3_onepass(scene, view, target,
+                                                        **kw)
+            assert torch.isfinite(loss) and torch.isfinite(g["density"]).all()
+            assert torch.isfinite(tfused.l2_loss_fused(scene, view, target,
+                                                       **kw))
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdiff_v3.render_image_v3(scene, view, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -182,7 +182,8 @@ def test_train_step_and_losses(problem):
 
 
 def test_fit_refuses_what_is_not_ported(problem):
-    """(f) Arguments of ``volrt``'s fit that wait for a later port."""
+    """(f) Arguments of ``volrt``'s fit that wait for a later port; phong
+    with ``fused=True`` runs since the kernels have it."""
     scene = trender.scene_from_arrays(*_init(problem, "both"), STEP,
                                       device=CPU)
     pair = [(problem["tview"], torch.from_numpy(problem["target"]))]
@@ -190,6 +191,11 @@ def test_fit_refuses_what_is_not_ported(problem):
                dict(grad_chunks=4), dict(esl=True),
                dict(checkpoint_path="state.npz"),
                dict(shading="phong", fused=True)):
+        if kw.get("shading") == "phong":
+            # Ported since: the one-launch step's phong mode.
+            _, losses = tfit_mod.fit(scene, pair, steps=1, **kw)
+            assert len(losses) == 1 and np.isfinite(losses[0])
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfit_mod.fit(scene, pair, steps=1, **kw)
     with pytest.raises(ValueError):

@@ -88,6 +88,11 @@ def test_phong_gates_and_guards():
     torch.testing.assert_close(off, plain, atol=0, rtol=0)
     for rung in (2, 3, 4, 5):
         rc = trc.replace(interpolation="nearest") if rung == 2 else trc
+        if rung == 5:
+            # Rung 5's kernel has phong; rungs 2-4 refuse it.
+            img, _ = get_renderer(rung).render_float(rc)
+            assert torch.isfinite(img).all() and img[..., 3].max() > 0.5
+            continue
         with pytest.raises(NotImplementedError, match="phong"):
             get_renderer(rung).render_float(rc)
     with pytest.raises(ValueError, match="shading"):
@@ -102,6 +107,12 @@ def test_phong_gates_and_guards():
     with pytest.raises(ValueError, match="light_pos"):
         trender.render_diff(scene, pt, pt, phong=True)
     for blocked in (None, False, True):
+        if blocked is None:
+            # The v3 kernels' phong mode.
+            img = tfused.render_image_fused(scene, view, phong=True,
+                                            blocked=blocked)
+            assert torch.isfinite(img).all() and img.requires_grad
+            continue
         with pytest.raises(NotImplementedError):
             tfused.render_image_fused(scene, view, phong=True,
                                       blocked=blocked)
@@ -199,9 +210,10 @@ def test_fit_phong_lowers_the_loss():
                 gt_scene.tf_base.detach().numpy(), STEP, device=CPU),
             view, light_kd=0.6, phong=True) - target) ** 2).item()
     assert losses[0] == pytest.approx(first, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit_mod.fit(scene, [(view, target)], steps=1, shading="phong",
-                     fused=True)
+    # With fused=True the one-launch step's phong mode trains.
+    _, fused = tfit_mod.fit(scene, [(view, target)], steps=1,
+                            shading="phong", fused=True)
+    assert len(fused) == 1 and np.isfinite(fused[0])
 
 
 @pytest.mark.parametrize("rung", [0, 1])
@@ -233,6 +245,7 @@ def test_cli_fit_phong(capsys):
     losses = [float(ln.split("loss")[1]) for ln in lines]
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert losses[1] < losses[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["fit", "--shading", "phong", "--fused", "--synthetic", "8",
-                  "-s", "16", "16", "--steps", "1", "--device", CPU])
+    # --fused trains through the one-launch step's phong mode.
+    assert cli.main(["fit", "--shading", "phong", "--fused", "--synthetic",
+                     "8", "-s", "16", "16", "--steps", "1", "--device",
+                     CPU]) == 0

@@ -169,8 +169,12 @@ def test_renderer_ladder_and_unported_modes():
     with pytest.raises(ValueError):
         get_renderer(6)
     _, trc = _rcs((0.0, 0.0, 0.0), 0.6, 0.95, view=8)
-    with pytest.raises(NotImplementedError):
-        fwd_v3.render_float(trc.replace(shading="phong"))
+    # Phong is a mode of rung 5's kernel: it shades the colour only.
+    lit = fwd_v3.render_float(trc.replace(shading="phong"))[0]
+    plain = fwd_v3.render_float(trc)[0]
+    assert torch.isfinite(lit).all() and lit[..., 3].max() > 0.5
+    torch.testing.assert_close(lit[..., 3], plain[..., 3], atol=0, rtol=0)
+    assert (lit[..., :3] - plain[..., :3]).abs().max() > 1e-3
     with pytest.raises(NotImplementedError):
         fwd_v3.render_float(trc, fast=True)
     # ESL marches every sample: the image does not change.

@@ -59,10 +59,13 @@ def time_cuda(fn, iters: int) -> list[float]:
 def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
                    iters: int = 100,
                    device: torch.device | str | None = None,
-                   renderer: int = 5) -> dict:
+                   renderer: int = 5, shading: str | None = None) -> dict:
     """Time one forward render on the card, of rung 5 or, with
     ``renderer``, of another rung of the ladder on the same pose (rung 2 in
-    nearest mode, the others trilinear).
+    nearest mode, the others trilinear). ``shading`` is ``None``
+    (unshaded, the default), ``"diffuse"`` or ``"phong"`` (BASELINE config
+    4's shading, rung 5 only: rungs 2-4 refuse it), with ``light_kd`` 0.6
+    when shaded, as ``volrt``'s ``bench_fwd_step`` sets it.
 
     Times the rung's ``render_float`` whole (ray setup, the volume's
     conversion to what the kernel reads, and the march) with CUDA events,
@@ -77,8 +80,12 @@ def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("bench_fwd_step times a CUDA device")
+    if shading not in (None, "diffuse", "phong"):
+        raise ValueError(f"unknown shading: {shading!r}")
     rc = bench_pose(volume_size, viewport, device,
                     "nearest" if renderer == 2 else "trilinear")
+    if shading:
+        rc = rc.replace(light_kd=0.6, shading=shading)
     render_float = get_renderer(renderer).render_float
     times = time_cuda(lambda: render_float(rc), iters)
     ms = float(np.median(times))

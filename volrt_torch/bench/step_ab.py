@@ -21,6 +21,12 @@ imports ``volrt_torch`` from that root, builds its kernels and times, at
   the trainer's default threshold); ``march_fwd``; the one-launch step
   (``l2_loss_grads_v3_onepass``) and the two-kernel step (autograd through
   ``render_image_v3``), each timed as ``bench_diff_step`` times them;
+- on scene ``a`` with the diffuse tap (kd 0.6): ``l2_step`` and
+  ``march_bwd`` in their three ``need_*`` variants, ERT off and at 0.95;
+- on scene ``a`` in phong mode (kd 0.6), where the root has it:
+  ``march_fwd``, ``march_bwd`` and ``l2_step`` (whole), the one-launch
+  and the two-kernel step, and rung 5's phong frame
+  (``bench_fwd_step(shading="phong")``);
 - the round-1 routes beside them: ``diff_blocked_fwd`` and
   ``diff_blocked_bwd`` (whole, ``need_dtf=False``, ``need_dvol=False``) on
   both scenes, and the ``render_image_fused(blocked=True)`` step on scene
@@ -29,8 +35,8 @@ imports ``volrt_torch`` from that root, builds its kernels and times, at
   synthetic volume (scene ``crop``, ``chip_smoke.py`` phase 13's).
 
 ``--forwards-only`` times the forward kernels alone: the ladder, rung
-5's frame, ``march_fwd`` and ``diff_blocked_fwd`` on scene ``a``, and
-``diff_tri_fwd`` on the crop. Kernels are timed with their
+5's frame, ``march_fwd`` (and in phong mode, with rung 5's phong frame)
+and ``diff_blocked_fwd`` on scene ``a``, and ``diff_tri_fwd`` on the crop. Kernels are timed with their
 wrapper and the gradients' zero-fill, median of 20 calls after a warm-up
 (``harness.time_cuda``); the round-1 backwards take the round-1
 forward's image and the cotangent of a mean square against a zero
@@ -48,13 +54,15 @@ the second root's median over its runs to the first root's), then one of
 the variants that :data:`VARIANT_ROWS` names, the forwards' and the
 replays': registers, spills, loop instructions a sample by class, whether
 the SASS is the first root's, the SM clock, and for the forwards the
-issue-slot yardstick (:func:`issue_ms`) beside the time. Needs a CUDA
-card; the roots' order is the caller's.
+issue-slot yardstick (:func:`issue_ms`) beside the time. A time that a
+root has no mode for (phong in a tree from before it) reads "-". Needs a
+CUDA card; the roots' order is the caller's.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -93,20 +101,24 @@ OPCODE_CLASSES = {
                "WARPSYNC"),
 }
 _CLASS_OF = {op: c for c, ops in OPCODE_CLASSES.items() for op in ops}
-# A template argument in a mangled name, and what the report calls it.
-_TEMPLATE_ARGS = {"h": "u8", "f": "f32", "Lb0E": "0", "Lb1E": "1"}
+# A template argument in a mangled name: a voxel type, a bool, or the
+# kernels' shading mode (march_common.cuh:Shade, by its value: 0 none, 1
+# the diffuse tap, 2 phong, so that the two modes that were a bool keep
+# their names), and what the report calls it.
+_TEMPLATE_ARG = r"[hf]|Lb[01]E|L(?:N5volrt5ShadeE|S\d*_)[0-2]E"
+_TEMPLATE_ARGS = {"h": "u8", "f": "f32"}
 
 
 def variant_name(mangled: str) -> str | None:
     """``march_ladder_kernel<u8,0,0,1>`` for a mangled kernel name of
-    :data:`KERNELS` (template arguments in order: voxel type, then the
-    bools), None for any other function."""
+    :data:`KERNELS` (template arguments in order: voxel type or shading
+    mode, then the bools), None for any other function."""
     for kernel in KERNELS:
-        m = re.search(kernel + r"(?:I((?:[hf]|Lb[01]E)*)E)?", mangled)
+        m = re.search(kernel + f"(?:I((?:{_TEMPLATE_ARG})*)E)?", mangled)
         if m:
-            args = re.findall(r"[hf]|Lb[01]E", m.group(1) or "")
-            return (kernel + (f"<{','.join(_TEMPLATE_ARGS[a] for a in args)}>"
-                              if args else ""))
+            args = re.findall(_TEMPLATE_ARG, m.group(1) or "")
+            names = [_TEMPLATE_ARGS.get(a) or a[-2] for a in args]
+            return kernel + (f"<{','.join(names)}>" if names else "")
     return None
 
 
@@ -289,6 +301,9 @@ def _ladder_times(dev, med) -> tuple[dict, int]:
         for rung in (5, 4, 3, 2):
             t[f"frame rung {rung}"] = bench_fwd_step(
                 256, 1024, iters=100, device=dev, renderer=rung)["ms"]
+        if "shading" in inspect.signature(bench_fwd_step).parameters:
+            t["frame rung 5 phong"] = bench_fwd_step(
+                256, 1024, iters=100, device=dev, shading="phong")["ms"]
         look = make_raycaster(bench_pose(256, 1024, dev).volume,
                               Camera(dims=(1024, 1024)).view(dev),
                               interpolation="trilinear").replace(esl=False)
@@ -349,6 +364,9 @@ def child(root: str, sass_file: str | None = None,
     assert os.path.dirname(volrt_torch.__file__).startswith(
         os.path.abspath(root)), volrt_torch.__file__
     dev = torch.device("cuda", 0)
+    # Phong is a mode of the v3 kernels from this tree's PR on; an older
+    # root has no phong times.
+    has_phong = "phong" in inspect.signature(march_fwd).parameters
     _build.load()
     lib = _build.library_path()
     sass = cuobjdump_sass(str(lib))
@@ -397,6 +415,35 @@ def child(root: str, sass_file: str | None = None,
             out = march_fwd(*args, **kw)
             g = out * args[7][6]
             t["march_fwd"] = med(lambda: march_fwd(*args, **kw))
+            if name == "a" and has_phong:
+                p_args, p_kw = fwd_v3.ray_args(
+                    view, scene.density, scene.premult_tf(), scene.ray_step,
+                    2.0, 0.6, loss_scale=2.0 / (1024 * 1024 * 4), phong=True)
+                p_out = march_fwd(*p_args, **p_kw)
+                p_g = p_out * p_args[7][6]
+                t["march_fwd phong"] = med(lambda: march_fwd(*p_args, **p_kw))
+                if not forwards_only:
+                    t["l2_step phong"] = med(
+                        lambda: l2_step(*p_args, tgt, **p_kw))
+                    t["march_bwd phong"] = med(
+                        lambda: march_bwd(*p_args, p_out, p_g, **p_kw))
+            if name == "a" and not forwards_only:
+                # The diffuse tap's step kernels, in every need_* variant,
+                # ERT off and at 0.95.
+                for thr in (2.0, 0.95):
+                    d_args, d_kw = fwd_v3.ray_args(
+                        view, scene.density, scene.premult_tf(),
+                        scene.ray_step, thr, 0.6,
+                        loss_scale=2.0 / (1024 * 1024 * 4))
+                    d_out = march_fwd(*d_args, **d_kw)
+                    d_g = d_out * d_args[7][6]
+                    ert = " ERT 0.95" if thr < 1 else ""
+                    for label, need in NEEDS:
+                        t["l2_step diffuse" + ert + label] = med(
+                            lambda: l2_step(*d_args, tgt, **need, **d_kw))
+                        t["march_bwd diffuse" + ert + label] = med(
+                            lambda: march_bwd(*d_args, d_out, d_g, **need,
+                                              **d_kw))
             for label, need in () if forwards_only else NEEDS:
                 t["l2_step" + label] = med(
                     lambda: l2_step(*args, tgt, **need, **kw))
@@ -429,6 +476,17 @@ def child(root: str, sass_file: str | None = None,
         if name == "a":
             t["step round-1 blocked=True"] = round1_step(scene, view, target,
                                                          True)
+        if name == "a" and has_phong:
+            phong = dict(ray_threshold=2.0, light_kd=0.6, phong=True)
+            t["step onepass phong"] = med(
+                lambda: diff_v3.l2_loss_grads_v3_onepass(
+                    scene, view, target, **phong)[0])
+
+            def two_kernel_phong():
+                img = diff_v3.render_image_v3(scene, view, **phong)
+                loss = torch.mean((img - target) ** 2)
+                return torch.autograd.grad(loss, params)
+            t["step two-kernel phong"] = med(two_kernel_phong)
 
     # The diff_tri pair where chip_smoke.py runs it: the [96, 96, 128] crop.
     scene, view, target = crop_bench_scene(1024, device=dev)
@@ -474,8 +532,9 @@ class ClockSampler:
                 "busy_samples": len(busy)}
 
 
-# The variants the report's rows run on the benchmark pose (unshaded,
-# ERT off unless named; the backwards whole): (scene, time key, variant, the key in
+# The variants the report's rows run on the benchmark pose (unshaded
+# unless named phong, which has kd 0.6; ERT off unless named; the
+# backwards whole): (scene, time key, variant, the key in
 # the child's ``warp_steps`` of the lattice its warps step on). The
 # forwards' loop holds one sample an iteration, so their loop
 # instructions are a sample's and the issue-slot yardstick reads them;
@@ -489,8 +548,11 @@ VARIANT_ROWS = (
     ("a", "march_fwd", "march_fwd_kernel<0,1>", "a"),
     ("a", "diff_blocked_fwd", "round1_fwd_kernel<1>", "a accumulating"),
     ("crop", "diff_tri_fwd", "round1_fwd_kernel<1>", "crop accumulating"),
+    ("a", "march_fwd phong", "march_fwd_kernel<2,1>", "a"),
     ("a", "march_bwd", "march_bwd_kernel<0,1,1,1>", None),
     ("a", "l2_step", "l2_step_kernel<0,1,1,1>", None),
+    ("a", "march_bwd phong", "march_bwd_kernel<2,1,1,1>", None),
+    ("a", "l2_step phong", "l2_step_kernel<2,1,1,1>", None),
     ("a", "march_bwd ERT 0.95", "march_bwd_kernel<0,0,1,1>", None),
     ("a", "l2_step ERT 0.95", "l2_step_kernel<0,0,1,1>", None),
     ("a", "diff_blocked_bwd", "round1_bwd_kernel<1,1,1>", None),
@@ -564,15 +626,24 @@ def main(argv=None) -> int:
     print(f"| scene | time (ms) | {' | '.join(args.roots)} | "
           f"{second} / {first} |")
     print(f"| --- | --- |{' --- |' * len(args.roots)} --- |")
-    for scene, times in runs[0]["ms"].items():
-        for key in times:
-            row = [r["ms"][scene][key] for r in runs]
+    scenes = {}
+    for run in runs:
+        for scene, times in run["ms"].items():
+            scenes.setdefault(scene, dict.fromkeys(times)).update(
+                dict.fromkeys(times))
+    for scene, keys in scenes.items():
+        for key in keys:
+            row = [r["ms"].get(scene, {}).get(key) for r in runs]
             by = {root: float(np.median([v for v, r in zip(row, args.roots)
-                                         if r == root]))
+                                         if r == root and v is not None]
+                                        or [np.nan]))
                   for root in (first, second) if root is not None}
-            ratio = f"{by[second] / by[first]:.3f}" if second else "-"
+            ratio = (f"{by[second] / by[first]:.3f}"
+                     if second and not np.isnan(by[first] + by[second])
+                     else "-")
             print(f"| {scene} | {key} | "
-                  + " | ".join(f"{v:.4f}" for v in row) + f" | {ratio} |")
+                  + " | ".join("-" if v is None else f"{v:.4f}" for v in row)
+                  + f" | {ratio} |")
     # The rows' variants: build, SASS of the march loop by opcode class,
     # whether the SASS is the first root's, and the issue-slot yardstick
     # beside the time.

@@ -13,7 +13,8 @@ Everything runs on the card unless ``--device cpu`` is given. The flags are
 those of ``volrt``'s (``volrt/cli.py:18-51, 509-550``) that the port
 supports; ``render`` takes renderer 3 with the leading empty-space leap by
 default, as ``volrt``'s does. ``--shading phong`` renders on renderers 0-1
-and trains without ``--fused``. ``fit`` takes ``render``'s arguments, so
+(torch ops) and 5 (the kernel's phong mode), refuses renderers 2-4, and
+trains with or without ``--fused``. ``fit`` takes ``render``'s arguments, so
 it fits a PVM or RAW file (``-f``) or the synthetic volume; its
 ``--checkpoint``, ``--checkpoint-every`` and ``--resume`` reach ``fit()``,
 which refuses them until checkpoints are ported. Still to come:
@@ -53,7 +54,7 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--shading", choices=("diffuse", "phong"),
                    default="diffuse",
                    help="diffuse = reference one-tap shading; phong = "
-                   "gradient Blinn-Phong (renderers 0-1)")
+                   "gradient Blinn-Phong (renderers 0, 1 and 5)")
     p.add_argument("--interpolation", choices=("nearest", "trilinear"),
                    default=None,
                    help="default: nearest for renderers 0-2, trilinear 3-5")

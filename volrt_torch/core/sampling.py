@@ -64,19 +64,34 @@ def sample_trilinear_f(grid: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     ``u*N - 0.5``, voxel centres at integers, both taps clamped to
     ``[0, N-1]``. Weights are full f32 (hardware texture filtering would
     round them to 9 bits)."""
-    d, h, w = grid.shape
-    n = torch.tensor([w, h, d], dtype=torch.float32, device=grid.device)
+    return cell_sample(grid, trilinear_cell(grid.shape, pos)[1])
+
+
+def trilinear_cell(shape: tuple[int, int, int], pos: torch.Tensor) -> tuple:
+    """The trilinear cell of :func:`sample_trilinear_f` at world positions
+    ``pos (..., 3)`` in a grid of ``shape (D, H, W)`` -> ``(t, (i0, i1,
+    frac))``: the voxel coordinates ``t = (pos+1)*0.5*n - 0.5`` ``f32[...,
+    3]``, the two taps' indices ``int64[..., 3]`` (clamped to ``[0,
+    N-1]``) and the second taps' weights ``f32[..., 3]``, all in ``(x, y,
+    z)`` order."""
+    d, h, w = shape
+    n = torch.tensor([w, h, d], dtype=torch.float32, device=pos.device)
     t = (pos + 1.0) * 0.5 * n - 0.5
     i0 = torch.floor(t)
     frac = t - i0
     i0 = i0.to(torch.int64)
-    nmax = torch.tensor([w - 1, h - 1, d - 1], device=grid.device)
+    nmax = torch.tensor([w - 1, h - 1, d - 1], device=pos.device)
     i1 = torch.minimum(torch.clamp(i0 + 1, min=0), nmax)
     i0 = torch.minimum(torch.clamp(i0, min=0), nmax)
+    return t, (i0, i1, frac)
 
-    x0, y0, z0 = i0.unbind(-1)
-    x1, y1, z1 = i1.unbind(-1)
-    fx, fy, fz = frac.unbind(-1)
+
+def cell_sample(grid: torch.Tensor, cell: tuple) -> torch.Tensor:
+    """The sample of a grid ``[D, H, W]`` over a cell ``(i0, i1, frac)``
+    (:func:`trilinear_cell`) -> ``f32``: the eight taps converted after the
+    fetch and lerped along x, then y, then z."""
+    _, h, w = grid.shape
+    (x0, y0, z0), (x1, y1, z1), (fx, fy, fz) = (c.unbind(-1) for c in cell)
     flat = grid.reshape(-1)
 
     def tap(z, y, x):
@@ -91,23 +106,16 @@ def sample_trilinear_f(grid: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return _lerp(c0, c1, fz)
 
 
-def trilinear_taps(shape: tuple[int, int, int], pos: torch.Tensor
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The eight taps of :func:`sample_trilinear_f` at ``pos (..., 3)`` in
-    a grid of ``shape (D, H, W)``: flat voxel indices ``int64[..., 8]`` and
-    their weights ``f32[..., 8]``. The sample is ``sum(grid.flatten()[idx]
-    * w)``, so a cotangent ``ds`` of the sample scatters as ``ds * w`` to
-    ``idx``: what the backward march does. Taps that clamp to one voxel
-    appear twice, each with its own weight."""
-    d, h, w = shape
-    n = torch.tensor([w, h, d], dtype=torch.float32, device=pos.device)
-    t = (pos + 1.0) * 0.5 * n - 0.5
-    i0 = torch.floor(t)
-    frac = t - i0
-    i0 = i0.to(torch.int64)
-    nmax = torch.tensor([w - 1, h - 1, d - 1], device=pos.device)
-    i1 = torch.minimum(torch.clamp(i0 + 1, min=0), nmax)
-    i0 = torch.minimum(torch.clamp(i0, min=0), nmax)
+def cell_taps(shape: tuple[int, int, int], cell: tuple
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The eight taps of a cell ``(i0, i1, frac)`` (:func:`trilinear_cell`)
+    in a grid of ``shape (D, H, W)``: flat voxel indices ``int64[..., 8]``
+    and their weights ``f32[..., 8]``. The cell's sample is
+    ``sum(grid.flatten()[idx] * w)``, so a cotangent ``ds`` of the sample
+    scatters as ``ds * w`` to ``idx``: what the backward march does. Taps
+    that clamp to one voxel appear twice, each with its own weight."""
+    _, h, w = shape
+    i0, i1, frac = cell
     x, y, z = (torch.stack(a, -1) for a in zip(i0.unbind(-1), i1.unbind(-1)))
     fx, fy, fz = (torch.stack((1 - f, f), -1) for f in frac.unbind(-1))
     # Tap order: z major, then y, then x, each (low, high).
@@ -116,6 +124,40 @@ def trilinear_taps(shape: tuple[int, int, int], pos: torch.Tensor
     wgt = (fz[..., :, None, None] * fy[..., None, :, None]
            * fx[..., None, None, :])
     return idx.flatten(-3), wgt.flatten(-3)
+
+
+def trilinear_taps(shape: tuple[int, int, int], pos: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The eight taps of :func:`sample_trilinear_f` at ``pos (..., 3)`` in
+    a grid of ``shape (D, H, W)`` (:func:`cell_taps` of its cell)."""
+    return cell_taps(shape, trilinear_cell(shape, pos)[1])
+
+
+def gradient_cells(shape: tuple[int, int, int], pos: torch.Tensor) -> list:
+    """The six cells of the v3 kernels' central-difference gradient at
+    ``pos (N, 3)`` (``volrt/renderers/pallas/diff_v3.py:1226-1262``), in
+    the order x + 1, x - 1, y + 1, y - 1, z + 1, z - 1: each takes the
+    sample's voxel coordinate on one axis, clipped to ``[0, N-1]``,
+    shifted by one voxel and clipped again, and keeps the sample's own
+    clamp-addressed cell on the other two. The gradient's components are
+    the differences of the pairs' samples, with no division by 2."""
+    d, h, w = shape
+    t, (i0, i1, frac) = trilinear_cell(shape, pos)
+    top = torch.tensor([w - 1, h - 1, d - 1], dtype=torch.float32,
+                       device=pos.device)
+    tc = torch.minimum(t.clamp(min=0.0), top)
+    cells = []
+    for axis in range(3):
+        for by in (1.0, -1.0):
+            u = torch.minimum((tc[:, axis] + by).clamp(min=0.0), top[axis])
+            j0 = torch.floor(u)
+            f = u - j0
+            j0 = j0.to(torch.int64)
+            j1 = torch.minimum(j0 + 1, top[axis].to(torch.int64))
+            lo, hi, fr = i0.clone(), i1.clone(), frac.clone()
+            lo[:, axis], hi[:, axis], fr[:, axis] = j0, j1, f
+            cells.append((lo, hi, fr))
+    return cells
 
 
 def tf_lookup_bucket(transfer_fn: torch.Tensor,

@@ -2,11 +2,12 @@
 // one thread per ray marches forward to its colour, forms its own
 // cotangent of the mean-square loss, and replays the march backward.
 //
-// Replaces volrt/renderers/pallas/diff_v3.py:_fused_kernel in its unshaded
-// and diffuse modes over an f32 volume (phong and ESL are not ported yet).
+// Replaces volrt/renderers/pallas/diff_v3.py:_fused_kernel in its unshaded,
+// diffuse and phong modes over an f32 volume (ESL is not ported yet).
 // The TPU kernel keeps each tile's sample values in VMEM scratch between
 // its forward and backward passes, to spare their round trip through HBM;
-// here nothing per sample is kept at all: the ray marches twice
+// here nothing per sample is kept at all, phong's gradient channels
+// neither: the ray marches twice
 // (march_common.cuh: march_forward, then march_replay, the device
 // function march_bwd.cu launches on its own), and only the image leaves
 // the kernel, from which the caller takes the loss.
@@ -22,7 +23,10 @@
 // (PERF.md, section 6). Against the two-launch route it saves the image's
 // trip through device memory, the separate cotangent kernels and one
 // launch, which is little: the one launch is kept because it is the step
-// the trainer takes, not because it is much faster.
+// the trainer takes, not because it is much faster. In phong mode it is
+// slower than the two launches (19.6 against 18.1 ms a step at 1024^2): its
+// forward march runs at the replay's occupancy, one block an SM at some 158
+// registers, where march_fwd runs it at 64 (PERF.md section 6).
 
 #include "march_common.cuh"
 
@@ -30,7 +34,7 @@ namespace {
 
 using namespace volrt;
 
-template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
     MarchArgs a, const float* tgt, float* out, GradArgs gr) {
   __shared__ float4 lut[LUT_ROWS];
@@ -51,7 +55,7 @@ __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
     if (live) {
       ray = load_ray(a, r);
       li = load_light(a);
-      march_forward<SHADE, NO_ERT>(a, lut, ray, li, acc);
+      march_forward<S, NO_ERT>(a, lut, ray, li, acc);
     }
     reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
     if (live && (NEED_DTF || NEED_DVOL)) {
@@ -70,7 +74,7 @@ __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
   }
   if (NEED_DTF || NEED_DVOL) {
     // The whole warp, lanes with no ray to replay too (march_replay).
-    march_replay<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>(
+    march_replay<S, NO_ERT, NEED_DTF, NEED_DVOL>(
         a, lut, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G,
         live);
   }
@@ -80,23 +84,31 @@ __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
   }
 }
 
-template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 void launch(const MarchArgs& a, const float* tgt, float* out,
             const GradArgs& gr, cudaStream_t stream) {
-  l2_step_kernel<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>
+  l2_step_kernel<S, NO_ERT, NEED_DTF, NEED_DVOL>
       <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, tgt, out, gr);
 }
 
-template <bool SHADE, bool NO_ERT>
+template <Shade S, bool NO_ERT>
 void launch_need(const MarchArgs& a, const float* tgt, float* out,
                  const GradArgs& gr, bool dtf, bool dvol, cudaStream_t s) {
   if (dtf) {
-    dvol ? launch<SHADE, NO_ERT, true, true>(a, tgt, out, gr, s)
-         : launch<SHADE, NO_ERT, true, false>(a, tgt, out, gr, s);
+    dvol ? launch<S, NO_ERT, true, true>(a, tgt, out, gr, s)
+         : launch<S, NO_ERT, true, false>(a, tgt, out, gr, s);
   } else {
-    dvol ? launch<SHADE, NO_ERT, false, true>(a, tgt, out, gr, s)
-         : launch<SHADE, NO_ERT, false, false>(a, tgt, out, gr, s);
+    dvol ? launch<S, NO_ERT, false, true>(a, tgt, out, gr, s)
+         : launch<S, NO_ERT, false, false>(a, tgt, out, gr, s);
   }
+}
+
+template <Shade S>
+void launch_mode(const MarchArgs& a, const float* tgt, float* out,
+                 const GradArgs& gr, bool no_ert, bool dtf, bool dvol,
+                 cudaStream_t s) {
+  no_ert ? launch_need<S, true>(a, tgt, out, gr, dtf, dvol, s)
+         : launch_need<S, false>(a, tgt, out, gr, dtf, dvol, s);
 }
 
 }  // namespace
@@ -118,12 +130,12 @@ extern "C" int volrt_l2_step(
   float* dst = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dtf = need_dtf != 0, dvol = need_dvol != 0;
-  if (shade) {
-    no_ert ? launch_need<true, true>(a, ct, dst, gr, dtf, dvol, s)
-           : launch_need<true, false>(a, ct, dst, gr, dtf, dvol, s);
+  if (shade == 2) {
+    launch_mode<Shade::kPhong>(a, ct, dst, gr, no_ert, dtf, dvol, s);
+  } else if (shade) {
+    launch_mode<Shade::kDiffuse>(a, ct, dst, gr, no_ert, dtf, dvol, s);
   } else {
-    no_ert ? launch_need<false, true>(a, ct, dst, gr, dtf, dvol, s)
-           : launch_need<false, false>(a, ct, dst, gr, dtf, dvol, s);
+    launch_mode<Shade::kNone>(a, ct, dst, gr, no_ert, dtf, dvol, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

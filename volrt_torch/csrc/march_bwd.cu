@@ -1,8 +1,8 @@
 // Backward march of the rung-5 render on Hopper: one thread per ray.
 //
-// Replaces volrt/renderers/pallas/diff_v3.py:_bwd_kernel in its unshaded
-// and diffuse modes over an f32 volume (the phong chain, the slab mode's
-// acc0 cotangent, ESL and saved samples are not ported yet). The TPU kernel
+// Replaces volrt/renderers/pallas/diff_v3.py:_bwd_kernel in its unshaded,
+// diffuse and phong modes over an f32 volume (the slab mode's acc0
+// cotangent, ESL and saved samples are not ported yet). The TPU kernel
 // batches a band group's cotangent chain, scatters dTF and dVol with
 // one-hot matrix products into a VMEM accumulator and flushes that to HBM
 // in planned flush passes; here each ray replays its own march
@@ -27,6 +27,14 @@
 // the forward is replayed, not stored. What is left on the benchmark pose
 // is the replay's gather, about as long as the forward march, and the
 // scatter's shuffles (PERF.md, section 6).
+//
+// In phong mode the replay takes the forward's shading again, with its six
+// gradient taps, and runs the phong chain (march_common.cuh:phong_chain);
+// a gated sample then scatters into seven cells, its own and the
+// gradient's six, each grouped across the warp by a key of its own. That
+// variant holds some 155 registers, so one 256-thread block fills an SM
+// (8 warps against 32 unshaded) and the scatter's latency shows: 14 ms
+// against 3.7 unshaded at 1024^2 (PERF.md section 6).
 
 #include "march_common.cuh"
 
@@ -34,7 +42,7 @@ namespace {
 
 using namespace volrt;
 
-template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) march_bwd_kernel(
     MarchArgs a, const float* out, const float* g, GradArgs gr) {
   __shared__ float4 lut[LUT_ROWS];
@@ -49,7 +57,7 @@ __global__ void __launch_bounds__(TILE * TILE) march_bwd_kernel(
   float G = 0.f;
   const bool live = start_replay(a, out, g, ray_index(a), ray, li, g4, G);
   // The whole warp, lanes with no ray to replay too (march_replay).
-  march_replay<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>(
+  march_replay<S, NO_ERT, NEED_DTF, NEED_DVOL>(
       a, lut, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G, live);
   if (NEED_DTF) {
     __syncthreads();
@@ -57,22 +65,30 @@ __global__ void __launch_bounds__(TILE * TILE) march_bwd_kernel(
   }
 }
 
-template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 void launch(const MarchArgs& a, const float* out, const float* g,
             const GradArgs& gr, cudaStream_t stream) {
-  march_bwd_kernel<SHADE, NO_ERT, NEED_DTF, NEED_DVOL>
+  march_bwd_kernel<S, NO_ERT, NEED_DTF, NEED_DVOL>
       <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out, g, gr);
 }
 
-template <bool SHADE, bool NO_ERT>
+template <Shade S, bool NO_ERT>
 void launch_need(const MarchArgs& a, const float* out, const float* g,
                  const GradArgs& gr, bool dtf, bool dvol, cudaStream_t s) {
   if (dtf) {
-    dvol ? launch<SHADE, NO_ERT, true, true>(a, out, g, gr, s)
-         : launch<SHADE, NO_ERT, true, false>(a, out, g, gr, s);
+    dvol ? launch<S, NO_ERT, true, true>(a, out, g, gr, s)
+         : launch<S, NO_ERT, true, false>(a, out, g, gr, s);
   } else if (dvol) {
-    launch<SHADE, NO_ERT, false, true>(a, out, g, gr, s);
+    launch<S, NO_ERT, false, true>(a, out, g, gr, s);
   }
+}
+
+template <Shade S>
+void launch_mode(const MarchArgs& a, const float* out, const float* g,
+                 const GradArgs& gr, bool no_ert, bool dtf, bool dvol,
+                 cudaStream_t s) {
+  no_ert ? launch_need<S, true>(a, out, g, gr, dtf, dvol, s)
+         : launch_need<S, false>(a, out, g, gr, dtf, dvol, s);
 }
 
 }  // namespace
@@ -94,12 +110,12 @@ extern "C" int volrt_march_bwd(
   const float* cg = static_cast<const float*>(g);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dtf = need_dtf != 0, dvol = need_dvol != 0;
-  if (shade) {
-    no_ert ? launch_need<true, true>(a, co, cg, gr, dtf, dvol, s)
-           : launch_need<true, false>(a, co, cg, gr, dtf, dvol, s);
+  if (shade == 2) {
+    launch_mode<Shade::kPhong>(a, co, cg, gr, no_ert, dtf, dvol, s);
+  } else if (shade) {
+    launch_mode<Shade::kDiffuse>(a, co, cg, gr, no_ert, dtf, dvol, s);
   } else {
-    no_ert ? launch_need<false, true>(a, co, cg, gr, dtf, dvol, s)
-           : launch_need<false, false>(a, co, cg, gr, dtf, dvol, s);
+    launch_mode<Shade::kNone>(a, co, cg, gr, no_ert, dtf, dvol, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

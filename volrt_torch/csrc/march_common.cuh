@@ -2,8 +2,9 @@
 // march_bwd.cu, l2_step.cu, march_ladder.cu, march_round1.cu), and the
 // loops and the backward's replay built on it: ray loading, the trilinear
 // cell and its clamp-addressed taps, nearest mode's voxel, the TF lerp from
-// padded rows, the one-tap diffuse, the composite with its ERT latch, and
-// the warp-level scatter of the analytic backward.
+// padded rows, the one-tap diffuse, gradient Blinn-Phong and its backward
+// chain, the composite with its ERT latch, and the warp-level scatter of
+// the analytic backward.
 //
 // One copy, so that the backward's replay takes exactly the forward's
 // samples, opens the shade gate on the same samples and crosses the ERT
@@ -54,10 +55,28 @@ constexpr int TILE = 16;
 constexpr float SHADE_ALPHA_GATE = 0.05f;
 constexpr float SHADE_KD_GATE = 0.01f;
 constexpr float SHADE_LIGHT_OFFSET = 0.01f;
+// Gradient Blinn-Phong's ambient and specular weights; its exponent, 16,
+// is four squarings (volrt_torch/constants.py).
+constexpr float PHONG_KA = 0.3f;
+constexpr float PHONG_KS = 0.2f;
+
+// How a sample is shaded: not at all, by the reference's one-tap diffuse,
+// or by gradient Blinn-Phong over central-difference normals (v3's phong,
+// volrt/renderers/pallas/diff_v3.py:1219-1262, 1349-1380). Each mode is an
+// instantiation of its own, so that one mode's code never enters another's.
+enum class Shade { kNone, kDiffuse, kPhong };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// 1 / sqrt(x) in two rounded operations, as the plain versions take it
+// (torch.sqrt, then reciprocal), on the CPU and on the card alike.
+// rsqrtf is not correctly rounded, and __frsqrt_rn rounds once: either
+// would part from the plain version's bits.
+__device__ __forceinline__ float rsqrt_rn(float x) {
+  return __fdiv_rn(1.f, __fsqrt_rn(x));
+}
 
 struct MarchArgs {
   const float* o;       // [N, 3] ray origins
@@ -89,6 +108,11 @@ struct Light {
   float thr, kd, lx, ly, lz;
 };
 
+// Phong's view direction, one per ray: V = -d rsqrt(|d|^2 + 1e-20).
+struct Eye {
+  float vx, vy, vz;
+};
+
 __device__ __forceinline__ Ray load_ray(const MarchArgs& a, int r) {
   return Ray{a.o[3 * r], a.o[3 * r + 1], a.o[3 * r + 2],
              a.d[3 * r], a.d[3 * r + 1], a.d[3 * r + 2],
@@ -97,6 +121,18 @@ __device__ __forceinline__ Ray load_ray(const MarchArgs& a, int r) {
 
 __device__ __forceinline__ Light load_light(const MarchArgs& a) {
   return Light{a.scal[0], a.scal[1], a.scal[2], a.scal[3], a.scal[4]};
+}
+
+// The ray's Eye in phong mode; nothing read in the others.
+template <Shade S>
+__device__ __forceinline__ Eye eye_of(const Ray& r) {
+  if constexpr (S == Shade::kPhong) {
+    const float inv = rsqrt_rn(add(
+        add(add(mul(r.dx, r.dx), mul(r.dy, r.dy)), mul(r.dz, r.dz)), 1e-20f));
+    return Eye{mul(-r.dx, inv), mul(-r.dy, inv), mul(-r.dz, inv)};
+  } else {
+    return Eye{0.f, 0.f, 0.f};
+  }
 }
 
 // Ray index of this thread in raster order, or -1 outside the image.
@@ -169,6 +205,53 @@ __device__ __forceinline__ Cell cell_at(const Grid& g, float px, float py,
   cell_axis(pz, g.hz, g.depth, g.wh, oz, t.sz, t.fz);
   t.base = ox + oy + oz;
   return t;
+}
+
+// One axis of a phong gradient tap: the sample's voxel coordinate t
+// clipped to [0, n - 1], shifted by `by` (+1 or -1) and clipped again, as
+// v3 takes it (diff_v3.py:1226-1262); its first tap's offset, the step to
+// the second and the second's weight. The clipped coordinate needs no
+// clamp on its taps: the second steps 0 only at n - 1, with weight 0.
+__device__ __forceinline__ void shifted_axis(float p, float half_n, int n,
+                                             int stride, float by, int& off,
+                                             int& step, float& f) {
+  const float top = static_cast<float>(n - 1);
+  const float t = sub(mul(add(p, 1.f), half_n), 0.5f);
+  const float u = fminf(fmaxf(add(fminf(fmaxf(t, 0.f), top), by), 0.f), top);
+  const float m = floor_biased(u);
+  f = sub(u, sub(m, FLOOR_BIAS));
+  const int i = floor_int(m);
+  off = i * stride;
+  step = i < n - 1 ? stride : 0;
+}
+
+// The six cells of the central-difference gradient at p, in the order
+// x + 1, x - 1, y + 1, y - 1, z + 1, z - 1: each shifts one axis of the
+// sample's own cell t and keeps the other two, clamp-addressed as t has
+// them.
+__device__ __forceinline__ void gradient_cells(const Grid& g, const Cell& t,
+                                               float px, float py, float pz,
+                                               Cell (&c)[6]) {
+  int o[3], s;
+  float f;
+  cell_axis(px, g.hx, g.w, 1, o[0], s, f);
+  cell_axis(py, g.hy, g.h, g.w, o[1], s, f);
+  cell_axis(pz, g.hz, g.depth, g.wh, o[2], s, f);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float by = k == 0 ? 1.f : -1.f;
+    Cell& cx = c[k];
+    Cell& cy = c[2 + k];
+    Cell& cz = c[4 + k];
+    cx = cy = cz = t;
+    int off;
+    shifted_axis(px, g.hx, g.w, 1, by, off, cx.sx, cx.fx);
+    cx.base = off + o[1] + o[2];
+    shifted_axis(py, g.hy, g.h, g.w, by, off, cy.sy, cy.fy);
+    cy.base = o[0] + off + o[2];
+    shifted_axis(pz, g.hz, g.depth, g.wh, by, off, cz.sz, cz.fz);
+    cz.base = o[0] + o[1] + off;
+  }
 }
 
 // One voxel as f32, a uint8 one widened by I2F, at an unsigned offset
@@ -262,6 +345,21 @@ __device__ __forceinline__ void light_tap(const Light& li, float px, float py,
   qz = add(pz, mul(__fdiv_rn(vz, len), SHADE_LIGHT_OFFSET));
 }
 
+// What phong's backward chain reads of a shaded sample: the terms of the
+// forward, kept rather than computed again (diff_v3.py:1862-1942).
+struct PhongTerms {
+  Cell tap[6];    // the gradient's cells (gradient_cells' order)
+  float g[3];     // the raw gradient: tap[0] - tap[1], tap[2] - tap[3], ...
+  float ginv;     // rsqrt(|g|^2 + 1e-16); the normal is -g ginv
+  float l[3];     // the unit light direction L
+  float h[3];     // L + V, not normalised
+  float hinv;     // rsqrt(|H|^2 + 1e-20)
+  float ndl;      // max(n.L, 0)
+  float ndh;      // max((n.H) hinv, 0)
+  float lit;      // KA + kd ndl
+  float rgb0[3];  // the colour before phong
+};
+
 // One classified (and shaded) sample. The forwards read its colour; the
 // replays read the rest too, and the compiler drops what a caller leaves
 // unread.
@@ -274,7 +372,8 @@ struct Sample {
                  // padded rows j + 1 and j + 2
   float f;       // the weight of the second row
   float c[4];    // premultiplied RGBA, shaded
-  bool gate;     // the diffuse tap fired
+  bool gate;     // the shade gate opened (alpha and kd above their gates)
+  PhongTerms ph; // phong's terms, valid where gate
 };
 
 // The lerped TF at q.s: q.tc, q.j, q.f and the colour q.c.
@@ -291,17 +390,72 @@ __device__ __forceinline__ void tf_rgba(const float4* lut, Sample& q) {
   q.c[3] = add(mul(lo.w, g), mul(hi.w, q.f));
 }
 
+// max(x, 0) as x > 0 ? x : 0, whose strict test is the backward's mask
+// (diff_v3.py:1931-1932).
+__device__ __forceinline__ float positive(float x) { return x > 0.f ? x : 0.f; }
+
+// Gradient Blinn-Phong on the gated sample q at p, a density in [0, 1]
+// (diff_v3.py:1219-1262, 1349-1380), every product and sum rounded on its
+// own, in the plain version's order:
+//   g = (S(x + 1) - S(x - 1), ...) over gradient_cells' taps, no /2,
+//   n = -g ginv, L = (light - p) linv, H = L + V,
+//   rgb = rgb (KA + kd max(n.L, 0)) + KS max((n.H) hinv, 0)^16 alpha.
+// Alpha is left as it is, so the composite and the ERT latch see the
+// unshaded path's opacities.
+template <typename V>
+__device__ __forceinline__ void shade_phong(const Grid& g, const V* vol,
+                                            const Light& li, const Eye& e,
+                                            float px, float py, float pz,
+                                            Sample& q) {
+  PhongTerms& f = q.ph;
+  gradient_cells(g, q.t, px, py, pz, f.tap);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    f.g[a] = sub(trilinear(vol, f.tap[2 * a]), trilinear(vol, f.tap[2 * a + 1]));
+  }
+  f.ginv = rsqrt_rn(add(add(add(mul(f.g[0], f.g[0]), mul(f.g[1], f.g[1])),
+                            mul(f.g[2], f.g[2])), 1e-16f));
+  const float n[3] = {mul(-f.g[0], f.ginv), mul(-f.g[1], f.ginv),
+                      mul(-f.g[2], f.ginv)};
+  const float lv[3] = {sub(li.lx, px), sub(li.ly, py), sub(li.lz, pz)};
+  const float linv = rsqrt_rn(add(
+      add(add(mul(lv[0], lv[0]), mul(lv[1], lv[1])), mul(lv[2], lv[2])),
+      1e-20f));
+  const float ev[3] = {e.vx, e.vy, e.vz};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    f.l[a] = mul(lv[a], linv);
+    f.h[a] = add(f.l[a], ev[a]);
+  }
+  f.hinv = rsqrt_rn(add(add(add(mul(f.h[0], f.h[0]), mul(f.h[1], f.h[1])),
+                            mul(f.h[2], f.h[2])), 1e-20f));
+  f.ndl = positive(add(add(mul(n[0], f.l[0]), mul(n[1], f.l[1])),
+                       mul(n[2], f.l[2])));
+  f.ndh = positive(mul(add(add(mul(n[0], f.h[0]), mul(n[1], f.h[1])),
+                           mul(n[2], f.h[2])), f.hinv));
+  const float s2 = mul(f.ndh, f.ndh), s4 = mul(s2, s2), s8 = mul(s4, s4);
+  const float spec = mul(mul(PHONG_KS, mul(s8, s8)), q.c[3]);
+  f.lit = add(PHONG_KA, mul(li.kd, f.ndl));
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    f.rgb0[ch] = q.c[ch];
+    q.c[ch] = add(mul(q.c[ch], f.lit), spec);
+  }
+}
+
 // The sample at (px, py, pz) -> q, its premultiplied, shaded RGBA in q.c.
 // Trilinear mode lerps the taps of its cell, takes the density in U's
 // units and lerps the TF; nearest mode (raw values only) reads one voxel
 // and the TF bucket int(v) / 2 with no lerp, and scales the shade delta by
-// 1/255.
-template <typename V, Units U, bool NEAREST, bool SHADE>
+// 1/255. Phong (a density, trilinear) reads the ray's Eye `e`.
+template <typename V, Units U, bool NEAREST, Shade S>
 __device__ __forceinline__ void classify(const Grid& g, const V* vol,
                                          const float4* lut, const Light& li,
                                          float px, float py, float pz,
-                                         Sample& q) {
+                                         Sample& q, const Eye& e = Eye{}) {
   static_assert(!NEAREST || U == Units::kRaw, "nearest mode reads raw values");
+  static_assert(S != Shade::kPhong || (!NEAREST && U == Units::kDensity),
+                "phong shades a trilinear density");
   if (NEAREST) {
     q.s = nearest_voxel(vol, g, px, py, pz);
     // int(s) / 2 on raw s >= 0: the floor halved.
@@ -318,7 +472,14 @@ __device__ __forceinline__ void classify(const Grid& g, const V* vol,
     tf_rgba(lut, q);
   }
   q.gate = false;
-  if (SHADE && q.c[3] > SHADE_ALPHA_GATE && li.kd > SHADE_KD_GATE) {
+  if constexpr (S == Shade::kPhong) {
+    if (q.c[3] > SHADE_ALPHA_GATE && li.kd > SHADE_KD_GATE) {
+      q.gate = true;
+      shade_phong(g, vol, li, e, px, py, pz, q);
+    }
+  }
+  if (S == Shade::kDiffuse && q.c[3] > SHADE_ALPHA_GATE &&
+      li.kd > SHADE_KD_GATE) {
     q.gate = true;
     float qx, qy, qz, delta;
     light_tap(li, px, py, pz, qx, qy, qz);
@@ -336,26 +497,26 @@ __device__ __forceinline__ void classify(const Grid& g, const V* vol,
 }
 
 // The classified sample of a density ray at ray parameter k.
-template <bool SHADE>
+template <Shade S>
 __device__ __forceinline__ void sample_at(const MarchArgs& a, const Grid& g,
                                           const float4* lut, const Ray& ray,
-                                          const Light& li, float k,
-                                          Sample& q) {
-  classify<float, Units::kDensity, false, SHADE>(
+                                          const Light& li, const Eye& e,
+                                          float k, Sample& q) {
+  classify<float, Units::kDensity, false, S>(
       g, a.vol, lut, li, add(ray.ox, mul(ray.dx, k)),
-      add(ray.oy, mul(ray.dy, k)), add(ray.oz, mul(ray.dz, k)), q);
+      add(ray.oy, mul(ray.dy, k)), add(ray.oz, mul(ray.dz, k)), q, e);
 }
 
 // Sample i of the ray on the lattice k0 + i*step, i counted in f32 (exact
 // below 2^24, where max_steps lies): false once the ray has left the cube.
-template <bool SHADE>
+template <Shade S>
 __device__ __forceinline__ bool take_sample(const MarchArgs& a, const Grid& g,
                                             const float4* lut, const Ray& ray,
-                                            const Light& li, float i,
-                                            Sample& q) {
+                                            const Light& li, const Eye& e,
+                                            float i, Sample& q) {
   const float k = add(ray.ks, mul(i, a.step));
   if (!(k <= ray.ke)) return false;
-  sample_at<SHADE>(a, g, lut, ray, li, k, q);
+  sample_at<S>(a, g, lut, ray, li, e, k, q);
   return true;
 }
 
@@ -369,17 +530,18 @@ __device__ __forceinline__ void composite(float acc[4], const float c[4]) {
 // The forward march of one live ray on the lattice k0 + i*step: acc must
 // come in as zeros. One sample an iteration, so that the loop's SASS counts
 // a sample.
-template <bool SHADE, bool NO_ERT>
+template <Shade S, bool NO_ERT>
 __device__ __forceinline__ void march_forward(const MarchArgs& a,
                                               const float4* lut,
                                               const Ray& ray, const Light& li,
                                               float acc[4]) {
   const Grid g = make_grid(a);
+  const Eye e = eye_of<S>(ray);
   const float n = static_cast<float>(a.max_steps);
   Sample q;
 #pragma unroll 1
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
-    if (!take_sample<SHADE>(a, g, lut, ray, li, i, q)) break;
+    if (!take_sample<S>(a, g, lut, ray, li, e, i, q)) break;
     composite(acc, q.c);
     if (!NO_ERT && acc[3] > li.thr) break;
   }
@@ -407,10 +569,9 @@ __device__ __forceinline__ void march_accumulating(const MarchArgs& a,
     // One sample an iteration, so that the loop's SASS counts a sample.
 #pragma unroll 1
     for (int i = 0; i < a.max_steps; ++i) {
-      classify<V, U, NEAREST, SHADE>(g, vol, lut, li,
-                                     add(ray.ox, mul(ray.dx, k)),
-                                     add(ray.oy, mul(ray.dy, k)),
-                                     add(ray.oz, mul(ray.dz, k)), q);
+      classify<V, U, NEAREST, SHADE ? Shade::kDiffuse : Shade::kNone>(
+          g, vol, lut, li, add(ray.ox, mul(ray.dx, k)),
+          add(ray.oy, mul(ray.dy, k)), add(ray.oz, mul(ray.dz, k)), q);
       composite(acc, q.c);
       k = add(k, a.step);
       if ((!NO_ERT && acc[3] > li.thr) || !(k <= ray.ke)) break;
@@ -578,6 +739,42 @@ struct Chain {
   float P = 0.f;      // prefix of contrib
 };
 
+// Phong's backward on one gated sample (diff_v3.py:1918-1942): dc comes in
+// as the cotangent of the shaded colour and leaves as that of the TF's
+// colour (the rgb scaled by lit, alpha also feeding the specular term);
+// dg receives the raw gradient's cotangent. With drgb = dc.r + dc.g + dc.b:
+//   dlit = rgb0 . dc.rgb,  dndl = kd dlit,
+//   dndh = KS 16 ndh^15 alpha drgb,  dc.a += KS ndh^16 drgb,
+//   dn = [n.L > 0] dndl L + [(n.H) hinv > 0] dndh hinv H,
+//   dg = -ginv dn + ginv^3 (dn . g) g   (n = -g ginv).
+// The masks are strict, as the reference's are: where the density is
+// flat, g = 0 and n = 0, no cotangent flows through the normal.
+__device__ __forceinline__ void phong_chain(const PhongTerms& f,
+                                            const Light& li, float alpha,
+                                            float dc[4], float dg[3]) {
+  const float drgb = dc[0] + dc[1] + dc[2];
+  const float dlit =
+      f.rgb0[0] * dc[0] + f.rgb0[1] * dc[1] + f.rgb0[2] * dc[2];
+  const float s2 = f.ndh * f.ndh, s4 = s2 * s2, s8 = s4 * s4;
+  const float dndl = f.ndl > 0.f ? li.kd * dlit : 0.f;
+  // dndh hinv: (n.H) hinv's cotangent carried to n.H.
+  const float dnh = f.ndh > 0.f ? PHONG_KS * 16.f * (s8 * s4 * s2 * f.ndh) *
+                                      alpha * drgb * f.hinv
+                                : 0.f;
+  dc[3] += PHONG_KS * (s8 * s8) * drgb;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) dc[ch] *= f.lit;
+  float dn[3], dng = 0.f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    dn[a] = dndl * f.l[a] + dnh * f.h[a];
+    dng += dn[a] * f.g[a];
+  }
+  const float g3 = f.ginv * f.ginv * f.ginv;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) dg[a] = -f.ginv * dn[a] + g3 * dng * f.g[a];
+}
+
 // One replayed sample q: its cotangent, its adds to dTF and dVol, and the
 // chain's step. g4 is the ray's cotangent, G its product with the forward's
 // colour; wdtf is the warp's [TF_SIZE][4] copy of the block's dTF. IN_RANGE
@@ -585,9 +782,12 @@ struct Chain {
 // (0, 1), as the v3 reference's flag does; without it the slope is
 // (tf[hi] - tf[lo]) * TF_SIZE of the clamped rows (padded rows j + 2 and
 // j + 1), zero only where they coincide, as the round-1 reference takes
-// it. The whole warp calls this (the scatter above), and a lane that is
-// not `live` adds nothing.
-template <bool SHADE, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE>
+// it. In phong mode dTF and the slope take the cotangent of the TF's
+// colour (phong_chain), and dVol also gets +-dg at the gradient's six
+// cells, each a scatter of its own: seven cells, 56 voxels a sample. The
+// whole warp calls this (the scatter above), and a lane that is not
+// `live` adds nothing.
+template <Shade S, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE>
 __device__ __forceinline__ void replay_sample(const float4* lut,
                                               float (*wdtf)[4], float* d_vol,
                                               const Light& li,
@@ -604,6 +804,13 @@ __device__ __forceinline__ void replay_sample(const float4* lut,
   const float t8 = denom > 1e-6f ? __fdiv_rn(s_next, fmaxf(denom, 1e-6f)) : 0.f;
   float dc[4] = {mul(g4[0], T), mul(g4[1], T), mul(g4[2], T),
                  sub(mul(g4[3], T), t8)};
+  // Phong's code is compiled into its own mode only (if constexpr): the
+  // other modes' instantiations do not carry it.
+  float dg[3];
+  if constexpr (S == Shade::kPhong) {
+    dg[0] = dg[1] = dg[2] = 0.f;
+    if (live && q.gate) phong_chain(q.ph, li, q.c[3], dc, dg);
+  }
 
   if (NEED_DTF) scatter_tf_warp(wdtf, q, dc, live);
   if (NEED_DVOL) {
@@ -618,15 +825,22 @@ __device__ __forceinline__ void replay_sample(const float4* lut,
 #pragma unroll
       for (int c = 0; c < 4; ++c) ds += slope[c] * TF_SIZE * dc[c];
     }
-    if (SHADE && live && q.gate) {
+    if (S == Shade::kDiffuse && live && q.gate) {
       // diffuse = kd * (s2 - s): rgb cotangents flow -kd into this
       // sample's density and +kd into the light tap's. Nothing flows
       // through the gate or the light direction.
       ds2 = li.kd * (dc[0] + dc[1] + dc[2]);
       ds -= ds2;
     }
-    if (SHADE) scatter_taps_warp(d_vol, q.t2, ds2, ds2 != 0.f);
+    if (S == Shade::kDiffuse) scatter_taps_warp(d_vol, q.t2, ds2, ds2 != 0.f);
     scatter_taps_warp(d_vol, q.t, ds, ds != 0.f);
+    if constexpr (S == Shade::kPhong) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const float v = k & 1 ? -dg[k / 2] : dg[k / 2];
+        scatter_taps_warp(d_vol, q.ph.tap[k], v, live && q.gate && v != 0.f);
+      }
+    }
   }
 
   ch.acc_a = add(ch.acc_a, mul(q.c[3], T));
@@ -661,7 +875,7 @@ __device__ __forceinline__ bool start_replay(const MarchArgs& a,
 // of the warp calls it, those with no ray to replay too (`live` false): the
 // lanes stay in one loop until the warp's last ray has ended, each adding
 // only while its own ray is live.
-template <bool SHADE, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const float4* lut,
                                              float (*wdtf)[4], float* d_vol,
@@ -669,14 +883,15 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const float g4[4], float G,
                                              bool live) {
   const Grid g = make_grid(a);
+  const Eye e = eye_of<S>(ray);
   const float n = static_cast<float>(a.max_steps);
   Sample q{};
   Chain ch;
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
-    if (live) live = take_sample<SHADE>(a, g, lut, ray, li, i, q);
+    if (live) live = take_sample<S>(a, g, lut, ray, li, e, i, q);
     if (!__any_sync(FULL_WARP, live)) break;
-    replay_sample<SHADE, NEED_DTF, NEED_DVOL, true>(lut, wdtf, d_vol, li, g4,
-                                                    G, q, ch, live);
+    replay_sample<S, NEED_DTF, NEED_DVOL, true>(lut, wdtf, d_vol, li, g4, G,
+                                                q, ch, live);
     if (!NO_ERT && ch.acc_a > li.thr) live = false;
   }
 }
@@ -699,9 +914,9 @@ __device__ __forceinline__ void march_replay_round1(
   float k = ray.ks;
   for (int i = 0; i < a.max_steps; ++i) {
     if (!__any_sync(FULL_WARP, live)) break;
-    if (live) sample_at<false>(a, g, lut, ray, li, k, q);
-    replay_sample<false, NEED_DTF, NEED_DVOL, false>(lut, wdtf, d_vol, li,
-                                                     g4, G, q, ch, live);
+    if (live) sample_at<Shade::kNone>(a, g, lut, ray, li, Eye{}, k, q);
+    replay_sample<Shade::kNone, NEED_DTF, NEED_DVOL, false>(
+        lut, wdtf, d_vol, li, g4, G, q, ch, live);
     k = add(k, a.step);
     if (live && ((!NO_ERT && ch.acc_a > li.thr) || !(k <= ray.ke))) {
       live = false;

@@ -1,7 +1,7 @@
 // Forward march of the rung-5 render on Hopper: one thread per ray.
 //
-// Replaces volrt/renderers/pallas/diff_v3.py:_fwd_kernel in its unshaded
-// and diffuse modes over an f32 volume (phong, slab mode, saved samples,
+// Replaces volrt/renderers/pallas/diff_v3.py:_fwd_kernel in its unshaded,
+// diffuse and phong modes over an f32 volume (slab mode, saved samples,
 // ESL and bf16 storage are not ported yet). The TPU kernel gathers with
 // one-hot matrix products over planned window bricks because Mosaic has no
 // per-lane gather; here every ray loads its own eight taps, so none of the
@@ -31,6 +31,14 @@
 // It is the plain torch version's math (volrt_torch/renderers/
 // cuda/march.py:march_fwd_plain), op for op, every multiply and add rounded
 // on its own, so the two differ only through the light tap's square root.
+//
+// Phong (march_common.cuh:shade_phong) adds to each gated sample six
+// trilinear samples, the central-difference gradient's taps, and some 280
+// rounded operations; at 1024^2 on the benchmark pose, where 41 % of the
+// samples open the gate, it takes 3.8 ms against 1.37 unshaded, at 64
+// registers (PERF.md section 6). Its normalisations take 1 / sqrt(x) in two
+// rounded operations (rsqrt_rn), as the plain version does on either
+// device, so its images too equal the plain version's to the bit.
 
 #include "march_common.cuh"
 
@@ -38,7 +46,7 @@ namespace {
 
 using namespace volrt;
 
-template <bool SHADE, bool NO_ERT>
+template <Shade S, bool NO_ERT>
 __global__ void __launch_bounds__(TILE * TILE) march_fwd_kernel(MarchArgs a,
                                                                 float* out) {
   __shared__ float4 lut[LUT_ROWS];
@@ -49,20 +57,26 @@ __global__ void __launch_bounds__(TILE * TILE) march_fwd_kernel(MarchArgs a,
   if (r < 0) return;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (a.alive[r]) {
-    march_forward<SHADE, NO_ERT>(a, lut, load_ray(a, r), load_light(a), acc);
+    march_forward<S, NO_ERT>(a, lut, load_ray(a, r), load_light(a), acc);
   }
   reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-template <bool SHADE, bool NO_ERT>
+template <Shade S, bool NO_ERT>
 void launch(const MarchArgs& a, float* out, cudaStream_t stream) {
-  march_fwd_kernel<SHADE, NO_ERT><<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out);
+  march_fwd_kernel<S, NO_ERT><<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out);
+}
+
+template <Shade S>
+void launch_ert(const MarchArgs& a, float* out, bool no_ert, cudaStream_t s) {
+  no_ert ? launch<S, true>(a, out, s) : launch<S, false>(a, out, s);
 }
 
 }  // namespace
 
 // Launches the march on `stream` and returns cudaGetLastError() as an int.
-// Shapes, types and contiguity are checked by the Python wrapper.
+// `shade` is 0 (none), 1 (the diffuse tap) or 2 (phong). Shapes, types and
+// contiguity are checked by the Python wrapper.
 extern "C" int volrt_march_fwd(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
@@ -72,10 +86,12 @@ extern "C" int volrt_march_fwd(
                                       tf, scal, n, width, step, max_steps);
   float* dst = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (shade) {
-    no_ert ? launch<true, true>(a, dst, s) : launch<true, false>(a, dst, s);
+  if (shade == 2) {
+    launch_ert<Shade::kPhong>(a, dst, no_ert, s);
+  } else if (shade) {
+    launch_ert<Shade::kDiffuse>(a, dst, no_ert, s);
   } else {
-    no_ert ? launch<false, true>(a, dst, s) : launch<false, false>(a, dst, s);
+    launch_ert<Shade::kNone>(a, dst, no_ert, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

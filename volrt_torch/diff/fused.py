@@ -40,13 +40,14 @@ def render_image_fused(scene: DiffScene, view: View,
                        need_density_grad: bool = True) -> torch.Tensor:
     """Differentiable render -> ``f32[H, W, 4]`` through the march kernels.
 
-    ``blocked=None``: the v3 kernels, with the diffuse tap when ``shaded``.
+    ``blocked=None``: the v3 kernels, with the diffuse tap when ``shaded``
+    and gradient Blinn-Phong when ``phong``.
     ``blocked=False``: the ``diff_tri`` pair, which refuses a volume wider
     than 128 voxels with ``ValueError`` as the reference does.
     ``blocked=True``: the ``diff_blocked`` pair, any size. The round-1
-    pairs are unshaded and have no ESL: ``shaded``, ``phong`` and ``esl``
-    raise ``NotImplementedError`` there. ``fast`` (everywhere) and, on the
-    v3 route, ``esl`` and ``phong`` raise as in
+    pairs are unshaded and have no ESL, in ``volrt`` too: ``shaded``,
+    ``phong`` and ``esl`` raise ``NotImplementedError`` there. ``fast``
+    (everywhere) and, on the v3 route, ``esl`` raise as in
     :func:`diff_v3.render_image_v3`.
 
     ``need_tf_grad=False`` / ``need_density_grad=False`` render with that
@@ -57,10 +58,10 @@ def render_image_fused(scene: DiffScene, view: View,
     base = scene.tf_base if need_tf_grad else scene.tf_base.detach()
     premult = tf_mod.premultiply(base)
     if blocked is None:
-        diff_v3.check_modes(fast, esl, phong)
+        diff_v3.check_modes(fast, esl)
         return diff_v3.render_view_v3(
             density, premult, scene.ray_step, view, ray_threshold,
-            light_kd if shaded else 0.0, shaded)[0]
+            light_kd, shaded, phong)[0]
     if shaded or phong:
         raise NotImplementedError(
             "shading requires the v3 path (blocked=None): the round-1 "
@@ -69,7 +70,7 @@ def render_image_fused(scene: DiffScene, view: View,
         raise NotImplementedError(
             "esl=True requires the v3 path (blocked=None): the round-1 "
             "kernels have no ESL")
-    diff_v3.check_modes(fast, False, False)
+    diff_v3.check_modes(fast, False)
     w = scene.density.shape[2]
     if w > X_LANES and not blocked:
         raise ValueError(

@@ -1,7 +1,8 @@
 """The march kernels' wrappers and their plain torch versions.
 
 Hand-written CUDA kernels, one thread per ray. Three replace kernels of
-``volrt/renderers/pallas/diff_v3.py`` (unshaded and diffuse modes, f32):
+``volrt/renderers/pallas/diff_v3.py`` (unshaded, diffuse and phong modes,
+f32):
 
 - :func:`march_fwd` (``csrc/march_fwd.cu``): ``_fwd_kernel``, the forward
   march;
@@ -32,7 +33,10 @@ torch march built from ``core/sampling`` and ``renderers/common``, which is
 also what the kernel is held to on the card. The plain backward repeats
 the analytic backward step by step with ``index_add_``; it does not use
 autograd, so that autograd through ``diff/render.py`` stays an independent
-check of both.
+check of both. Phong is v3's (:func:`phong_v3`: the gradient's taps one
+clipped voxel to either side), not rungs 0-1's (``renderers/common.py``:
+the world point moved by 2/n, normalised by a division), so that kernel
+and plain version take the same operations.
 
 Gradients are summed with atomics on the card, in an order that changes
 from run to run, so two runs agree to rounding, not to the bit. Images do
@@ -47,6 +51,9 @@ import torch
 
 from volrt_torch import _build
 from volrt_torch.constants import (
+    PHONG_KA,
+    PHONG_KS,
+    PHONG_SHININESS,
     SHADE_ALPHA_GATE,
     SHADE_KD_GATE,
     SHADE_LIGHT_OFFSET,
@@ -97,10 +104,15 @@ def max_steps(ray_step: float) -> int:
 
 
 def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           volume_dtype: torch.dtype = torch.float32, **images) -> None:
+           volume_dtype: torch.dtype = torch.float32, shade: bool = False,
+           phong: bool = False, **images) -> None:
     """Refuse what the kernels do not take. ``density`` is the volume, of
-    ``volume_dtype``. ``images`` are further ``f32[N, 4]`` tensors in
-    raster order (an image, a cotangent, a target), by name."""
+    ``volume_dtype``. ``shade`` and ``phong`` are the shading modes asked
+    for, of which a kernel takes one at most. ``images`` are further
+    ``f32[N, 4]`` tensors in raster order (an image, a cotangent, a
+    target), by name."""
+    if shade and phong:
+        raise ValueError("phong composes with no diffuse tap (shade)")
     n = o.shape[0] if o.dim() == 2 else -1
     want = {
         "o": (o, torch.float32, (n, 3)),
@@ -141,6 +153,12 @@ def _ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal) -> tuple:
             premult_tf.data_ptr(), scal.data_ptr())
 
 
+def _shade_mode(shade: bool, phong: bool) -> int:
+    """The kernels' ``shade`` argument: 0 none, 1 the diffuse tap, 2 phong
+    (``csrc/march_common.cuh:Shade``)."""
+    return 2 if phong else int(shade)
+
+
 def _launch(name: str, argtypes: list, device: torch.device, *args) -> None:
     """Call the library's ``name`` on ``device``'s current stream and raise
     if the launch was refused."""
@@ -154,8 +172,8 @@ def _launch(name: str, argtypes: list, device: torch.device, *args) -> None:
 
 
 def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
-              ray_step: float, shade: bool, no_ert: bool,
-              width: int) -> torch.Tensor:
+              ray_step: float, shade: bool, no_ert: bool, width: int,
+              phong: bool = False) -> torch.Tensor:
     """March N rays through ``density`` and composite them -> ``f32[N, 4]``.
 
     Args:
@@ -172,15 +190,19 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
         unused slot (the JAX kernel's ``scal`` row).
       shade: apply the one-tap diffuse.
       no_ert: the threshold is >= 1 and can never be crossed.
+      phong: apply gradient Blinn-Phong (:func:`phong_v3`) with the light
+        of ``scal``; not with ``shade``.
 
     CPU tensors take :func:`march_fwd_plain`. CUDA tensors launch the
     kernel, building it at first use, and raise if it cannot launch.
     """
-    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width)
+    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
+           shade=shade, phong=phong)
     if o.device.type == "cpu":
         return march_fwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal,
-            ray_step=ray_step, shade=shade, no_ert=no_ert, width=width)
+            ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
+            phong=phong)
     n = o.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     if n == 0:
@@ -188,7 +210,7 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
     _launch("volrt_march_fwd", _FWD_ARGTYPES, o.device,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             out.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            int(shade), int(no_ert))
+            _shade_mode(shade, phong), int(no_ert))
     march_fwd.launches += 1
     return out
 
@@ -198,12 +220,14 @@ march_fwd.launches = 0
 
 def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
                     ray_step: float, shade: bool, no_ert: bool,
-                    width: int) -> torch.Tensor:
+                    width: int, phong: bool = False) -> torch.Tensor:
     """The plain torch version of :func:`march_fwd`, same arguments.
 
     All rays of a chunk step in lockstep for ``max_steps(ray_step)`` steps,
     with masks in place of the kernel's per-ray ``break``. ``width`` only
-    shapes the kernel's blocks and is unused here.
+    shapes the kernel's blocks and is unused here. Differentiable with
+    respect to ``density`` and ``premult_tf`` (the tests hold the plain
+    backward to its autograd).
     """
     del width
     out = torch.empty((o.shape[0], 4), dtype=torch.float32, device=o.device)
@@ -213,6 +237,7 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
     for lo in range(0, o.shape[0], PLAIN_CHUNK):
         sl = slice(lo, lo + PLAIN_CHUNK)
         oc, dc, kc, kf = o[sl], d[sl], k0[sl], kfar[sl]
+        eye = eye_dir(dc) if phong else None
         live = alive[sl].clone()
         acc = torch.zeros((oc.shape[0], 4), dtype=torch.float32,
                           device=o.device)
@@ -223,11 +248,116 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
             color = classify_and_shade(
                 density, premult_tf, pt,
                 light_pos=light_pos if shade else None, light_kd=kd)
+            if phong:
+                color = phong_v3(density, color, pt, eye, light_pos, kd)[0]
             acc = torch.where(active[:, None], composite(acc, color), acc)
             if not no_ert:
                 live &= ~(active & (acc[:, 3] > thr))
         out[sl] = acc
     return out
+
+
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(x)`` in two rounded operations, on the CPU and the card
+    alike, as ``csrc/march_common.cuh:rsqrt_rn`` takes it (``torch.rsqrt``
+    on the card is not correctly rounded)."""
+    return torch.sqrt(x).reciprocal()
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a . b`` over the last axis of ``(N, 3)`` tensors, summed left to
+    right as the kernels sum it."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def _positive(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0)`` whose gradient, under autograd, passes only where
+    ``x > 0``: the strict masks of the analytic chain."""
+    return torch.where(x > 0.0, x, 0.0)
+
+
+def eye_dir(d: torch.Tensor) -> torch.Tensor:
+    """Phong's view direction of rays ``d (N, 3)``:
+    ``V = -d rsqrt(|d|^2 + 1e-20)``."""
+    return -d * _rsqrt(_dot(d, d) + 1e-20)[:, None]
+
+
+def phong_v3(density: torch.Tensor, color: torch.Tensor, pt: torch.Tensor,
+             eye: torch.Tensor, light_pos: torch.Tensor, kd: torch.Tensor
+             ) -> tuple[torch.Tensor, dict]:
+    """Gradient Blinn-Phong on the premultiplied ``color (N, 4)`` of the
+    density samples at ``pt (N, 3)``, as ``volrt``'s v3 kernels shade
+    (``volrt/renderers/pallas/diff_v3.py:1219-1262, 1349-1380``) and
+    ``csrc/march_common.cuh:shade_phong`` does, op for op
+    -> ``(shaded colour, terms of the backward chain)``::
+
+        g   = (S(x+1) - S(x-1), S(y+1) - S(y-1), S(z+1) - S(z-1))
+        n   = -g rsqrt(|g|^2 + 1e-16),  L = (light - p) rsqrt(|.|^2 + 1e-20)
+        H   = L + V (``eye``),  hinv = rsqrt(|H|^2 + 1e-20)
+        rgb = rgb (KA + kd max(n.L, 0)) + KS max((n.H) hinv, 0)^16 alpha
+
+    where alpha > 0.05 and kd > 0.01; elsewhere, and in alpha, the colour
+    stays. The taps are :func:`sampling.gradient_cells`'. Differentiable
+    with respect to ``density`` and ``color``."""
+    cells = sampling.gradient_cells(density.shape, pt)
+    s = [sampling.cell_sample(density, c) for c in cells]
+    g = torch.stack([s[0] - s[1], s[2] - s[3], s[4] - s[5]], -1)
+    ginv = _rsqrt(_dot(g, g) + 1e-16)
+    nrm = -g * ginv[:, None]
+    lv = light_pos - pt
+    ldir = lv * _rsqrt(_dot(lv, lv) + 1e-20)[:, None]
+    half = ldir + eye
+    hinv = _rsqrt(_dot(half, half) + 1e-20)
+    ndl = _positive(_dot(nrm, ldir))
+    ndh = _positive(_dot(nrm, half) * hinv)
+    s2 = ndh * ndh
+    s4 = s2 * s2
+    s8 = s4 * s4
+    alpha = color[:, 3]
+    spec = PHONG_KS * (s8 * s8) * alpha
+    lit = PHONG_KA + kd * ndl
+    gate = (alpha > SHADE_ALPHA_GATE) & (kd > SHADE_KD_GATE)
+    rgb = torch.where(gate[:, None],
+                      color[:, :3] * lit[:, None] + spec[:, None],
+                      color[:, :3])
+    terms = dict(cells=cells, g=g, ginv=ginv, l=ldir, h=half, hinv=hinv,
+                 ndl=ndl, ndh=ndh, lit=lit, rgb0=color[:, :3], gate=gate)
+    return torch.cat([rgb, color[:, 3:4]], -1), terms
+
+
+def phong_chain(terms: dict, alpha: torch.Tensor, dcol: torch.Tensor,
+                kd: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The analytic backward of :func:`phong_v3`
+    (``volrt/renderers/pallas/diff_v3.py:1918-1942``, and
+    ``csrc/march_common.cuh:phong_chain``): the cotangent ``dcol (N, 4)``
+    of the shaded colour -> ``(cotangent of the colour before phong, dg
+    (N, 3) of the raw gradient)``. With ``drgb = dc.r + dc.g + dc.b``::
+
+        dlit = rgb0 . dc.rgb,  dndl = kd dlit,
+        dndh = KS 16 ndh^15 alpha drgb,  dc.a += KS ndh^16 drgb,
+        dn = [n.L > 0] dndl L + [(n.H) hinv > 0] dndh hinv H,
+        dg = -ginv dn + ginv^3 (dn . g) g
+
+    on gated samples; elsewhere ``dcol`` passes and ``dg`` is zero. The
+    masks are strict: on a flat density (``g = 0``) no cotangent flows
+    through the normal."""
+    assert PHONG_SHININESS == 16.0
+    ndh, ginv = terms["ndh"], terms["ginv"]
+    drgb = dcol[:, 0] + dcol[:, 1] + dcol[:, 2]
+    dlit = (terms["rgb0"] * dcol[:, :3]).sum(-1)
+    s2 = ndh * ndh
+    s4 = s2 * s2
+    s8 = s4 * s4
+    dndl = torch.where(terms["ndl"] > 0.0, kd * dlit, 0.0)
+    dnh = torch.where(ndh > 0.0, PHONG_KS * 16.0 * (s8 * s4 * s2 * ndh)
+                      * alpha * drgb * terms["hinv"], 0.0)
+    dn = dndl[:, None] * terms["l"] + dnh[:, None] * terms["h"]
+    dng = (dn * terms["g"]).sum(-1)
+    dg = -ginv[:, None] * dn + (ginv * ginv * ginv * dng)[:, None] * terms["g"]
+    new = torch.cat([dcol[:, :3] * terms["lit"][:, None],
+                     (dcol[:, 3] + PHONG_KS * (s8 * s8) * drgb)[:, None]], -1)
+    gate = terms["gate"][:, None]
+    return torch.where(gate, new, dcol), torch.where(gate, dg, 0.0)
 
 
 def march_tri(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
@@ -409,8 +539,8 @@ def march_blocked_plain(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
 
 def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
               ray_step: float, shade: bool, no_ert: bool, width: int,
-              need_dtf: bool = True, need_dvol: bool = True
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              need_dtf: bool = True, need_dvol: bool = True,
+              phong: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward of :func:`march_fwd`
     -> ``(d_density f32[D, H, W], d_premult_tf f32[TF_SIZE, 4])``.
 
@@ -425,12 +555,12 @@ def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
     into with atomics, so two runs on the card differ by rounding.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           out=out, g=g)
+           shade=shade, phong=phong, out=out, g=g)
     if o.device.type == "cpu":
         return march_bwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            need_dtf=need_dtf, need_dvol=need_dvol)
+            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong)
     d_density = torch.zeros_like(density)
     d_tf = torch.zeros_like(premult_tf)
     n = o.shape[0]
@@ -440,7 +570,8 @@ def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             out.data_ptr(), g.data_ptr(), d_density.data_ptr(),
             d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            int(shade), int(no_ert), int(need_dtf), int(need_dvol))
+            _shade_mode(shade, phong), int(no_ert), int(need_dtf),
+            int(need_dvol))
     march_bwd.launches += 1
     return d_density, d_tf
 
@@ -465,7 +596,9 @@ class PlainReplay:
     (``1 - c_i.a <= 1e-6``), as the reference guards it. ``dL/dc_i``
     scatters with ``index_add_`` to the two TF rows of the lerp and,
     through the TF's slope (and the diffuse tap's ``-kd`` / ``+kd``), to
-    the sample's eight voxels (and the light tap's eight). ``in_range``
+    the sample's eight voxels (and the light tap's eight). With ``phong``
+    the cotangent first goes through :func:`phong_chain`, and ``+-dg``
+    scatters to the gradient's six cells. ``in_range``
     drops the slope at the TF's end points and for a density outside
     (0, 1), as the v3 reference's flag does; without it the slope of the
     clamped rows stands, zero only where they coincide, as round 1 takes
@@ -476,10 +609,11 @@ class PlainReplay:
     """
 
     def __init__(self, density, premult_tf, scal, *, shade: bool,
-                 need_dtf: bool, need_dvol: bool, in_range: bool):
+                 need_dtf: bool, need_dvol: bool, in_range: bool,
+                 phong: bool = False):
         self.density, self.premult_tf = density, premult_tf
         self.kd, self.light_pos = scal[1], scal[2:5]
-        self.shade, self.in_range = shade, in_range
+        self.shade, self.in_range, self.phong = shade, in_range, phong
         self.need_dtf, self.need_dvol = need_dtf, need_dvol
         self.d_density = torch.zeros_like(density)
         # Every sample of every ray adds to a few of the LUT's 512 entries:
@@ -493,9 +627,12 @@ class PlainReplay:
                                 torch.zeros_like(premult_tf[:1])]) * TF_SIZE
         self.chan = torch.arange(4, device=density.device)
 
-    def start(self, g: torch.Tensor, out: torch.Tensor) -> None:
-        """Begin a chunk of rays with cotangent ``g`` of the image ``out``."""
+    def start(self, g: torch.Tensor, out: torch.Tensor,
+              d: torch.Tensor | None = None) -> None:
+        """Begin a chunk of rays with cotangent ``g`` of the image ``out``
+        (and, in phong mode, directions ``d``)."""
         self.g = g
+        self.eye = eye_dir(d) if self.phong else None
         self.big_g = (g * out).sum(-1)
         self.acc_a = torch.zeros_like(self.big_g)
         self.prefix = torch.zeros_like(self.big_g)
@@ -510,6 +647,9 @@ class PlainReplay:
         color = classify_and_shade(
             density, premult_tf, pt,
             light_pos=self.light_pos if self.shade else None, light_kd=kd)
+        if self.phong:
+            color, terms = phong_v3(density, color, pt, self.eye,
+                                    self.light_pos, kd)
         m = active.to(torch.float32)
         t_in = (1.0 - self.acc_a) * m
         contrib = (gc * color).sum(-1) * t_in
@@ -520,6 +660,8 @@ class PlainReplay:
                          s_next / denom.clamp(min=1e-6), 0.0) * m
         dcol = gc * t_in[:, None]
         dcol = torch.cat([dcol[:, :3], (dcol[:, 3] - t8)[:, None]], -1)
+        if self.phong:
+            dcol, dg = phong_chain(terms, color[:, 3], dcol, kd)
 
         tc = s * TF_SIZE - 0.5
         i0 = torch.floor(tc)
@@ -554,6 +696,12 @@ class PlainReplay:
             idx, wgt = sampling.trilinear_taps(density.shape, pt)
             flat_dv.index_add_(0, idx.reshape(-1),
                                (wgt * ds[:, None]).reshape(-1))
+            if self.phong:
+                for k, cell in enumerate(terms["cells"]):
+                    idx, wgt = sampling.cell_taps(density.shape, cell)
+                    v = -dg[:, k // 2] if k % 2 else dg[:, k // 2]
+                    flat_dv.index_add_(0, idx.reshape(-1),
+                                       (wgt * v[:, None]).reshape(-1))
 
         self.acc_a = self.acc_a + color[:, 3] * t_in
         return self.acc_a
@@ -566,7 +714,7 @@ class PlainReplay:
 def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
                     *, ray_step: float, shade: bool, no_ert: bool,
                     width: int, need_dtf: bool = True,
-                    need_dvol: bool = True
+                    need_dvol: bool = True, phong: bool = False
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain torch version of :func:`march_bwd`, same arguments.
 
@@ -577,7 +725,7 @@ def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
     del width
     replay = PlainReplay(density, premult_tf, scal, shade=shade,
                          need_dtf=need_dtf, need_dvol=need_dvol,
-                         in_range=True)
+                         in_range=True, phong=phong)
     steps = torch.arange(max_steps(ray_step), dtype=torch.float32,
                          device=o.device) * ray_step
     thr = scal[0]
@@ -585,7 +733,7 @@ def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
         sl = slice(c0, c0 + PLAIN_CHUNK)
         oc, dc, kc, kf = o[sl], d[sl], k0[sl], kfar[sl]
         live = alive[sl].clone()
-        replay.start(g[sl], out[sl])
+        replay.start(g[sl], out[sl], dc)
         for step in steps:
             k = kc + step
             active = live & (k <= kf)
@@ -597,7 +745,8 @@ def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
 
 def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
             ray_step: float, shade: bool, no_ert: bool, width: int,
-            need_dtf: bool = True, need_dvol: bool = True
+            need_dtf: bool = True, need_dvol: bool = True,
+            phong: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole L2 step in one launch
     -> ``(out f32[N, 4], d_density, d_premult_tf)``.
@@ -613,12 +762,13 @@ def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
     CPU tensors take :func:`l2_step_plain`. CUDA tensors launch the
     kernel or raise.
     """
-    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width, tgt=tgt)
+    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
+           shade=shade, phong=phong, tgt=tgt)
     if o.device.type == "cpu":
         return l2_step_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal, tgt,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            need_dtf=need_dtf, need_dvol=need_dvol)
+            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong)
     n = o.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     d_density = torch.zeros_like(density)
@@ -629,7 +779,8 @@ def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             tgt.data_ptr(), out.data_ptr(), d_density.data_ptr(),
             d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            int(shade), int(no_ert), int(need_dtf), int(need_dvol))
+            _shade_mode(shade, phong), int(no_ert), int(need_dtf),
+            int(need_dvol))
     l2_step.launches += 1
     return out, d_density, d_tf
 
@@ -639,11 +790,13 @@ l2_step.launches = 0
 
 def l2_step_plain(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
                   ray_step: float, shade: bool, no_ert: bool, width: int,
-                  need_dtf: bool = True, need_dvol: bool = True
+                  need_dtf: bool = True, need_dvol: bool = True,
+                  phong: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain torch version of :func:`l2_step`, same arguments: the
     plain forward, the cotangent, the plain backward."""
-    kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert, width=width)
+    kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
+              phong=phong)
     out = march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal,
                           **kw)
     g = (out - tgt) * (scal[6] * alive[:, None])
@@ -658,21 +811,21 @@ class MarchFunction(torch.autograd.Function):
     backward (the counterpart of ``render_tiles_v3``'s custom_vjp).
 
     ``MarchFunction.apply(density, premult_tf, o, d, k0, kfar, alive, scal,
-    ray_step, shade, no_ert, width)`` returns the image ``f32[N, 4]``.
+    ray_step, shade, no_ert, width, phong)`` returns the image ``f32[N,
+    4]``.
     Gradients flow to ``density`` and ``premult_tf`` only; a leaf that does
     not require one skips its scatter (``need_dtf`` / ``need_dvol``).
     """
 
     @staticmethod
     def forward(ctx, density, premult_tf, o, d, k0, kfar, alive, scal,
-                ray_step, shade, no_ert, width):
+                ray_step, shade, no_ert, width, phong=False):
+        ctx.kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert,
+                      width=width, phong=phong)
         out = march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal,
-                        ray_step=ray_step, shade=shade, no_ert=no_ert,
-                        width=width)
+                        **ctx.kw)
         ctx.save_for_backward(o, d, k0, kfar, alive, density, premult_tf,
                               scal, out)
-        ctx.kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert,
-                      width=width)
         return out
 
     @staticmethod
@@ -682,4 +835,4 @@ class MarchFunction(torch.autograd.Function):
             *ctx.saved_tensors, g.contiguous(), need_dtf=need_dtf,
             need_dvol=need_dvol, **ctx.kw)
         return (d_density if need_dvol else None,
-                d_tf if need_dtf else None) + (None,) * 10
+                d_tf if need_dtf else None) + (None,) * 11

@@ -20,8 +20,10 @@ from volrt_torch.renderers import fwd_v3
 from volrt_torch.renderers.cuda.march import MarchFunction, l2_step
 
 
-def check_modes(fast: bool, esl: bool, phong: bool) -> None:
-    """Refuse the modes the march kernels do not have yet."""
+def check_modes(fast: bool, esl: bool, shaded: bool = False,
+                phong: bool = False) -> None:
+    """Refuse the modes the march kernels do not have yet, and ``shaded``
+    with ``phong``, which no kernel composes (``diff_v3.py:2608-2609``)."""
     if fast:
         raise NotImplementedError(
             "fast (bf16) storage is not ported yet (ROADMAP.md, queue 2, "
@@ -29,26 +31,29 @@ def check_modes(fast: bool, esl: bool, phong: bool) -> None:
     if esl:
         raise NotImplementedError(
             "esl=True is not ported yet (ROADMAP.md, queue 1: ESL)")
-    if phong:
-        raise NotImplementedError(
-            "phong is not a mode of the march kernels yet (ROADMAP.md, "
-            "queue 1: Shading); diff.render.render_diff_image has it")
+    if shaded and phong:
+        raise ValueError("shaded and phong are mutually exclusive")
 
 
 def render_view_v3(density: torch.Tensor, premult_tf: torch.Tensor,
                    ray_step: float, view: View, ray_threshold: float = 0.95,
-                   light_kd: float = 0.0, shaded: bool = False
-                   ) -> tuple[torch.Tensor, float]:
+                   light_kd: float = 0.0, shaded: bool = False,
+                   phong: bool = False) -> tuple[torch.Tensor, float]:
     """Premult-level render -> ``(f32[H, W, 4], overflow count)``,
     differentiable with respect to ``density`` ``f32[D, H, W]`` and
-    ``premult_tf`` ``f32[TF_SIZE, 4]``. The overflow count is 0: the
-    kernels have no windows (see ``fwd_v3.render_float``)."""
-    args, kw = fwd_v3.ray_args(view, density, premult_tf, ray_step,
-                               ray_threshold, light_kd if shaded else 0.0)
+    ``premult_tf`` ``f32[TF_SIZE, 4]``. ``shaded`` takes the diffuse tap,
+    ``phong`` gradient Blinn-Phong, each with ``light_kd``. The overflow
+    count is 0: the kernels have no windows (see
+    ``fwd_v3.render_float``)."""
+    check_modes(False, False, shaded, phong)
+    args, kw = fwd_v3.ray_args(
+        view, density, premult_tf, ray_step, ray_threshold,
+        light_kd if (shaded or phong) else 0.0, phong=phong)
     o, d, knear, kfar, alive, density, premult_tf, scal = args
     colors = MarchFunction.apply(
         density, premult_tf, o, d, knear, kfar, alive, scal,
-        kw["ray_step"], kw["shade"], kw["no_ert"], kw["width"])
+        kw["ray_step"], kw["shade"], kw["no_ert"], kw["width"],
+        kw.get("phong", False))
     w, h = view.dims
     return colors.reshape(h, w, 4), 0.0
 
@@ -59,9 +64,9 @@ def render_image_v3_with_ovf(scene: DiffScene, view: View,
                              shaded: bool = False, phong: bool = False
                              ) -> tuple[torch.Tensor, float]:
     """As :func:`render_image_v3` but also returns the overflow count."""
-    check_modes(fast, esl, phong)
+    check_modes(fast, esl)
     return render_view_v3(scene.density, scene.premult_tf(), scene.ray_step,
-                          view, ray_threshold, light_kd, shaded)
+                          view, ray_threshold, light_kd, shaded, phong)
 
 
 def render_image_v3(scene: DiffScene, view: View,
@@ -75,7 +80,11 @@ def render_image_v3(scene: DiffScene, view: View,
     diffuse light tap); gradients flow to ``scene.density`` and, through
     the premultiply, to the un-premultiplied ``scene.tf_base``. A leaf
     with ``requires_grad`` off skips its scatter in the backward kernel.
-    ``fast``, ``esl`` and ``phong`` raise ``NotImplementedError``.
+    ``phong=True`` shades with ``volrt``'s v3 gradient Blinn-Phong, whose
+    normal taps lie one clipped voxel to either side (the oracle's move
+    the world point by 2/n: the two differ at the volume's faces).
+    ``shaded`` with ``phong`` raises ``ValueError``; ``fast`` and ``esl``
+    raise ``NotImplementedError``.
     """
     return render_image_v3_with_ovf(scene, view, ray_threshold, fast, esl,
                                     light_kd, shaded, phong)[0]
@@ -96,17 +105,20 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
     backward run in one launch (:func:`l2_step`); nothing is recorded for
     autograd. ``target`` is ``f32[H, W, 4]`` on the scene's device.
     ``need_dtf=False`` / ``need_dvol=False`` skip that leaf's scatter and
-    return zeros for it. The TF gradient is chained from the premultiplied
-    LUT's to ``tf_base`` here, as ``volrt``'s does it in XLA.
+    return zeros for it. ``shaded`` takes the diffuse tap, ``phong``
+    gradient Blinn-Phong (not both), each with ``light_kd``. The TF
+    gradient is chained from the premultiplied LUT's to ``tf_base`` here,
+    as ``volrt``'s does it in XLA.
     """
-    check_modes(fast, esl, phong)
+    check_modes(fast, esl, shaded, phong)
     w, h = view.dims
     scale = 2.0 / (float(h) * float(w) * 4.0)
     with torch.no_grad():
         base = scene.tf_base
         args, kw = fwd_v3.ray_args(
             view, scene.density, tf_mod.premultiply(base), scene.ray_step,
-            ray_threshold, light_kd if shaded else 0.0, loss_scale=scale)
+            ray_threshold, light_kd if (shaded or phong) else 0.0,
+            loss_scale=scale, phong=phong)
         tgt = target.to(torch.float32).reshape(-1, 4).contiguous()
         out, d_density, d_premult = l2_step(
             *args, tgt, need_dtf=need_dtf, need_dvol=need_dvol, **kw)

@@ -2,9 +2,11 @@
 ``volrt/renderers/pallas/fwd_v3.py:32-74``.
 
 Trilinear sampling, the linearly interpolated TF, premultiplied
-front-to-back compositing with ERT, unshaded or with the reference's
-one-tap diffuse (reference: GPURenderer4.cu:41-87). Ray setup is torch
-ops; the march is :func:`volrt_torch.renderers.cuda.march.march_fwd`.
+front-to-back compositing with ERT, unshaded, with the reference's one-tap
+diffuse (reference: GPURenderer4.cu:41-87) or with v3's gradient
+Blinn-Phong (``shading="phong"``, BASELINE config 4's shading). Ray setup
+is torch ops; the march is
+:func:`volrt_torch.renderers.cuda.march.march_fwd`.
 """
 from __future__ import annotations
 
@@ -31,25 +33,30 @@ def render_float(rc: Raycaster, fast: bool = False
     ``rc.esl`` marches every sample: the image is the same, since rung 5's
     ESL drops only groups that contribute exactly zero. The skipping itself
     is still to come (ROADMAP.md, queue 1: ESL); the leading leap of rungs
-    0-4 is not this rung's. ``shading="phong"`` and ``fast=True`` (bf16
-    storage) raise ``NotImplementedError``.
+    0-4 is not this rung's. ``rc.shading == "phong"`` shades with gradient
+    Blinn-Phong under ``rc.light_kd``, as ``volrt``'s rung 5 does.
+    ``fast=True`` (bf16 storage) raises ``NotImplementedError``.
     """
     if rc.interpolation != "trilinear":
         raise ValueError("pallas-v3 renders trilinear mode only")
-    check_modes(rc, fast)
+    check_modes(rc, fast, phong=True)
     args, kw = march_args(rc)
     w, h = rc.view.dims
     colors = march_fwd(*args, **kw)
     return colors.reshape(h, w, 4), 0.0
 
 
-def check_modes(rc: Raycaster, fast: bool = False) -> None:
-    """Refuse the modes no kernel of the port has yet (rungs 2-5)."""
-    if rc.shading == "phong":
+def check_modes(rc: Raycaster, fast: bool = False,
+                phong: bool = False) -> None:
+    """Refuse the modes no kernel of the port has (rungs 2-5). Only rung
+    5's kernel has phong (``phong=True``): ``volrt``'s rungs 2-4 render
+    the diffuse tap when asked for it, and the port's refuse instead."""
+    if rc.shading == "phong" and not phong:
         raise NotImplementedError(
-            "phong is not a mode of the march kernels yet (ROADMAP.md, "
-            "queue 1: Shading); rungs 0-1 render it")
-    if rc.shading != "diffuse":
+            "phong is a mode of rung 5's kernel only (rungs 0-1 render it "
+            "as torch ops); rungs 2-4 have none, as in volrt, which falls "
+            "back to the diffuse tap there (ROADMAP.md, queue 1: Shading)")
+    if rc.shading not in ("diffuse", "phong"):
         raise ValueError(f"unknown shading: {rc.shading}")
     if fast:
         raise NotImplementedError(
@@ -61,12 +68,14 @@ def march_args(rc: Raycaster) -> tuple[tuple, dict]:
     with the uint8 volume converted to an f32 density."""
     density = rc.volume.data.to(torch.float32) / 255.0
     return ray_args(rc.view, density, rc.transfer_fn, rc.ray_step,
-                    rc.ray_threshold, rc.light_kd)
+                    rc.ray_threshold, rc.light_kd,
+                    phong=rc.shading == "phong")
 
 
 def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
              ray_step: float, ray_threshold: float, light_kd: float,
-             loss_scale: float = 0.0, esl_start=None) -> tuple[tuple, dict]:
+             loss_scale: float = 0.0, esl_start=None,
+             phong: bool = False) -> tuple[tuple, dict]:
     """``(args, kwargs)`` of the march kernels' wrappers for one view of
     a volume (an f32 ``density`` for rung 5 and the differentiable path)
     under a premultiplied TF; both may require grad.
@@ -77,7 +86,10 @@ def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
     of the raster image already. ``esl_start(o, d, knear, kfar, hit)``, when
     given, returns each ray's start after the leading empty-space leap in
     place of ``knear``. ``loss_scale`` goes to ``scal[6]``, which only the
-    one-launch L2 step reads.
+    one-launch L2 step reads. ``phong=True`` shades with gradient
+    Blinn-Phong in place of the diffuse tap: it adds the ``phong`` keyword
+    of the v3 kernels' wrappers (``march_fwd``, ``march_bwd``,
+    ``l2_step``), which the ladder's do not take.
     """
     dev = density.device
     origins, directions = rays_mod.get_rays(view)
@@ -105,6 +117,8 @@ def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
         # Opacity never exceeds 1, so a threshold >= 1 is never crossed.
         no_ert=ray_threshold >= 1.0,
         width=view.dims[0])
+    if phong:
+        kw.update(shade=False, phong=kw["shade"])
     return args, kw
 
 

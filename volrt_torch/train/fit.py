@@ -116,17 +116,18 @@ def fit(
     The views and targets live on the scene's device. ``fused=True``
     trains through the one-launch L2 step kernel
     (``l2_loss_grads_v3_onepass``), which skips the scatter of a frozen
-    leaf; ``fused=False`` through autograd of the plain torch march
-    (``render_diff_image``). ``shading`` is ``None``, ``"diffuse"`` or
-    ``"phong"`` (gradient Blinn-Phong, through autograd only).
+    leaf, as ``volrt``'s single-chip fused fit does; ``fused=False``
+    through autograd of the plain torch march (``render_diff_image``).
+    ``shading`` is ``None``, ``"diffuse"`` or ``"phong"`` (gradient
+    Blinn-Phong: ``volrt``'s v3 form in the kernel, the oracle's form
+    through autograd).
 
     Not ported yet, each raising ``NotImplementedError`` when given
     another value than its default: ``mesh`` and ``volume_sharded``
     (ROADMAP.md, queue 1: ``dist/``), ``grad_chunks`` (ROADMAP.md, "Do not
     port"), ``esl`` and ``esl_refresh_every`` (queue 1: ESL),
     ``checkpoint_path``, ``checkpoint_every`` and ``resume`` (queue 1:
-    ``train/checkpoint.py``) and ``shading="phong"`` with ``fused=True``
-    (queue 1: Shading, the kernels' phong mode).
+    ``train/checkpoint.py``).
     """
     for name, given, item in (
             ("mesh", mesh is not None, "queue 1: dist/"),
@@ -139,9 +140,7 @@ def fit(
              "queue 1: train/checkpoint.py"),
             ("checkpoint_every", checkpoint_every,
              "queue 1: train/checkpoint.py"),
-            ("resume", resume, "queue 1: train/checkpoint.py"),
-            ('shading="phong", fused=True', shading == "phong" and fused,
-             "queue 1: Shading")):
+            ("resume", resume, "queue 1: train/checkpoint.py")):
         if given:
             raise NotImplementedError(
                 f"fit({name}) is not ported yet (ROADMAP.md, {item})")
@@ -155,7 +154,8 @@ def fit(
         def loss_grads_fn(scene, view, target):
             return l2_loss_grads_v3_onepass(
                 scene, view, target, need_dtf=train_tf,
-                need_dvol=train_density, shaded=shaded, light_kd=light_kd)
+                need_dvol=train_density, shaded=shaded, phong=phong,
+                light_kd=light_kd)
 
     def loss_fn(scene, view, target):
         img = render_diff_image(scene, view, light_kd=kd, shaded=shaded,
