@@ -121,7 +121,30 @@ Phases, each synchronised with the card, none catching its own failure:
     the phong two-kernel step; each kernel alone held against its plain
     version and timed beside its bound (phong's operations counted on the
     samples whose gate opens), its registers and spills. The three
-    kernels' entries of the ``kernels`` line carry these as ``phong``.
+    kernels' entries of the ``kernels`` line carry these as ``phong``;
+16. empty-space leaping. At 32^3 / 64^2, on the synthetic scene (the
+    default pose and phase 9's grid poses) and on a sparse blob, ERT off
+    and at 0.95, in every shade: the ESL mode of ``march_fwd``,
+    ``march_bwd`` and ``l2_step`` against its plain version on the same
+    grid (unshaded images equal to the bit, the other classes as in
+    phases 3, 6 and 15), the blob's ESL image equal to its ESL-off image;
+    the leap kernel's ``k0`` (``renderers/cuda/leap.py:esl_start``)
+    against the plain leap's to the bit, orthographic, perspective and on
+    the grid poses. Then at full width, the launch counters reset before
+    and read after each: rung 5's frame ESL off and on, unshaded and
+    phong (BASELINE config 4's forward), rungs 2-4's frames with the leap
+    and without; the step's grid (``diff_v3.scene_esl``) timed alone; the
+    three kernels in ESL mode, unshaded and phong, timed beside their
+    bound (kept samples at the sample's operations, skipped ones at the
+    test's) and registers, the unshaded ones held against their plain
+    versions; the samples and warp-steps ESL skips; the one-launch and
+    two-kernel steps with ESL; rung 5's ESL image against its ESL-off
+    image (they differ where the grid calls a block empty by its TF
+    buckets though the lerped TF gives its samples opacity); the leap
+    kernel on the CLI's default look and the benchmark pose, equal to the
+    plain leap to the bit, timed, with its loads of the distance grid;
+    the CLI's default frame in wall time. Rows 1-3 of the ``kernels``
+    line gain an ``esl`` entry and the leap kernel a line of its own.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -163,6 +186,7 @@ from volrt_torch.bench.harness import (
 from volrt_torch.bench.step_ab import (
     VARIANT_ROWS, cuobjdump_sass, ptxas_report, sass_counts)
 from volrt_torch.constants import SHADE_ALPHA_GATE
+from volrt_torch.core import esl as esl_mod
 from volrt_torch.core import sampling
 from volrt_torch.core.tf import default_transfer_fn
 from volrt_torch.core.types import Volume, make_raycaster
@@ -172,8 +196,9 @@ from volrt_torch.diff.render import (
     render_diff_image, scene_from_arrays, scene_from_volume)
 from volrt_torch.renderers import (
     batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
+from volrt_torch.renderers.cuda import leap
 from volrt_torch.renderers.cuda.march import (
-    div255_mismatches, l2_step, l2_step_plain, march_blocked,
+    EslSkip, div255_mismatches, l2_step, l2_step_plain, march_blocked,
     march_blocked_plain, march_bwd, march_bwd_plain, march_fwd,
     march_fwd_plain, march_tri, march_tri_plain, max_steps)
 from volrt_torch.renderers.cuda.round1 import (
@@ -253,6 +278,20 @@ ATOL_PHONG_RGB = 1e-5
 FLOPS_PHONG_FWD = 282
 FLOPS_PHONG_BWD = 504
 PHONG_KD = 0.6
+# ESL (phase 16). A skipped sample's f32 operations: the position 6 and
+# the three axes' voxel coordinates 9 (the block test is integer work).
+# A round of the leap kernel that leaps: the position 6, the voxel
+# indices 9, the three faces 12, their minimum and clamp 3, the face's
+# and the ball's whole steps 8, the larger and the two adds 3.
+FLOPS_ESL_SKIP = 15
+FLOPS_LEAP = 41
+# The shades phase 16 holds ESL in: (label, light kd, phong, image
+# tolerance, gradient tolerance), the classes of phases 3, 6 and 15.
+ESL_SHADES = (
+    ("unshaded", 0.0, False, 0.0, RTOL_GRAD),
+    ("diffuse kd 0.6", 0.6, False, ATOL_DIFFUSE, RTOL_GRAD_DIFFUSE),
+    ("phong kd 0.6", 0.6, True, ATOL_PHONG_RGB, RTOL_GRAD_PHONG),
+)
 # The kernel variant that each forward row runs on the benchmark pose
 # (unshaded, ERT off), by the row's name.
 VARIANTS = {name: variant for _, name, variant, _ in VARIANT_ROWS}
@@ -925,7 +964,8 @@ def phase_ladder_small(dev: torch.device) -> None:
             leap = (images[0, True] - images[0, False]).abs().max().item()
             errs = {}
             for (rung, esl), img in images.items():
-                # Rung 5 marches every sample, whatever rc.esl says.
+                # Rung 5 skips samples whose cells lie in empty blocks,
+                # which on this scene leaves its image as it was.
                 base = images[0, esl and interp == "trilinear" and rung != 5]
                 if kd > 0 and rung >= 2:
                     atol = ATOL_DIFFUSE
@@ -1217,11 +1257,11 @@ def phase_ladder_main(dev: torch.device, fwd_frame: dict,
     got, _ = trilinear.render_float(look)
     _sync()
     assert march_tri.launches == 1, "not one march launch per frame"
-    rounds = batched.esl_start_raw.rounds
     t0 = time.perf_counter()
     want = batched.render_float(look)
     _sync()
     rung1_s = time.perf_counter() - t0
+    rounds = batched.esl_start_raw.rounds
     err = (got - want).abs().max().item()
     no_leap = trilinear.render_float(look.replace(esl=False))[0]
     err_esl = (got - no_leap).abs().max().item()
@@ -1229,7 +1269,7 @@ def phase_ladder_main(dev: torch.device, fwd_frame: dict,
           f"max|rung 3 - rung 1| = {err:.3g} (atol {ATOL_DIFFUSE:g}), "
           f"max|leap - no leap| = {err_esl:.3g}, alpha max "
           f"{got[..., 3].max().item():.4f}; rung 1 took {rung1_s:.2f} s; "
-          f"the leap ran {rounds} lockstep rounds")
+          f"its lockstep leap ran {rounds} rounds")
     assert got[..., 3].max().item() > 0.5
     assert err <= ATOL_DIFFUSE
     for label, state in (("with the leap", look),
@@ -1811,6 +1851,476 @@ def phase_phong_kernels(dev: torch.device, build: dict) -> dict:
     return _phong_main(dev, build)
 
 
+def _blob_volume(n: int) -> np.ndarray:
+    """A sparse scene: a cube of 220 in a field of zeros (the blob of
+    ``tests/test_diff_v3.py``'s ESL tests, at ``n``), whose empty blocks
+    hold only 0, so that ESL changes no image."""
+    vol = np.zeros((n, n, n), np.uint8)
+    a, b = 5 * n // 8, 7 * n // 8
+    vol[a:b, a:b, a:b] = 220
+    return vol
+
+
+def _esl_counts(args, kw, esl) -> tuple[int, int, int, int]:
+    """``(samples, skipped, warp-steps, warp-steps skipped whole)`` of
+    these rays (ERT off) on the lattice k0 + i*step: the samples they
+    march, those whose cell ESL finds empty, the steps of 2 x 16-pixel
+    warps that hold a sample, and those where every lane's sample is
+    skipped."""
+    o, d, k0, kfar, alive, density = args[:6]
+    skip = EslSkip(esl, density.shape)
+    width = kw["width"]
+    n = s = ws = wskip = 0
+    for i in range(max_steps(kw["ray_step"])):
+        k = k0 + i * kw["ray_step"]
+        on = alive & (k <= kfar)
+        if not on.any():
+            break
+        sk = skip(o + d * k[:, None]) & on
+        n += int(on.sum())
+        s += int(sk.sum())
+        warp_on = on.reshape(-1, 2, width // 16, 16).any(dim=(1, 3))
+        warp_kept = (on & ~sk).reshape(-1, 2, width // 16, 16).any(dim=(1, 3))
+        ws += int(warp_on.sum())
+        wskip += int((warp_on & ~warp_kept).sum())
+    return n, s, ws, wskip
+
+
+def _esl_bound(args, kw, counts: tuple, flops: int, images: int,
+               grads: bool, extra_ops: int = 0) -> dict:
+    """:func:`_bound` with ESL (``counts`` from :func:`_esl_counts`): the
+    kept samples at ``flops`` each, the skipped ones at the test's
+    ``FLOPS_ESL_SKIP``."""
+    n, skipped = counts[:2]
+    return _bound(args, kw, 0, images, grads,
+                  extra_ops=(n - skipped) * flops + skipped * FLOPS_ESL_SKIP
+                  + extra_ops)
+
+
+def _esl_small(dev: torch.device) -> None:
+    """ESL as a mode of march_fwd, march_bwd and l2_step at 32^3 / 64^2,
+    ERT off and at 0.95, in every shade, against the plain versions with
+    the same grid: on the synthetic scene (the default pose and phase
+    9's grid poses) and on a sparse blob (the default pose). Unshaded
+    images equal to the bit, diffuse within 2e-3, phong's alpha to the bit
+    and its colour within 1e-5; the backwards in their three need_*
+    variants within the gradient classes of phases 6 and 15."""
+    n = 32
+    rng = np.random.default_rng(16)
+    target = torch.tensor(rng.uniform(0, 1, (64, 64, 4)).astype(np.float32),
+                          device=dev)
+    tgt = target.reshape(-1, 4)
+    scale = 2.0 / tgt.numel()
+    cam = Camera(dims=(64, 64))
+    cam.set_camera_position((30.0, 20.0, 0.0))
+    view = cam.view(dev)
+    worst, counts = {}, {}
+    for name, volume in (("synthetic", synthetic_volume(n)),
+                         ("blob", _blob_volume(n))):
+        scene = scene_from_volume(volume, default_transfer_fn(dev), 0.06,
+                                  device=dev)
+        density, tf = scene.density.detach(), scene.premult_tf().detach()
+        esl = diff_v3.scene_esl(scene)
+        for thr in (2.0, 0.95):
+            for label, kd, phong, atol, rtol in ESL_SHADES:
+                poses = [("default pose", *fwd_v3.ray_args(
+                    view, density, tf, 0.06, thr, kd, loss_scale=scale,
+                    phong=phong, esl=esl))]
+                scal = torch.cat([torch.tensor([thr, kd], device=dev),
+                                  view.light_pos.to(torch.float32),
+                                  torch.tensor([0.0, scale, 0.0],
+                                               device=dev)]).to(torch.float32)
+                for axis in (0, 1, 2) if name == "synthetic" else ():
+                    for half in (False, True):
+                        poses.append((
+                            f"grid pose axis {axis}"
+                            f"{', half a step in' if half else ''}",
+                            (*_grid_rays(n, axis, half, dev), density, tf,
+                             scal),
+                            dict(ray_step=2.0 / n, shade=kd > 0 and not phong,
+                                 phong=phong, no_ert=thr >= 1, width=64,
+                                 esl=esl)))
+                for pose, args, kw in poses:
+                    tag = (f"[esl] 32^3/64^2 {name}, {pose}, {label}, "
+                           f"{'ERT off' if thr >= 1 else 'ERT 0.95'}:")
+                    assert kw["esl"] is esl and kw.get("phong", False) == phong
+                    before = [fn.launches for fn in WRAPPERS]
+                    out = march_fwd(*args, **kw)
+                    g = (out - tgt) * (args[7][6] * args[4][:, None])
+                    bwd = [march_bwd(*args, out, g, **kw, **need)
+                           for _, need in NEEDS]
+                    l2 = [l2_step(*args, tgt, **kw, **need)
+                          for _, need in NEEDS]
+                    _sync()
+                    got = [fn.launches - b for fn, b in zip(WRAPPERS, before)]
+                    assert got == [1, 3, 3, 0, 0, 0, 0, 0, 0], f"{tag} {got}"
+                    want = l2_step_plain(*args, tgt, **kw)
+                    plain_out = march_fwd_plain(*args, **kw)
+                    _sync()
+                    for what, img, ref in (("march_fwd", out, plain_out),
+                                           ("l2_step", l2[0][0], want[0])):
+                        assert torch.isfinite(img).all(), f"{tag} {what}"
+                        assert img[:, 3].max().item() > 0.5, f"{tag} {what}"
+                        if label == "unshaded":
+                            assert torch.equal(img, ref), (
+                                f"{tag} {what} differs from the plain "
+                                f"version's")
+                            err = 0.0
+                        elif phong:
+                            assert torch.equal(img[:, 3], ref[:, 3]), (
+                                f"{tag} {what} alpha")
+                            err = (img[:, :3] - ref[:, :3]).abs().max().item()
+                        else:
+                            err = (img - ref).abs().max().item()
+                        assert err <= atol, f"{tag} {what} image {err}"
+                        key = (what, label, "image")
+                        worst[key] = max(worst.get(key, 0.0), err)
+                    for kernel, grads in (("march_bwd", bwd),
+                                          ("l2_step", [x[1:] for x in l2])):
+                        for leaf, err in _hold_needs(
+                                f"{tag} {kernel}", grads, want[1], want[2],
+                                rtol).items():
+                            key = (kernel, label, leaf)
+                            worst[key] = max(worst.get(key, 0.0), err)
+                    if label == "unshaded" and thr >= 1:
+                        counts[name, pose] = _esl_counts(args, kw, esl)
+        # What ESL changes in the image, on the default pose.
+        on = fwd_v3.render_float(make_raycaster(
+            Volume.from_numpy(volume, dev), view, light_kd=0.0,
+            interpolation="trilinear", esl=True))[0]
+        off = fwd_v3.render_float(make_raycaster(
+            Volume.from_numpy(volume, dev), view, light_kd=0.0,
+            interpolation="trilinear", esl=False))[0]
+        diff = (on - off).abs().max().item()
+        print(f"[esl] 32^3/64^2 {name}: rung 5's ESL image against its "
+              f"ESL-off image, max|diff| = {diff:.3g}")
+        assert name != "blob" or diff == 0.0, "the blob's ESL image moved"
+    for (name, pose), (m, sk, ws, wsk) in counts.items():
+        print(f"[esl] 32^3/64^2 {name}, {pose}: {sk} of {m} samples "
+              f"skipped, {wsk} of {ws} warp-steps whole")
+        assert name != "blob" or sk > 0
+    assert any(sk for _, sk, _, _ in counts.values())
+    for (what, label, leaf), err in worst.items():
+        print(f"[esl] 32^3/64^2 {what} {leaf}, {label}: max|kernel-plain| = "
+              f"{err:.3g} over the poses, ERT off and 0.95"
+              + (", the need variants (a share of the largest entry)"
+                 if leaf != "image" else ""))
+
+
+def _leap_small(dev: torch.device) -> None:
+    """The leap kernel's k0 against the plain leap's, to the bit, at 32^3
+    / 64^2: the synthetic and the blob scene, orthographic and
+    perspective, and phase 9's grid poses (rays along an axis, which take
+    the zero-direction guard of two axes)."""
+    n = 32
+    worst = 0
+    for name, volume in (("synthetic", synthetic_volume(n)),
+                         ("blob", _blob_volume(n))):
+        vol = Volume.from_numpy(volume, dev)
+        rays = []
+        for persp in (False, True):
+            cam = Camera(dims=(64, 64), perspective=persp)
+            cam.toggle_perspective(update_mode=True)
+            cam.set_camera_position((30.0, 20.0, 0.0))
+            rc = make_raycaster(vol, cam.view(dev), esl=True,
+                                interpolation="trilinear")
+            rays.append(("persp" if persp else "ortho", rc.ray_step,
+                         [t.contiguous() for t in batched.ray_bundle(rc)]))
+        for axis in (0, 1, 2):
+            for half in (False, True):
+                rays.append((f"grid pose axis {axis}{' half' if half else ''}",
+                             2.0 / n, _grid_rays(n, axis, half, dev)))
+        # One grid for every pose: the volume's under the default TF.
+        table = (rc.esl_dist, rc.volume.dims, rc.esl_block_dims,
+                 rc.esl_block_size)
+        for pose, step, (o, d, knear, kfar, hit) in rays:
+            tag = f"[esl-leap] 32^3/64^2 {name}, {pose}:"
+            grid = (*table, step)
+            before = leap.esl_start.launches
+            got = leap.esl_start(o, d, knear, kfar, hit, *grid)
+            _sync()
+            assert leap.esl_start.launches == before + 1, tag
+            want = leap.esl_start_plain(o, d, knear, kfar, hit, *grid)
+            _sync()
+            assert torch.equal(got, want), (
+                f"{tag} k0 differs from the plain leap's in "
+                f"{int((got != want).sum())} rays")
+            moved = int((got > knear)[hit].sum())
+            worst = max(worst, moved)
+            print(f"{tag} k0 equal to the plain leap's; {moved} of "
+                  f"{int(hit.sum())} rays leapt, the plain version in "
+                  f"{batched.esl_start_raw.rounds} lockstep rounds")
+    assert worst > 0, "no ray leapt"
+
+
+def _esl_frames(dev: torch.device) -> dict:
+    """Rung 5's frames at 256^3 / 1024^2, ESL off and on, unshaded and
+    phong (BASELINE config 4's forward), and rungs 2-4's with the leap and
+    without, with the launch counters reset before each and read after
+    -> ``{label: ms}`` and the ESL frames' ``march_fwd`` launches."""
+    tag = "[esl] 256^3/1024^2"
+    frames, launches = {}, {}
+    for rung in (5, 4, 3, 2):
+        for shading in (None, "phong") if rung == 5 else (None,):
+            for esl in (False, True):
+                for fn in (*WRAPPERS, leap.esl_start):
+                    fn.launches = 0
+                b = bench_fwd_step(256, 1024, iters=20, device=dev,
+                                   renderer=rung, shading=shading, esl=esl)
+                _sync()
+                got = [fn.launches for fn in (*WRAPPERS, leap.esl_start)]
+                label = (f"rung {rung}{' phong' if shading else ''} frame, "
+                         f"{'ESL' if esl else 'no ESL'}")
+                print(f"{tag} {label}: median {b['ms']:.4f} ms, p90 "
+                      f"{b['ms_p90']:.4f} ms over {b['iters']} calls, "
+                      f"{b['ray_steps_per_s']:.6g} rays*steps/s; launches "
+                      f"{got}")
+                frames[label] = b["ms"]
+                launches[label] = got
+                want = [0] * 10
+                want[{5: 0, 4: 4, 3: 3, 2: 3}[rung]] = 21
+                want[9] = 21 if esl and rung < 5 else 0
+                assert got == want, (label, got)
+    return {"frames": frames, "launches": launches}
+
+
+def _esl_kernels(dev: torch.device, build: dict, frames: dict) -> dict:
+    """The three kernels in ESL mode at full width on the step's scene
+    (diff_bench_scene, ERT off), unshaded and phong: the grid's per-step
+    cost, each kernel timed beside its bound and registers, the unshaded
+    ones held against their plain versions; the one-launch and
+    two-kernel steps with ESL, with their launches; rung 5's ESL image
+    against the ESL-off image and the skip counts -> the kernels' ``esl``
+    entries."""
+    tag = "[esl] 256^3/1024^2"
+    scene, view, target = diff_bench_scene(256, 1024, device=dev)
+    tgt = target.reshape(-1, 4)
+    scale = 2.0 / tgt.numel()
+    grid_t = time_cuda(lambda: diff_v3.scene_esl(scene), 20)
+    esl = diff_v3.scene_esl(scene)
+    empty = EslSkip(esl, scene.density.shape).empty
+    print(f"{tag} the step's grid (diff_v3.scene_esl: round 16.7 M voxels "
+          f"to uint8, min/max per block, derive, pack): {_spread(grid_t)}; "
+          f"{int(empty.sum())} of 32768 blocks empty")
+    rc = bench_pose(256, 1024, dev).replace(esl=True)
+    on = fwd_v3.render_float(rc)[0]
+    off = fwd_v3.render_float(rc.replace(esl=False))[0]
+    moved = (on != off).any(-1)
+    # Raw 25 is bucket 12, alpha 0 under the default TF, but lerps into
+    # entry 13, whose alpha is not.
+    top = esl_mod.build_min_max_grid(rc.volume.data, rc.esl_block_dims)[..., 1]
+    gap = int((rc.esl_empty & (top >= 25)).sum())
+    print(f"{tag} rung 5's ESL image against its ESL-off image: max|diff| "
+          f"= {(on - off).abs().max().item():.3g} in {int(moved.sum())} "
+          f"pixels (the lerp-bucket gap: {gap} of the "
+          f"{int(rc.esl_empty.sum())} empty blocks reach raw 25, which "
+          f"lerps into an opaque TF entry)")
+    out = {}
+    with torch.no_grad():
+        density, premult = scene.density, scene.premult_tf()
+        for mode, kd, phong in (("unshaded", 0.0, False),
+                                ("phong", PHONG_KD, True)):
+            args, kw = fwd_v3.ray_args(view, density, premult,
+                                       scene.ray_step, 2.0, kd,
+                                       loss_scale=scale, phong=phong,
+                                       esl=esl)
+            l2_out, d_vol, d_tf = l2_step(*args, tgt, **kw)
+            g = (l2_out - tgt) * args[7][6]
+            b_vol, b_tf = march_bwd(*args, l2_out, g, **kw)
+            fwd_out = march_fwd(*args, **kw)
+            _sync()
+            assert torch.equal(l2_out, fwd_out), f"{tag} {mode} l2 image"
+            t = {"march_fwd": time_cuda(lambda: march_fwd(*args, **kw), 20),
+                 "l2_step": time_cuda(lambda: l2_step(*args, tgt, **kw), 10),
+                 "march_bwd": time_cuda(
+                     lambda: march_bwd(*args, l2_out, g, **kw), 10)}
+            errs = {k: None for k in t}
+            plain = {k: None for k in t}
+            if not phong:
+                # The plain versions at full width: unshaded only.
+                p_fwd, plain["march_fwd"] = _once(
+                    lambda: march_fwd_plain(*args, **kw))
+                (p_out, p_vol, p_tf), plain["l2_step"] = _once(
+                    lambda: l2_step_plain(*args, tgt, **kw))
+                _, plain["march_bwd"] = _once(
+                    lambda: march_bwd_plain(*args, l2_out, g, **kw))
+                assert torch.equal(fwd_out, p_fwd), f"{tag} march_fwd image"
+                assert torch.equal(p_out, p_fwd)
+                errs["march_fwd"] = 0.0
+                errs["l2_step"] = max(
+                    _hold(tag, "ESL l2_step d_density vs plain", d_vol,
+                          p_vol, RTOL_GRAD),
+                    _hold(tag, "ESL l2_step d_premult_tf vs plain", d_tf,
+                          p_tf, RTOL_DTF_WIDE))
+                errs["march_bwd"] = max(
+                    _hold(tag, "ESL march_bwd d_density vs plain", b_vol,
+                          p_vol, RTOL_GRAD),
+                    _hold(tag, "ESL march_bwd d_premult_tf vs plain", b_tf,
+                          p_tf, RTOL_DTF_WIDE))
+                print(f"{tag} ESL march_fwd image equal to the plain "
+                      f"version's")
+            counts = _esl_counts(args, kw, esl)
+            n, skipped, ws, wskip = counts
+            print(f"{tag} {mode}: {skipped} of {n} samples skipped "
+                  f"({skipped / n:.4f}); {wskip} of {ws} warp-steps skipped "
+                  f"whole ({wskip / ws:.4f})")
+            gated = _n_gated(args, kw) if phong else 0
+            bounds = {
+                "march_fwd": _esl_bound(args, kw, counts, FLOPS_FWD, 1,
+                                        False, gated * FLOPS_PHONG_FWD),
+                "march_bwd": _esl_bound(args, kw, counts, FLOPS_BWD, 2, True,
+                                        gated * FLOPS_PHONG_BWD),
+                "l2_step": _esl_bound(args, kw, counts, FLOPS_FWD + FLOPS_BWD,
+                                      2, True, gated * (FLOPS_PHONG_FWD
+                                                        + FLOPS_PHONG_BWD))}
+            shade = 2 if phong else 0
+            variants = {"march_fwd": f"march_fwd_kernel<{shade},esl,1>",
+                        "march_bwd": f"march_bwd_kernel<{shade},esl,1,1,1>",
+                        "l2_step": f"l2_step_kernel<{shade},esl,1,1,1>"}
+            for name in ("march_fwd", "march_bwd", "l2_step"):
+                v = _phong_variant(build, variants[name])
+                b = bounds[name]
+                p = plain[name]
+                print(f"{tag} {name} ESL {mode} ({v['variant']}, "
+                      f"{v['registers']} registers, {v['spill_bytes']} bytes "
+                      f"spilled): {_spread(t[name])}; plain "
+                      f"{'not run at full width' if p is None else f'{p:.2f} ms (one call)'}"
+                      f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+                out.setdefault(name, {})[mode] = {
+                    "max_abs_err": errs[name],
+                    "ms": float(np.median(t[name])), "plain_ms": p, **b,
+                    "library_ms": None, **v}
+
+    # The steps with ESL, the grid derived in each.
+    leaves = [scene.density, scene.tf_base]
+    for mode, kw_r in (("unshaded", dict(ray_threshold=2.0)),
+                       ("phong", dict(ray_threshold=2.0, light_kd=PHONG_KD,
+                                      phong=True))):
+        losses = {}
+        for route in ("one-launch", "two-kernel"):
+            if route == "one-launch":
+                def step():
+                    return diff_v3.l2_loss_grads_v3_onepass(
+                        scene, view, target, esl=True, **kw_r)[0]
+            else:
+                def step():
+                    img = diff_v3.render_image_v3(scene, view, esl=True,
+                                                  **kw_r)
+                    loss = torch.mean((img - target) ** 2)
+                    torch.autograd.grad(loss, leaves)
+                    return loss
+            for fn in WRAPPERS:
+                fn.launches = 0
+            times = time_cuda(step, 10)
+            loss = step()
+            _sync()
+            got = [fn.launches for fn in WRAPPERS]
+            want = ([0, 0, 12, 0, 0, 0, 0, 0, 0] if route == "one-launch"
+                    else [12, 12, 0, 0, 0, 0, 0, 0, 0])
+            assert got == want, (mode, route, got)
+            losses[route] = loss.item()
+            assert np.isfinite(loss.item()) and loss.item() > 0
+            print(f"{tag} ESL {mode} {route} step {_spread(times)}, loss "
+                  f"{loss.item():.8g}; launches over 10 + 2 steps {got}")
+            name = "l2_step" if route == "one-launch" else "march_bwd"
+            out[name][mode].update(launches=got[2 if name == "l2_step" else 1],
+                                   step_ms=float(np.median(times)))
+        assert abs(losses["one-launch"] - losses["two-kernel"]) <= (
+            1e-6 * losses["two-kernel"])
+    for mode, phong in (("unshaded", False), ("phong", True)):
+        label = f"rung 5{' phong' if phong else ''} frame, ESL"
+        out["march_fwd"][mode].update(
+            launches=frames["launches"][label][0],
+            frame_ms=frames["frames"][label])
+    return out
+
+
+def _leap_main(dev: torch.device) -> dict:
+    """The leap kernel at full width on the CLI's default look (rung 3,
+    diffuse kd 0.6, ERT 0.95, distance 3, 1024^2) and on the benchmark
+    pose: k0 equal to the plain leap's, timed beside the plain version
+    and the bound; the CLI's frame with the leap, in wall time -> the
+    leap's entry, its launches those of one CLI frame."""
+    tag = "[esl-leap] 256^3/1024^2"
+    vol = Volume.from_numpy(synthetic_volume(256), dev)
+    look = make_raycaster(vol, Camera(dims=(1024, 1024)).view(dev),
+                          interpolation="trilinear")
+    assert look.esl
+    for fn in (*WRAPPERS, leap.esl_start):
+        fn.launches = 0
+    trilinear.render_float(look)
+    _sync()
+    got = [fn.launches for fn in (*WRAPPERS, leap.esl_start)]
+    assert got == [0, 0, 0, 1, 0, 0, 0, 0, 0, 1], got
+    entry = None
+    for pose, rc in (("cli look", look),
+                     ("benchmark pose", bench_pose(256, 1024, dev).replace(
+                         esl=True))):
+        o, d, knear, kfar, hit = (t.contiguous()
+                                  for t in batched.ray_bundle(rc))
+        grid = (rc.esl_dist, rc.volume.dims, rc.esl_block_dims,
+                rc.esl_block_size, rc.ray_step)
+        k0 = leap.esl_start(o, d, knear, kfar, hit, *grid)
+        want, plain_ms = _once(
+            lambda: leap.esl_start_plain(o, d, knear, kfar, hit, *grid))
+        loads = int(batched.esl_start_raw.loads)
+        rounds = batched.esl_start_raw.rounds
+        assert torch.equal(k0, want), (
+            f"{tag} {pose}: k0 differs in {int((k0 != want).sum())} rays")
+        times = time_cuda(lambda: leap.esl_start(o, d, knear, kfar, hit,
+                                                 *grid), 50)
+        nbytes = (sum(t.numel() * t.element_size()
+                      for t in (o, d, knear, kfar, hit, rc.esl_dist))
+                  + k0.numel() * 4)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = loads * FLOPS_LEAP / PEAK_F32_FLOPS * 1e3
+        bound = {"bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        skipped = ((k0 - knear)[hit] / rc.ray_step).sum().item()
+        print(f"{tag} {pose}: k0 equal to the plain leap's; kernel "
+              f"{_spread(times)}; plain {plain_ms:.2f} ms (one call, "
+              f"{rounds} lockstep rounds); {loads} loads of the distance "
+              f"grid ({loads / int(hit.sum()):.3f} a ray that meets the "
+              f"cube); some {skipped:.6g} samples leapt; bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+        if entry is None:
+            entry = {"launches": got[9], "max_abs_err": 0.0,
+                     "ms": float(np.median(times)), "plain_ms": plain_ms,
+                     **bound, "library_ms": None, "loads": loads}
+    # The CLI's frame, in wall time, beside the 26.333 ms it took with the
+    # lockstep torch leap (PERF.md section 5).
+    for label, state in (("with the leap", look),
+                         ("without it", look.replace(esl=False))):
+        trilinear.render_float(state)
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            trilinear.render_float(state)
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3 / 20
+        dev_ms = time_cuda(lambda: trilinear.render_float(state), 20)
+        print(f"{tag} cli default frame {label}: wall {wall:.4f} ms a frame "
+              f"(26.333 with the lockstep torch leap); device "
+              f"{_spread(dev_ms)}")
+        entry["cli_frame_wall_ms" if state.esl else
+              "cli_frame_wall_ms_no_leap"] = wall
+    return entry
+
+
+def phase_esl(dev: torch.device, build: dict) -> dict:
+    """ESL (phase 16): rows 1-3's ESL mode and the leap kernel at 32^3 /
+    64^2 against their plain versions (:func:`_esl_small`,
+    :func:`_leap_small`), then at full width: the frames
+    (:func:`_esl_frames`), the kernels and steps (:func:`_esl_kernels`),
+    the leap (:func:`_leap_main`) -> ``{"esl": rows 1-3's esl entries,
+    "leap": the leap kernel's entry}``."""
+    _esl_small(dev)
+    _leap_small(dev)
+    frames = _esl_frames(dev)
+    kernels = _esl_kernels(dev, build, frames)
+    return {"esl": kernels, "leap": _leap_main(dev)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -1842,6 +2352,7 @@ def main() -> int:
     round1 = run(phase_round1_main, dev, step["two_kernel_ms"], build)
     run(phase_phong, dev)
     phong = run(phase_phong_kernels, dev, build)
+    esl = run(phase_esl, dev, build)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -1853,15 +2364,15 @@ def main() -> int:
         {"name": "march_fwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_fwd.cu",
          "replaces": f"{pallas}:1128", **fwd, **ladder["march_fwd"],
-         "phong": phong["march_fwd"]},
+         "phong": phong["march_fwd"], "esl": esl["esl"]["march_fwd"]},
         {"name": "march_bwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_bwd.cu",
          "replaces": f"{pallas}:1435", **step["march_bwd"],
-         "phong": phong["march_bwd"]},
+         "phong": phong["march_bwd"], "esl": esl["esl"]["march_bwd"]},
         {"name": "l2_step", "route": "cuda",
          "source": "volrt_torch/csrc/l2_step.cu",
          "replaces": f"{pallas}:2397", **step["l2_step"],
-         "phong": phong["l2_step"]},
+         "phong": phong["l2_step"], "esl": esl["esl"]["l2_step"]},
         {"name": "march_tri", "route": "cuda",
          "source": "volrt_torch/csrc/march_ladder.cu",
          "replaces": "volrt/renderers/pallas/trilinear.py:56",
@@ -1877,6 +2388,10 @@ def main() -> int:
                               ("diff_tri_bwd", "diff_tri.py:194"),
                               ("diff_blocked_fwd", "diff_blocked.py:90"),
                               ("diff_blocked_bwd", "diff_blocked.py:192"))),
+        {"name": "esl_start", "route": "cuda",
+         "source": "volrt_torch/csrc/esl_leap.cu",
+         "replaces": "volrt/renderers/batched.py:41 (XLA ops: no Pallas "
+                     "kernel)", **esl["leap"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -278,16 +278,18 @@ def test_grad_wrappers_on_cpu_take_plain_path_and_check_inputs():
 
 def test_unported_arguments_raise():
     """(f) What the differentiable path has not ported yet says so; what it
-    has ported since (phong in the oracle and in the v3 kernels, the
-    round-1 routes) runs."""
+    has ported since (phong in the oracle and in the v3 kernels, ESL in
+    both, the round-1 routes) runs."""
     _, (scene, view, target) = _pair(dims=(8, 8))
     o = torch.zeros((1, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.render_diff_image(scene, view, esl=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.render_diff(scene, o, o, esl=True)
-    lit = trender.render_diff_image(scene, view, light_kd=0.6, phong=True)
+    # ESL in the oracle: the leading leap, which on this scene (no empty
+    # block) changes nothing.
     unlit = trender.render_diff_image(scene, view)
+    leapt = trender.render_diff_image(scene, view, esl=True)
+    torch.testing.assert_close(leapt, unlit, atol=1e-6, rtol=0)
+    one = trender.render_diff(scene, o, o + 1.0, esl=True)
+    assert one.shape == (1, 4) and torch.isfinite(one).all()
+    lit = trender.render_diff_image(scene, view, light_kd=0.6, phong=True)
     assert torch.isfinite(lit).all()
     assert (lit[..., :3] - unlit[..., :3]).abs().max() > 1e-3
     torch.testing.assert_close(lit[..., 3], unlit[..., 3], atol=1e-6, rtol=0)
@@ -295,6 +297,17 @@ def test_unported_arguments_raise():
                               light_pos=view.light_pos)
     assert one.shape == (1, 4) and torch.isfinite(one).all()
     for kw in (dict(esl=True), dict(phong=True), dict(fast=True)):
+        if kw.get("esl"):
+            # ESL is a mode of the v3 kernels: each route runs it.
+            img = tdiff_v3.render_image_v3(scene, view, **kw)
+            torch.testing.assert_close(img.detach(), unlit.detach(),
+                                       atol=ATOL_IMG, rtol=0)
+            loss, g = tdiff_v3.l2_loss_grads_v3_onepass(scene, view, target,
+                                                        **kw)
+            assert torch.isfinite(loss) and torch.isfinite(g["density"]).all()
+            assert torch.isfinite(tfused.l2_loss_fused(scene, view, target,
+                                                       **kw))
+            continue
         if kw.get("phong"):
             # Phong is a mode of the v3 kernels: each route runs it.
             img = tdiff_v3.render_image_v3(scene, view, light_kd=0.6, **kw)
@@ -317,3 +330,69 @@ def test_unported_arguments_raise():
         assert img.shape == (8, 8, 4) and img.requires_grad
         _close(img.detach().numpy(), unlit.detach().numpy(), ATOL_IMG,
                "round-1 route vs oracle")
+
+
+def _esl_scene(kind: str) -> np.ndarray:
+    """Densities for the ESL grid: ``blob`` (``test_diff_v3.py``'s sparse
+    blob, in [0, 1] as u8/255), ``fraction`` (the synthetic volume over
+    255 with values half a step from a rounding edge) and ``noise`` (a low
+    uniform field under a dense corner)."""
+    rng = np.random.default_rng(8)
+    if kind == "blob":
+        vol = np.zeros((16, 16, 16), np.float32)
+        vol[10:14, 10:14, 10:14] = 220.0
+        return vol / 255.0
+    if kind == "fraction":
+        raw = synthetic_volume(16).astype(np.float32)
+        raw += rng.choice(np.float32([-0.5, 0.5, 0.49, -0.51]), raw.shape)
+        return np.clip(raw, 0, 255) / 255.0
+    vol = rng.uniform(0.0, 0.12, (20, 13, 27)).astype(np.float32)
+    vol[:8, :8, :8] = rng.uniform(0.5, 1.0, (8, 8, 8))
+    return vol
+
+
+@pytest.mark.parametrize("kind", ["blob", "fraction", "noise"])
+def test_scene_empty_grid_matches_volrt(kind):
+    """``scene_empty_grid`` (the density rounded to uint8, the min/max
+    grid, the premultiplied live TF) equals ``volrt``'s: the grid, the
+    block edge and the block size."""
+    density = _esl_scene(kind)
+    tf_base = np.asarray(j_default_tf(), np.float32)
+    jscene = jrender.DiffScene(density=jnp.asarray(density),
+                               tf_base=jnp.asarray(tf_base), ray_step=STEP)
+    tscene = trender.scene_from_arrays(density, tf_base, STEP, device=CPU)
+    w_empty, w_block, w_bs = jrender.scene_empty_grid(jscene)
+    empty, block, bs = trender.scene_empty_grid(tscene)
+    np.testing.assert_array_equal(empty.numpy(), np.asarray(w_empty))
+    assert block == w_block and bs == tuple(w_bs)
+    inside = empty[:2, :2, :2] if kind == "blob" else empty[:1, :1, :1]
+    assert empty.any() and (kind == "fraction" or not inside.all())
+
+
+@pytest.mark.parametrize("persp", [False, True])
+def test_oracle_esl_matches_volrt(persp):
+    """The oracle with ``esl=True`` (the leading leap of
+    ``batched.esl_start_raw`` on ``scene_empty_grid``, then the march from
+    there) against ``volrt``'s ``render_diff_image(esl=True)``: image,
+    loss and both gradients, the oracle's tolerances; on the sparse blob
+    the image is the ESL-off one."""
+    jside, tside = _pair(persp=persp)
+    density = _esl_scene("blob")
+    jscene = jside[0].replace(density=jnp.asarray(density))
+    tscene = trender.scene_from_arrays(
+        density, tside[0].tf_base.detach().numpy(), STEP, device=CPU)
+    jside, tside = (jscene, *jside[1:]), (tscene, *tside[1:])
+    want_img, want_loss, want_gd, want_gt = _jax_image_loss_grads(
+        jrender.render_diff_image, *jside, esl=True)
+    img, loss, gd, gt = _torch_loss_grads(trender.render_diff_image, *tside,
+                                          esl=True)
+    _close(img, want_img, ATOL_IMG, "image")
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for got, want, what in ((gd, want_gd, "d_density"),
+                            (gt, want_gt, "d_tf_base")):
+        assert np.abs(want).max() > 1e-4
+        _close(got, want, ATOL_GRAD, what)
+    # The leap moves each ray's k0, and k0 + i*step rounds otherwise than
+    # knear + i*step: the f32 class of a march, 1e-5.
+    off = trender.render_diff_image(tscene, tside[1]).detach().numpy()
+    _close(img, off, 1e-5, "ESL against no ESL")

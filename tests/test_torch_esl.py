@@ -22,6 +22,7 @@ from volrt_torch.core import tf as ttf
 from volrt_torch.core import types as ttypes
 from volrt_torch.core import rays as trays
 from volrt_torch.renderers import batched, golden
+from volrt_torch.renderers.cuda.march import max_steps
 
 CPU = "cpu"
 # (D, H, W): a cube, a size that is no multiple of the block (8), a flat one.
@@ -179,3 +180,161 @@ def test_esl_start_matches_volrt(shape, persp):
         inside = (k <= tkfar) & thit
         assert not tesl.sample_empty(trc.esl_empty, pt, trc.volume.dims,
                                      trc.esl_block_dims)[inside].any()
+
+
+def _leap_emulated(o, d, knear, kfar, hit, dist, dims, block, block_size,
+                   step):
+    """``csrc/march_common.cuh:leap_start`` written out in numpy f32, one
+    rounded operation for each of the kernel's, all rays at once: where
+    each ray starts after the leading leap."""
+    f = np.float32
+    k = knear.copy()
+    on = hit.copy()
+    dnorm = np.sqrt(((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                     + d[:, 2] * d[:, 2]) + f(1e-20))
+    bw = [f(b) for b in block_size]
+    min_bw, fstep = f(min(block_size)), f(step)
+    for _ in range(max_steps(step)):
+        p = o + d * k[:, None]
+        b = [np.clip(np.trunc((p[:, a] + f(1)) * f(0.5) * f(dims[a]))
+                     .astype(np.int64), 0, dims[a] - 1) // block
+             for a in range(3)]
+        m = dist[b[2], b[1], b[0]]
+        on &= (k <= kfar) & (m >= 1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            faces = [np.where(d[:, a] == 0, f(100),
+                              (f(-1) + bw[a] * (b[a] + (d[:, a] > 0))
+                               .astype(f) - p[:, a]) / d[:, a])
+                     for a in range(3)]
+        dk = np.maximum(np.minimum(np.minimum(faces[0], faces[1]), faces[2]),
+                        f(0))
+        face = np.floor(dk / fstep) * fstep
+        ball = np.floor((m - 1).astype(f) * min_bw / dnorm / fstep) * fstep
+        k = np.where(on, (k + np.maximum(face, ball)) + fstep, k)
+        if not on.any():
+            break
+    return k
+
+
+@pytest.mark.parametrize("persp", [False, True])
+def test_leap_kernel_loop_equals_the_plain_leap(persp):
+    """The leap kernel's loop (``esl_leap.cu``), emulated in numpy f32,
+    gives each ray's start to the bit of the plain leap
+    (``batched.esl_start_raw``, which divides by tensors and sums the norm
+    in a fixed order so that it rounds alike on either device), on the
+    render state's distance grid; the CPU wrapper is the plain leap."""
+    from tests.test_torch_ladder import _view
+    from volrt_torch.renderers.cuda import leap
+
+    vol, tf = _volume((20, 13, 27), seed=5), _tf(5)
+    jrc = j_make_raycaster(JVolume.from_numpy(vol), view=_view(24, persp),
+                           base_transfer_fn=jnp.asarray(_base(tf)))
+    v = jrc.view
+    trc = ttypes.raycaster_from_arrays(
+        vol, np.asarray(jrc.transfer_fn), np.asarray(v.origin),
+        np.asarray(v.direction), np.asarray(v.right_plane),
+        np.asarray(v.up_plane), np.asarray(v.light_pos), v.dims,
+        v.perspective, jrc.ray_step, 0.95, 0.6, esl=True, device=CPU)
+    assert trc.esl_dist.dtype == torch.int32
+    np.testing.assert_array_equal(
+        trc.esl_dist.numpy(), tesl.empty_distance_grid(trc.esl_empty).numpy())
+    rays = [t.contiguous() for t in batched.ray_bundle(trc)]
+    grid = (trc.esl_dist, trc.volume.dims, trc.esl_block_dims,
+            trc.esl_block_size, trc.ray_step)
+    want = batched.esl_start(trc, *rays)
+    got = leap.esl_start(*rays, *grid)
+    assert torch.equal(got, want)
+    emulated = _leap_emulated(*(t.numpy() for t in rays),
+                              trc.esl_dist.numpy(), *grid[1:])
+    np.testing.assert_array_equal(emulated.view(np.int32),
+                                  want.numpy().view(np.int32))
+    assert (want > rays[2])[rays[4]].any()
+    with pytest.raises(TypeError):
+        leap.esl_start(*rays, trc.esl_dist.to(torch.int64), *grid[1:])
+
+
+def _skip_emulated(words, block, shape, pos):
+    """``csrc/march_common.cuh:esl_empty_cell`` in numpy: each axis's
+    floor of t = (p + 1) * (n / 2) - 0.5 in f32, its two clamped taps'
+    blocks as the high word of tap * ceil(2^32 / block), and the four
+    words' bits of the two x blocks."""
+    f = np.float32
+    d, h, w = shape
+    magic = np.uint64(-(-(1 << 32) // block))
+    blocks = []
+    for a, n in enumerate((w, h, d)):
+        t = (pos[:, a] + f(1)) * f(0.5 * n) - f(0.5)
+        i = np.floor(t).astype(np.int64)
+        blocks.append([(np.clip(j, 0, n - 1).astype(np.uint64) * magic)
+                       >> np.uint64(32) for j in (i, i + 1)])
+    (x0, x1), (y0, y1), (z0, z1) = blocks
+    w32 = words.astype(np.int64) & 0xFFFFFFFF
+    bits = (np.int64(1) << x0.astype(np.int64)) | (
+        np.int64(1) << x1.astype(np.int64))
+    cell = np.full(pos.shape[0], 0xFFFFFFFF, np.int64)
+    for z in (z0, z1):
+        for y in (y0, y1):
+            cell &= w32[(z * np.uint64(32) + y).astype(np.int64)]
+    return (cell & bits) == bits
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 32), (20, 13, 27),
+                                   (40, 30, 300)])
+def test_v3_esl_predicate_matches_its_kernel_form(shape):
+    """The v3 kernels' ESL test (``march.EslSkip``, a sample skipped when
+    every block of its clamp-addressed trilinear cell is empty) against
+    the kernel's form in numpy: blocks by a magic number's high word, a
+    block edge of 8 and of 10 (a volume 300 wide), and positions on the
+    voxel lattice and off it, inside the cube and beyond its faces."""
+    from volrt_torch.renderers.cuda.march import EslSkip
+
+    d, h, w = shape
+    block = ttypes.default_esl_block_dims((w, h, d))
+    assert block == (10 if w == 300 else 8)
+    rng = np.random.default_rng(6)
+    empty = torch.from_numpy(rng.uniform(size=(32, 32, 32)) < 0.8)
+    words = tesl.pack_words(empty)
+    assert words.dtype == torch.int32 and (words < 0).any()
+    assert torch.equal(tesl.unpack_bitmask(words), empty)
+    pos = rng.uniform(-1.05, 1.05, (6000, 3)).astype(np.float32)
+    # Positions whose voxel coordinate t is an integer or a half.
+    n = np.array([w, h, d], np.float32)
+    lattice = rng.integers(-1, 2 * n.max() + 2, (2000, 3)) / 2.0
+    pos[:2000] = ((lattice + 0.5) / (0.5 * n) - 1.0).astype(np.float32)
+    got = EslSkip((words, block), shape)(torch.from_numpy(pos))
+    want = _skip_emulated(words.numpy(), block, shape, pos)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0.1 < want.mean() < 0.9
+
+
+def test_the_lerp_bucket_gap():
+    """The grid calls a block empty by its TF buckets, ``first_opaque[min
+    // 2] > max // 2`` (``volrt/core/esl.py``, the port's copy), but rungs
+    3-5 lerp the TF at ``v * 128 - 0.5``: a raw value of 25 lies in bucket
+    12 (alpha 0) and lerps 4.9 % of the way into entry 13. So a volume of
+    25s under a TF that opens at 13 is empty to both packages' grids,
+    while its ESL-off samples carry opacity and its ESL samples none.
+    (``chip_smoke.py`` phase 16 counts such blocks on the benchmark scene:
+    345 of its 16,040 empty blocks reach 25 or more.) Not fixed: the grid
+    is ``volrt``'s."""
+    from volrt_torch.core.view import Camera
+    from volrt_torch.renderers import fwd_v3
+
+    vol = np.full((16, 16, 16), 25, np.uint8)
+    base = np.ones((128, 4), np.float32)
+    base[:13, 3] = 0.0
+    base[13:, 3] = 0.5
+    premult = np.asarray(jtf.premultiply(jnp.asarray(base)))
+    want = np.asarray(jesl.derive_empty_grid(
+        jesl.build_min_max_grid(JVolume.from_numpy(vol), 8),
+        jnp.asarray(premult)))
+    rc = ttypes.make_raycaster(ttypes.Volume.from_numpy(vol, CPU),
+                               Camera(dims=(16, 16)).view(CPU),
+                               base_transfer_fn=base, light_kd=0.0,
+                               interpolation="trilinear", esl=True)
+    np.testing.assert_array_equal(rc.esl_empty.numpy(), want)
+    assert rc.esl_empty.all()
+    on, _ = fwd_v3.render_float(rc)
+    off, _ = fwd_v3.render_float(rc.replace(esl=False))
+    assert on.abs().max() == 0.0
+    assert off[..., 3].max() > 0.1

@@ -183,7 +183,7 @@ def test_train_step_and_losses(problem):
 
 def test_fit_refuses_what_is_not_ported(problem):
     """(f) Arguments of ``volrt``'s fit that wait for a later port; phong
-    with ``fused=True`` runs since the kernels have it."""
+    with ``fused=True`` and ``esl`` run since the kernels have them."""
     scene = trender.scene_from_arrays(*_init(problem, "both"), STEP,
                                       device=CPU)
     pair = [(problem["tview"], torch.from_numpy(problem["target"]))]
@@ -191,8 +191,9 @@ def test_fit_refuses_what_is_not_ported(problem):
                dict(grad_chunks=4), dict(esl=True),
                dict(checkpoint_path="state.npz"),
                dict(shading="phong", fused=True)):
-        if kw.get("shading") == "phong":
-            # Ported since: the one-launch step's phong mode.
+        if kw.get("shading") == "phong" or kw.get("esl"):
+            # Ported since: the one-launch step's phong mode, and ESL (here
+            # the oracle's leading leap).
             _, losses = tfit_mod.fit(scene, pair, steps=1, **kw)
             assert len(losses) == 1 and np.isfinite(losses[0])
             continue
@@ -213,8 +214,10 @@ def test_fit_refuses_what_is_not_ported(problem):
                               "esl_refresh_every"])
 def test_fit_takes_volrts_checkpoint_and_refresh_parameters(problem, kw):
     """(f) ``volrt``'s ``fit`` parameters for checkpoints and ESL refresh
-    sit in its order and, until those are ported, raise naming their
-    ROADMAP item; their defaults fit as before."""
+    sit in its order; the checkpoint parameters, until those are ported,
+    raise naming their ROADMAP item, and the ESL refresh, ported, runs
+    (without ``esl`` it changes nothing, as in ``volrt``); their defaults
+    fit as before."""
     (name, _), = kw.items()
     want = [p for p in inspect.signature(jfit).parameters
             if p not in ("window", "flush")]
@@ -225,9 +228,13 @@ def test_fit_takes_volrts_checkpoint_and_refresh_parameters(problem, kw):
     scene = trender.scene_from_arrays(*_init(problem, "both"), STEP,
                                       device=CPU)
     pair = [(problem["tview"], torch.from_numpy(problem["target"]))]
-    with pytest.raises(NotImplementedError,
-                       match=rf"fit\({name}\).*ROADMAP"):
-        tfit_mod.fit(scene, pair, steps=1, **kw)
+    if name == "esl_refresh_every":
+        _, losses = tfit_mod.fit(scene, pair, steps=1, **kw)
+        assert len(losses) == 1 and np.isfinite(losses[0])
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=rf"fit\({name}\).*ROADMAP"):
+            tfit_mod.fit(scene, pair, steps=1, **kw)
     _, losses = tfit_mod.fit(scene, pair, steps=1, **{name: type(
         kw[name])()})
     assert len(losses) == 1 and np.isfinite(losses[0])
@@ -263,7 +270,10 @@ def test_step_bench_needs_a_card():
     ["--fused", "--train", "both"],
     ["--train", "density"],
     ["--fused", "--train", "tf", "--shading", "diffuse"],
-], ids=["fused-both", "autograd-density", "fused-tf-diffuse"])
+    ["--fused", "--esl", "--train", "both"],
+    ["--esl", "--train", "density"],
+], ids=["fused-both", "autograd-density", "fused-tf-diffuse", "fused-esl",
+        "autograd-esl"])
 def test_cli_fit_runs_on_the_cpu(argv, capsys):
     """(f) ``cli fit --device cpu`` at 8^3 / 16^2 for 2 steps."""
     assert cli.main(["fit", *argv, "--synthetic", "8", "-s", "16", "16",
@@ -292,3 +302,56 @@ def test_cli_fit_and_bench_default_to_the_card():
         with pytest.raises((AssertionError, RuntimeError),
                            match="CUDA|cuda"):
             cli.main(argv)
+
+
+def _trap():
+    """``test_diff_v3.py::TestEslTfTrap``'s scene: all density at 200/255
+    (TF entries near 100), a trainable TF that starts with zero opacity
+    everywhere, so that every ESL block derives empty, and the target the
+    open TF renders; on the CPU."""
+    from volrt_torch.core.tf import default_transfer_fn
+    from volrt_torch.core.view import Camera
+
+    vol = np.zeros((16, 16, 16), np.uint8)
+    vol[4:12, 4:12, 4:12] = 200
+    tf_open = default_transfer_fn(CPU)
+    truth = trender.scene_from_volume(vol, tf_open, 0.15, device=CPU)
+    cam = Camera(dims=(24, 24))
+    cam.set_camera_position((25.0, 10.0, 0.0))
+    view = cam.view(CPU)
+    with torch.no_grad():
+        target = trender.render_diff_image(truth, view)
+    tf_closed = tf_open.clone()
+    tf_closed[:, 3] = 0.0
+    return (trender.DiffScene(truth.density.detach(), tf_closed, 0.15),
+            view, target)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "oracle"])
+def test_pure_esl_training_is_trapped(fused):
+    """``fit(esl=True)`` alone: every sample is skipped (the one-launch
+    step's ESL mode) or leapt (the oracle's leading leap), so no TF entry
+    gets a gradient; the TF's alpha stays at zero and the loss never
+    moves (``test_diff_v3.py::TestEslTfTrap``)."""
+    scene, view, target = _trap()
+    _, losses = tfit_mod.fit(scene, [(view, target)], steps=4, lr=0.05,
+                             train_density=False, fused=fused, esl=True)
+    assert scene.tf_base[:, 3].max().item() == 0.0
+    np.testing.assert_allclose(losses[-1], losses[0], rtol=1e-6)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "oracle"])
+def test_esl_refresh_escapes_the_trap(fused):
+    """``esl_refresh_every=2``: steps 0 and 2 march in full, which hands
+    the closed TF entries their gradient; the TF opens and the loss falls
+    below the trapped plateau. The first step is the full march's: its
+    loss is the ESL-off step's."""
+    scene, view, target = _trap()
+    with torch.no_grad():
+        first = tdiff_v3.l2_loss_grads_v3_onepass(scene, view, target)[0]
+    _, losses = tfit_mod.fit(scene, [(view, target)], steps=4, lr=0.05,
+                             train_density=False, fused=fused, esl=True,
+                             esl_refresh_every=2)
+    assert scene.tf_base[:, 3].max().item() > 0.0
+    assert losses[-1] < losses[0]
+    assert losses[0] == pytest.approx(first.item(), rel=1e-4)

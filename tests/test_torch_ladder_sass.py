@@ -171,6 +171,21 @@ def test_variant_names_read_the_template_arguments():
     assert variant_name(OTHER) is None
 
 
+def test_variant_names_read_the_esl_mode():
+    """The v3 kernels' ``Esl`` argument (``march_common.cuh``), beside
+    ``Shade``: on it reads "esl", off it is left out, so that an ESL-off
+    variant keeps the name it had before the mode (and its SASS is
+    compared with a tree from before it); the mangled name refers to the
+    enum's namespace by substitution."""
+    fwd = ("_ZN12_GLOBAL__N_116march_fwd_kernelILN5volrt5ShadeE{}ELNS1_3EslE"
+           "{}ELb1EEEvNS1_9MarchArgsEPfNS1_7EslArgsE")
+    assert variant_name(fwd.format(2, 1)) == "march_fwd_kernel<2,esl,1>"
+    assert variant_name(fwd.format(0, 0)) == "march_fwd_kernel<0,1>"
+    l2 = ("_ZN12_GLOBAL__N_114l2_step_kernelILN5volrt5ShadeE0ELNS1_3EslE1E"
+          "Lb0ELb1ELb0EEEvNS1_9MarchArgsEPKfPfNS1_8GradArgsENS1_7EslArgsE")
+    assert variant_name(l2) == "l2_step_kernel<0,esl,0,1,0>"
+
+
 def test_parse_sass_keeps_the_kernels_their_branches_and_no_nop():
     insts = parse_sass(SASS)
     assert set(insts) == {"march_ladder_kernel<f32,0,0,1>",

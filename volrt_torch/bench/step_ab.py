@@ -27,6 +27,13 @@ imports ``volrt_torch`` from that root, builds its kernels and times, at
   ``march_fwd``, ``march_bwd`` and ``l2_step`` (whole), the one-launch
   and the two-kernel step, and rung 5's phong frame
   (``bench_fwd_step(shading="phong")``);
+- where the root has ESL: on scene ``a`` the grid alone
+  (``diff_v3.scene_esl``), ``march_fwd``, ``march_bwd`` and ``l2_step`` in
+  ESL mode, unshaded and phong, and the one-launch and two-kernel steps
+  with ``esl=True``; the frames of rungs 5 (unshaded and phong) to 2 with
+  ``esl=True`` (rung 5's ESL mode, the leap kernel on rungs 2-4); the CLI
+  look's frame with the leap and the leap kernel alone
+  (``leap.esl_start``);
 - the round-1 routes beside them: ``diff_blocked_fwd`` and
   ``diff_blocked_bwd`` (whole, ``need_dtf=False``, ``need_dvol=False``) on
   both scenes, and the ``render_image_fused(blocked=True)`` step on scene
@@ -101,23 +108,32 @@ OPCODE_CLASSES = {
                "WARPSYNC"),
 }
 _CLASS_OF = {op: c for c, ops in OPCODE_CLASSES.items() for op in ops}
-# A template argument in a mangled name: a voxel type, a bool, or the
+# A template argument in a mangled name: a voxel type, a bool, the
 # kernels' shading mode (march_common.cuh:Shade, by its value: 0 none, 1
 # the diffuse tap, 2 phong, so that the two modes that were a bool keep
-# their names), and what the report calls it.
-_TEMPLATE_ARG = r"[hf]|Lb[01]E|L(?:N5volrt5ShadeE|S\d*_)[0-2]E"
+# their names) or their ESL mode (march_common.cuh:Esl), and what the
+# report calls it. ESL on reads "esl" and ESL off is left out, so that an
+# ESL-off variant keeps the name it had before the mode, and its SASS is
+# compared with a tree from before it.
+_ESL_ARG = r"L(?:N5volrt|NS\d*_)3EslE[01]E"
+_TEMPLATE_ARG = (r"[hf]|Lb[01]E|L(?:N5volrt5ShadeE|S\d*_)[0-2]E|"
+                 + _ESL_ARG)
 _TEMPLATE_ARGS = {"h": "u8", "f": "f32"}
 
 
 def variant_name(mangled: str) -> str | None:
     """``march_ladder_kernel<u8,0,0,1>`` for a mangled kernel name of
     :data:`KERNELS` (template arguments in order: voxel type or shading
-    mode, then the bools), None for any other function."""
+    mode, the ESL mode where on, then the bools), None for any other
+    function."""
     for kernel in KERNELS:
         m = re.search(kernel + f"(?:I((?:{_TEMPLATE_ARG})*)E)?", mangled)
         if m:
             args = re.findall(_TEMPLATE_ARG, m.group(1) or "")
-            names = [_TEMPLATE_ARGS.get(a) or a[-2] for a in args]
+            names = [("esl" if a[-2] == "1" else None)
+                     if re.fullmatch(_ESL_ARG, a)
+                     else _TEMPLATE_ARGS.get(a) or a[-2] for a in args]
+            names = [n for n in names if n is not None]
             return kernel + (f"<{','.join(names)}>" if names else "")
     return None
 
@@ -304,6 +320,15 @@ def _ladder_times(dev, med) -> tuple[dict, int]:
         if "shading" in inspect.signature(bench_fwd_step).parameters:
             t["frame rung 5 phong"] = bench_fwd_step(
                 256, 1024, iters=100, device=dev, shading="phong")["ms"]
+        if "esl" in inspect.signature(bench_fwd_step).parameters:
+            # Rung 5 with its ESL mode, rungs 2-4 with the leap kernel.
+            for rung in (5, 4, 3, 2):
+                t[f"frame rung {rung} esl"] = bench_fwd_step(
+                    256, 1024, iters=100, device=dev, renderer=rung,
+                    esl=True)["ms"]
+            t["frame rung 5 phong esl"] = bench_fwd_step(
+                256, 1024, iters=100, device=dev, shading="phong",
+                esl=True)["ms"]
         look = make_raycaster(bench_pose(256, 1024, dev).volume,
                               Camera(dims=(1024, 1024)).view(dev),
                               interpolation="trilinear").replace(esl=False)
@@ -313,6 +338,18 @@ def _ladder_times(dev, med) -> tuple[dict, int]:
             lambda: march_tri(*args, nearest=False, **kw))
         t["frame rung 3 cli look"] = med(
             lambda: trilinear.render_float(look))
+        if hasattr(look, "esl_dist"):
+            from volrt_torch.renderers import batched
+            from volrt_torch.renderers.cuda import leap
+
+            lit = look.replace(esl=True)
+            t["frame rung 3 cli look esl"] = med(
+                lambda: trilinear.render_float(lit))
+            rays = [r.contiguous() for r in batched.ray_bundle(lit)]
+            grid = (lit.esl_dist, lit.volume.dims, lit.esl_block_dims,
+                    lit.esl_block_size, lit.ray_step)
+            t["esl_start cli look"] = med(lambda: leap.esl_start(*rays,
+                                                                 *grid))
     return t, warp_steps
 
 
@@ -364,9 +401,10 @@ def child(root: str, sass_file: str | None = None,
     assert os.path.dirname(volrt_torch.__file__).startswith(
         os.path.abspath(root)), volrt_torch.__file__
     dev = torch.device("cuda", 0)
-    # Phong is a mode of the v3 kernels from this tree's PR on; an older
-    # root has no phong times.
+    # Phong and ESL are modes of the v3 kernels from their trees' PRs on;
+    # an older root has no times for them.
     has_phong = "phong" in inspect.signature(march_fwd).parameters
+    has_esl = "esl" in inspect.signature(march_fwd).parameters
     _build.load()
     lib = _build.library_path()
     sass = cuobjdump_sass(str(lib))
@@ -449,6 +487,27 @@ def child(root: str, sass_file: str | None = None,
                     lambda: l2_step(*args, tgt, **need, **kw))
                 t["march_bwd" + label] = med(
                     lambda: march_bwd(*args, out, g, **need, **kw))
+            if name == "a" and has_esl:
+                # The ESL mode on the grid of the scene's TF, unshaded and
+                # phong, and the grid alone.
+                t["scene_esl"] = med(lambda: diff_v3.scene_esl(scene))
+                esl = diff_v3.scene_esl(scene)
+                for mode, kd, phong in (("", 0.0, False),
+                                        (" phong", 0.6, True)):
+                    s_args, s_kw = fwd_v3.ray_args(
+                        view, scene.density, scene.premult_tf(),
+                        scene.ray_step, 2.0, kd,
+                        loss_scale=2.0 / (1024 * 1024 * 4), phong=phong,
+                        esl=esl)
+                    s_out = march_fwd(*s_args, **s_kw)
+                    s_g = s_out * s_args[7][6]
+                    t["march_fwd" + mode + " esl"] = med(
+                        lambda: march_fwd(*s_args, **s_kw))
+                    if not forwards_only:
+                        t["l2_step" + mode + " esl"] = med(
+                            lambda: l2_step(*s_args, tgt, **s_kw))
+                        t["march_bwd" + mode + " esl"] = med(
+                            lambda: march_bwd(*s_args, s_out, s_g, **s_kw))
             if name == "a" and not forwards_only:
                 e_args, e_kw = fwd_v3.ray_args(
                     view, scene.density, scene.premult_tf(), scene.ray_step,
@@ -487,6 +546,20 @@ def child(root: str, sass_file: str | None = None,
                 loss = torch.mean((img - target) ** 2)
                 return torch.autograd.grad(loss, params)
             t["step two-kernel phong"] = med(two_kernel_phong)
+        if name == "a" and has_esl:
+            for mode, kw_e in (("", {}), (" phong", dict(light_kd=0.6,
+                                                           phong=True))):
+                t["step onepass" + mode + " esl"] = med(
+                    lambda: diff_v3.l2_loss_grads_v3_onepass(
+                        scene, view, target, ray_threshold=2.0, esl=True,
+                        **kw_e)[0])
+
+                def two_kernel_esl():
+                    img = diff_v3.render_image_v3(
+                        scene, view, ray_threshold=2.0, esl=True, **kw_e)
+                    loss = torch.mean((img - target) ** 2)
+                    return torch.autograd.grad(loss, params)
+                t["step two-kernel" + mode + " esl"] = med(two_kernel_esl)
 
     # The diff_tri pair where chip_smoke.py runs it: the [96, 96, 128] crop.
     scene, view, target = crop_bench_scene(1024, device=dev)
@@ -533,8 +606,8 @@ class ClockSampler:
 
 
 # The variants the report's rows run on the benchmark pose (unshaded
-# unless named phong, which has kd 0.6; ERT off unless named; the
-# backwards whole): (scene, time key, variant, the key in
+# unless named phong, which has kd 0.6; ERT off unless named; ESL mode
+# where named esl; the backwards whole): (scene, time key, variant, the key in
 # the child's ``warp_steps`` of the lattice its warps step on). The
 # forwards' loop holds one sample an iteration, so their loop
 # instructions are a sample's and the issue-slot yardstick reads them;
@@ -549,10 +622,16 @@ VARIANT_ROWS = (
     ("a", "diff_blocked_fwd", "round1_fwd_kernel<1>", "a accumulating"),
     ("crop", "diff_tri_fwd", "round1_fwd_kernel<1>", "crop accumulating"),
     ("a", "march_fwd phong", "march_fwd_kernel<2,1>", "a"),
+    ("a", "march_fwd esl", "march_fwd_kernel<0,esl,1>", "a"),
+    ("a", "march_fwd phong esl", "march_fwd_kernel<2,esl,1>", "a"),
     ("a", "march_bwd", "march_bwd_kernel<0,1,1,1>", None),
     ("a", "l2_step", "l2_step_kernel<0,1,1,1>", None),
     ("a", "march_bwd phong", "march_bwd_kernel<2,1,1,1>", None),
     ("a", "l2_step phong", "l2_step_kernel<2,1,1,1>", None),
+    ("a", "march_bwd esl", "march_bwd_kernel<0,esl,1,1,1>", None),
+    ("a", "l2_step esl", "l2_step_kernel<0,esl,1,1,1>", None),
+    ("a", "march_bwd phong esl", "march_bwd_kernel<2,esl,1,1,1>", None),
+    ("a", "l2_step phong esl", "l2_step_kernel<2,esl,1,1,1>", None),
     ("a", "march_bwd ERT 0.95", "march_bwd_kernel<0,0,1,1>", None),
     ("a", "l2_step ERT 0.95", "l2_step_kernel<0,0,1,1>", None),
     ("a", "diff_blocked_bwd", "round1_bwd_kernel<1,1,1>", None),

@@ -15,8 +15,10 @@ voxels wide), ``fwd`` (``fwd_v3.render_float``) and
 ``ladder`` (``render_float`` of rung ``--renderer``), each on the
 benchmark's scene (``bench/harness.py``); ``--cli-look`` gives the ladder
 route the frame ``cli render`` renders by default instead (the camera at
-distance 3, diffuse kd 0.6, ERT 0.95, the leading ESL leap, whose lockstep
-rounds a frame it adds as ``leap_rounds``). Prints one JSON object: the
+distance 3, diffuse kd 0.6, ERT 0.95, the leading ESL leap, one launch of
+``esl_leap_kernel`` a frame); ``--esl`` turns ESL on for the benchmark
+scene (rung 5's and the steps' ESL mode, the leap on rungs 2-4). Prints
+one JSON object: the
 card's name and power limit, device time per step by kernel name, the
 window's wall time and the card's idle share in it (one minus device time
 over wall time, the host synchronising only at the window's end).
@@ -35,12 +37,13 @@ from volrt_torch.bench import harness
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
-from volrt_torch.renderers import batched, diff_v3, get_renderer
+from volrt_torch.renderers import diff_v3, get_renderer
 
 
 def make_step(route: str, volume_size: int, viewport: int,
               device: torch.device, renderer: int = 5,
-              cli_look: bool = False, blocked: bool = True):
+              cli_look: bool = False, blocked: bool = True,
+              esl: bool = False):
     """The benchmark's step for ``route`` as a no-argument callable."""
     if route in ("fwd", "ladder"):
         interp = "nearest" if renderer == 2 else "trilinear"
@@ -51,21 +54,23 @@ def make_step(route: str, volume_size: int, viewport: int,
                 Camera(dims=(viewport, viewport)).view(device),
                 interpolation=interp)
         else:
-            rc = harness.bench_pose(volume_size, viewport, device, interp)
+            rc = harness.bench_pose(volume_size, viewport, device,
+                                    interp).replace(esl=esl)
         render_float = get_renderer(renderer).render_float
         return lambda: render_float(rc)
     scene, view, target = harness.diff_bench_scene(volume_size, viewport,
                                                    device=device)
     if route == "onepass":
         return lambda: diff_v3.l2_loss_grads_v3_onepass(
-            scene, view, target, ray_threshold=2.0)
+            scene, view, target, ray_threshold=2.0, esl=esl)
 
     def two_kernel():
         if route == "round1":
             img = render_image_fused(scene, view, ray_threshold=2.0,
                                      blocked=blocked)
         else:
-            img = diff_v3.render_image_v3(scene, view, ray_threshold=2.0)
+            img = diff_v3.render_image_v3(scene, view, ray_threshold=2.0,
+                                          esl=esl)
         loss = torch.mean((img - target) ** 2)
         return loss, torch.autograd.grad(
             loss, [scene.density, scene.tf_base])
@@ -126,6 +131,9 @@ def main(argv=None) -> int:
     p.add_argument("--cli-look", action="store_true",
                    help="the ladder route renders cli render's default "
                    "frame instead of the benchmark pose")
+    p.add_argument("--esl", action="store_true",
+                   help="ESL on the benchmark scene: rung 5's and the "
+                   "steps' sample skipping, the leap on rungs 2-4")
     p.add_argument("--synthetic", type=int, default=256)
     p.add_argument("-s", "--size", type=int, default=1024)
     p.add_argument("--steps", type=int, default=10)
@@ -142,11 +150,12 @@ def main(argv=None) -> int:
         out.update(renderer=renderer, cli_look=args.cli_look)
     if args.route == "round1":
         out.update(blocked=bool(args.blocked))
+    if args.esl:
+        out.update(esl=True)
     out.update(trace(make_step(args.route, args.synthetic, args.size, device,
-                               renderer, args.cli_look, bool(args.blocked)),
+                               renderer, args.cli_look, bool(args.blocked),
+                               args.esl),
                      args.steps))
-    if args.cli_look:
-        out["leap_rounds"] = batched.esl_start_raw.rounds
     print(json.dumps(out))
     return 0
 

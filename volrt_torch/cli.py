@@ -17,8 +17,12 @@ default, as ``volrt``'s does. ``--shading phong`` renders on renderers 0-1
 trains with or without ``--fused``. ``fit`` takes ``render``'s arguments, so
 it fits a PVM or RAW file (``-f``) or the synthetic volume; its
 ``--checkpoint``, ``--checkpoint-every`` and ``--resume`` reach ``fit()``,
-which refuses them until checkpoints are ported. Still to come:
-``--orbit`` and ``--background`` of ``render``; ``--esl``, ``--dist`` and
+which refuses them until checkpoints are ported; its ``--esl`` trains
+with empty-space skipping (the one-launch step's ESL mode with
+``--fused``, the oracle's leading leap without). ``render`` leaps or
+skips empty space unless ``--no-esl`` is given (the leading leap on
+renderers 0-4, the kernel's sample skipping on renderer 5). Still to come:
+``--orbit`` and ``--background`` of ``render``; ``--dist`` and
 ``--grad-chunks`` of ``fit``.
 """
 from __future__ import annotations
@@ -47,8 +51,9 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ray-step", type=float, default=None)
     p.add_argument("--ray-threshold", type=float, default=0.95)
     p.add_argument("--no-esl", action="store_true",
-                   help="march from the cube's face instead of leaping "
-                   "over leading empty space (renderers 0-4)")
+                   help="march every sample: no leap over leading empty "
+                   "space (renderers 0-4), no skipping of empty samples "
+                   "(renderer 5)")
     p.add_argument("--no-ert", action="store_true")
     p.add_argument("--light-kd", type=float, default=0.6)
     p.add_argument("--shading", choices=("diffuse", "phong"),
@@ -183,7 +188,8 @@ def cmd_fit(args) -> int:
         log_every=max(1, args.steps // 10),
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
-        fused=args.fused, shading=shading, light_kd=args.light_kd)
+        fused=args.fused, shading=shading, light_kd=args.light_kd,
+        esl=args.esl)
     if losses:
         print(f"final loss {losses[-1]:.6f} after {len(losses)} steps in "
               f"{time.perf_counter() - t0:.2f} s on {device}",
@@ -274,6 +280,11 @@ def main(argv=None) -> int:
                    help="resume from --checkpoint (not ported yet)")
     p.add_argument("--fused", action="store_true",
                    help="train through the one-launch L2 step kernel")
+    p.add_argument("--esl", action="store_true",
+                   help="skip TF-empty space during training (the "
+                   "kernel's sample skipping with --fused, the leading "
+                   "leap without; the TF gets no gradient from skipped "
+                   "samples)")
     p.set_defaults(fn=cmd_fit)
 
     p = sub.add_parser(

@@ -65,9 +65,18 @@ def pack_bitmask(empty: torch.Tensor) -> torch.Tensor:
     return (empty.to(torch.int64) * weights).sum(-1).reshape(-1)
 
 
+def pack_words(empty: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_bitmask` as the kernels read it: ``int32[1024]`` holding
+    the ``uint32`` words' bits (torch has no ``uint32`` arithmetic)."""
+    words = pack_bitmask(empty)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
 def unpack_bitmask(words: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack_bitmask`."""
-    words = words.to(torch.int64).reshape(ESL_VOLUME_DIMS, ESL_VOLUME_DIMS, 1)
+    """Inverse of :func:`pack_bitmask` and :func:`pack_words`."""
+    words = (words.to(torch.int64) & 0xFFFFFFFF).reshape(
+        ESL_VOLUME_DIMS, ESL_VOLUME_DIMS, 1)
     shifts = torch.arange(32, device=words.device)
     return ((words >> shifts) & 1).to(torch.bool)
 
@@ -85,6 +94,14 @@ def empty_distance_grid(empty: torch.Tensor) -> torch.Tensor:
         m = -F.max_pool3d(-d, kernel_size=3, stride=1, padding=1)
         d = torch.minimum(d, m + 1.0)
     return d[0, 0].to(torch.int64)
+
+
+def esl_tables(empty: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the kernels read of an emptiness grid, built once per TF:
+    ``(dist, words)``, the distance grid as ``int32[32, 32, 32]`` (the
+    leading leap's, :func:`empty_distance_grid`) and the packed words
+    ``int32[1024]`` (the v3 kernels' ESL mode, :func:`pack_words`)."""
+    return empty_distance_grid(empty).to(torch.int32), pack_words(empty)
 
 
 def _block_idx(pos: torch.Tensor, dims: tuple[int, int, int],
@@ -118,4 +135,7 @@ def leap_distance(pos: torch.Tensor, directions: torch.Tensor,
     kp = (boundary - pos) / directions
     kp = torch.where(directions == 0.0, 100.0, kp)
     dk = kp.amin(dim=-1).clamp(min=0.0)
-    return torch.floor(dk / ray_step) * ray_step
+    # The divisor is a tensor on dk's device: torch divides a CUDA tensor
+    # by a Python number as a product with its reciprocal, which rounds
+    # otherwise than the CPU's division and the leap kernel's.
+    return torch.floor(dk / dk.new_full((), ray_step)) * ray_step

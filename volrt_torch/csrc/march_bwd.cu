@@ -1,8 +1,9 @@
 // Backward march of the rung-5 render on Hopper: one thread per ray.
 //
 // Replaces volrt/renderers/pallas/diff_v3.py:_bwd_kernel in its unshaded,
-// diffuse and phong modes over an f32 volume (the slab mode's acc0
-// cotangent, ESL and saved samples are not ported yet). The TPU kernel
+// diffuse and phong modes, each with ESL and without, over an f32 volume
+// (the slab mode's acc0 cotangent and saved samples are not ported yet);
+// with ESL the replay skips the forward's samples. The TPU kernel
 // batches a band group's cotangent chain, scatters dTF and dVol with
 // one-hot matrix products into a VMEM accumulator and flushes that to HBM
 // in planned flush passes; here each ray replays its own march
@@ -42,13 +43,17 @@ namespace {
 
 using namespace volrt;
 
-template <Shade S, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) march_bwd_kernel(
-    MarchArgs a, const float* out, const float* g, GradArgs gr) {
+    MarchArgs a, const float* out, const float* g, GradArgs gr, EslArgs esl) {
   __shared__ float4 lut[LUT_ROWS];
   __shared__ float dtf[NEED_DTF ? WARPS * TF_SIZE : 1][4];
   stage_padded_lut(a, lut);
   if (NEED_DTF) clear_dtf(dtf, WARPS);
+  if constexpr (E == Esl::kOn) {
+    __shared__ unsigned words[ESL_DIMS * ESL_DIMS];
+    esl = stage_esl(esl, words);
+  }
   __syncthreads();
 
   Ray ray{};
@@ -57,65 +62,79 @@ __global__ void __launch_bounds__(TILE * TILE) march_bwd_kernel(
   float G = 0.f;
   const bool live = start_replay(a, out, g, ray_index(a), ray, li, g4, G);
   // The whole warp, lanes with no ray to replay too (march_replay).
-  march_replay<S, NO_ERT, NEED_DTF, NEED_DVOL>(
-      a, lut, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G, live);
+  march_replay<S, E, NO_ERT, NEED_DTF, NEED_DVOL>(
+      a, lut, esl, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G,
+      live);
   if (NEED_DTF) {
     __syncthreads();
     flush_dtf(dtf, WARPS, gr.d_tf);
   }
 }
 
-template <Shade S, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 void launch(const MarchArgs& a, const float* out, const float* g,
-            const GradArgs& gr, cudaStream_t stream) {
-  march_bwd_kernel<S, NO_ERT, NEED_DTF, NEED_DVOL>
-      <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out, g, gr);
+            const GradArgs& gr, const EslArgs& esl, cudaStream_t stream) {
+  march_bwd_kernel<S, E, NO_ERT, NEED_DTF, NEED_DVOL>
+      <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out, g, gr, esl);
 }
 
-template <Shade S, bool NO_ERT>
+template <Shade S, Esl E, bool NO_ERT>
 void launch_need(const MarchArgs& a, const float* out, const float* g,
-                 const GradArgs& gr, bool dtf, bool dvol, cudaStream_t s) {
+                 const GradArgs& gr, const EslArgs& esl, bool dtf, bool dvol,
+                 cudaStream_t s) {
   if (dtf) {
-    dvol ? launch<S, NO_ERT, true, true>(a, out, g, gr, s)
-         : launch<S, NO_ERT, true, false>(a, out, g, gr, s);
+    dvol ? launch<S, E, NO_ERT, true, true>(a, out, g, gr, esl, s)
+         : launch<S, E, NO_ERT, true, false>(a, out, g, gr, esl, s);
   } else if (dvol) {
-    launch<S, NO_ERT, false, true>(a, out, g, gr, s);
+    launch<S, E, NO_ERT, false, true>(a, out, g, gr, esl, s);
   }
+}
+
+template <Shade S, Esl E>
+void launch_ert(const MarchArgs& a, const float* out, const float* g,
+                const GradArgs& gr, const EslArgs& esl, bool no_ert, bool dtf,
+                bool dvol, cudaStream_t s) {
+  no_ert ? launch_need<S, E, true>(a, out, g, gr, esl, dtf, dvol, s)
+         : launch_need<S, E, false>(a, out, g, gr, esl, dtf, dvol, s);
 }
 
 template <Shade S>
 void launch_mode(const MarchArgs& a, const float* out, const float* g,
-                 const GradArgs& gr, bool no_ert, bool dtf, bool dvol,
-                 cudaStream_t s) {
-  no_ert ? launch_need<S, true>(a, out, g, gr, dtf, dvol, s)
-         : launch_need<S, false>(a, out, g, gr, dtf, dvol, s);
+                 const GradArgs& gr, const EslArgs& esl, bool no_ert,
+                 bool dtf, bool dvol, cudaStream_t s) {
+  esl.words
+      ? launch_ert<S, Esl::kOn>(a, out, g, gr, esl, no_ert, dtf, dvol, s)
+      : launch_ert<S, Esl::kOff>(a, out, g, gr, esl, no_ert, dtf, dvol, s);
 }
 
 }  // namespace
 
 // Launches the backward march on `stream` and returns cudaGetLastError().
 // `out` is the forward's image, `g` its cotangent; `d_vol` and `d_tf` must
-// come in zero-filled and are accumulated into. Shapes, types and
-// contiguity are checked by the Python wrapper.
+// come in zero-filled and are accumulated into. `esl_words` and
+// `esl_block` are the forward's ESL grid (null and 0 without ESL). Shapes,
+// types and contiguity are checked by the Python wrapper.
 extern "C" int volrt_march_bwd(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
     const void* tf, const void* scal, const void* out, const void* g,
     void* d_vol, void* d_tf, int n, int width, float step, int max_steps,
-    int shade, int no_ert, int need_dtf, int need_dvol, void* stream) {
+    int shade, int no_ert, int need_dtf, int need_dvol, const void* esl_words,
+    int esl_block, void* stream) {
   const MarchArgs a = make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                       tf, scal, n, width, step, max_steps);
   const GradArgs gr{static_cast<float*>(d_vol), static_cast<float*>(d_tf)};
+  const EslArgs esl = make_esl_args(esl_words, esl_block);
   const float* co = static_cast<const float*>(out);
   const float* cg = static_cast<const float*>(g);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dtf = need_dtf != 0, dvol = need_dvol != 0;
   if (shade == 2) {
-    launch_mode<Shade::kPhong>(a, co, cg, gr, no_ert, dtf, dvol, s);
+    launch_mode<Shade::kPhong>(a, co, cg, gr, esl, no_ert, dtf, dvol, s);
   } else if (shade) {
-    launch_mode<Shade::kDiffuse>(a, co, cg, gr, no_ert, dtf, dvol, s);
+    launch_mode<Shade::kDiffuse>(a, co, cg, gr, esl, no_ert, dtf, dvol, s);
   } else {
-    launch_mode<Shade::kNone>(a, co, cg, gr, no_ert, dtf, dvol, s);
+    launch_mode<Shade::kNone>(a, co, cg, gr, esl, no_ert, dtf, dvol, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@
 // loops and the backward's replay built on it: ray loading, the trilinear
 // cell and its clamp-addressed taps, nearest mode's voxel, the TF lerp from
 // padded rows, the one-tap diffuse, gradient Blinn-Phong and its backward
-// chain, the composite with its ERT latch, and the warp-level scatter of
-// the analytic backward.
+// chain, the composite with its ERT latch, the warp-level scatter of the
+// analytic backward, the v3 kernels' ESL test and the leading leap of
+// rungs 2-4 (esl_leap.cu).
 //
 // One copy, so that the backward's replay takes exactly the forward's
 // samples, opens the shade gate on the same samples and crosses the ERT
@@ -373,6 +374,7 @@ struct Sample {
   float f;       // the weight of the second row
   float c[4];    // premultiplied RGBA, shaded
   bool gate;     // the shade gate opened (alpha and kd above their gates)
+  bool skip;     // ESL skipped it: c is 0 and nothing else is valid
   PhongTerms ph; // phong's terms, valid where gate
 };
 
@@ -507,15 +509,97 @@ __device__ __forceinline__ void sample_at(const MarchArgs& a, const Grid& g,
       add(ray.oy, mul(ray.dy, k)), add(ray.oz, mul(ray.dz, k)), q, e);
 }
 
+// Empty-space skipping (ESL) of the v3 kernels: a sample is skipped when
+// every ESL block of its clamp-addressed trilinear cell, the blocks of its
+// low and high tap on each axis (at most eight), is empty under the TF.
+// That is the footprint test of volrt's plan-time group compaction
+// (volrt/renderers/pallas/diff_v3.py:583-621, brange) taken for one sample
+// rather than for a group of them, so this skips what volrt skips and
+// more. The grid is the reference's packed bitmask (core/esl.py:
+// pack_bitmask): word z * 32 + y, bit x, 1 where the block is empty, 4 KB
+// staged in shared memory. A block's edge need not be a power of two (10
+// voxels for a volume 300 wide), so a tap's block is its index times a
+// magic number, high word: i / b = umulhi(i, ceil(2^32 / b)) for every
+// i < 2^30.
+//
+// A skipped sample composites nothing and its colour is 0, so the ray's
+// opacity and the replay's chain stay as they were; the lattice does not
+// move (i counts every step). The forward and both replays take their
+// samples through take_sample below, so they skip the same ones, which
+// the replay's suffix sum needs. Phong's normal taps need no wider
+// footprint: a skipped sample has alpha 0, under phong's gate.
+enum class Esl { kOff, kOn };
+
+constexpr int ESL_DIMS = 32;
+
+struct EslArgs {
+  const unsigned* words;  // [32 * 32] packed emptiness (shared once staged)
+  unsigned magic;         // ceil(2^32 / block edge)
+};
+
+inline EslArgs make_esl_args(const void* words, int block) {
+  return EslArgs{static_cast<const unsigned*>(words),
+                 block > 0 ? static_cast<unsigned>(
+                                 (0x100000000ull + block - 1) / block)
+                           : 0u};
+}
+
+// The grid in shared memory, `words` [32 * 32]; the caller synchronises.
+__device__ __forceinline__ EslArgs stage_esl(const EslArgs& e,
+                                             unsigned* words) {
+  const int tid = threadIdx.y * TILE + threadIdx.x;
+  for (int i = tid; i < ESL_DIMS * ESL_DIMS; i += TILE * TILE) {
+    words[i] = e.words[i];
+  }
+  return EslArgs{words, e.magic};
+}
+
+// One axis of the cell at p (cell_axis' t and floor, which the compiler
+// shares with it): the ESL blocks of its low and high tap.
+__device__ __forceinline__ void esl_axis(float p, float half_n, int n,
+                                         unsigned magic, unsigned& lo,
+                                         unsigned& hi) {
+  const int i = floor_int(floor_biased(sub(mul(add(p, 1.f), half_n), 0.5f)));
+  lo = __umulhi(static_cast<unsigned>(min(max(i, 0), n - 1)), magic);
+  hi = __umulhi(static_cast<unsigned>(min(max(i + 1, 0), n - 1)), magic);
+}
+
+// Whether every ESL block of the cell at p is empty.
+__device__ __forceinline__ bool esl_empty_cell(const EslArgs& e,
+                                               const Grid& g, float px,
+                                               float py, float pz) {
+  unsigned x0, x1, y0, y1, z0, z1;
+  esl_axis(px, g.hx, g.w, e.magic, x0, x1);
+  esl_axis(py, g.hy, g.h, e.magic, y0, y1);
+  esl_axis(pz, g.hz, g.depth, e.magic, z0, z1);
+  const unsigned bits = (1u << x0) | (1u << x1);
+  const unsigned* w = e.words;
+  return (w[z0 * ESL_DIMS + y0] & w[z0 * ESL_DIMS + y1] &
+          w[z1 * ESL_DIMS + y0] & w[z1 * ESL_DIMS + y1] & bits) == bits;
+}
+
 // Sample i of the ray on the lattice k0 + i*step, i counted in f32 (exact
 // below 2^24, where max_steps lies): false once the ray has left the cube.
-template <Shade S>
+// With ESL a sample whose cell is empty comes back with q.skip set and
+// colour 0, its taps never loaded.
+template <Shade S, Esl E>
 __device__ __forceinline__ bool take_sample(const MarchArgs& a, const Grid& g,
                                             const float4* lut, const Ray& ray,
                                             const Light& li, const Eye& e,
-                                            float i, Sample& q) {
+                                            const EslArgs& esl, float i,
+                                            Sample& q) {
   const float k = add(ray.ks, mul(i, a.step));
   if (!(k <= ray.ke)) return false;
+  if constexpr (E == Esl::kOn) {
+    q.skip = esl_empty_cell(esl, g, add(ray.ox, mul(ray.dx, k)),
+                            add(ray.oy, mul(ray.dy, k)),
+                            add(ray.oz, mul(ray.dz, k)));
+    if (q.skip) {
+      q.c[0] = q.c[1] = q.c[2] = q.c[3] = 0.f;
+      q.gate = false;
+      return true;
+    }
+  }
   sample_at<S>(a, g, lut, ray, li, e, k, q);
   return true;
 }
@@ -529,10 +613,11 @@ __device__ __forceinline__ void composite(float acc[4], const float c[4]) {
 
 // The forward march of one live ray on the lattice k0 + i*step: acc must
 // come in as zeros. One sample an iteration, so that the loop's SASS counts
-// a sample.
-template <Shade S, bool NO_ERT>
+// a sample. `esl` is the staged grid (unread without ESL).
+template <Shade S, Esl E, bool NO_ERT>
 __device__ __forceinline__ void march_forward(const MarchArgs& a,
                                               const float4* lut,
+                                              const EslArgs& esl,
                                               const Ray& ray, const Light& li,
                                               float acc[4]) {
   const Grid g = make_grid(a);
@@ -541,7 +626,8 @@ __device__ __forceinline__ void march_forward(const MarchArgs& a,
   Sample q;
 #pragma unroll 1
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
-    if (!take_sample<S>(a, g, lut, ray, li, e, i, q)) break;
+    if (!take_sample<S, E>(a, g, lut, ray, li, e, esl, i, q)) break;
+    if (E == Esl::kOn && q.skip) continue;
     composite(acc, q.c);
     if (!NO_ERT && acc[3] > li.thr) break;
   }
@@ -874,10 +960,13 @@ __device__ __forceinline__ bool start_replay(const MarchArgs& a,
 // The replay of one ray on the forward's lattice k0 + i*step. Every lane
 // of the warp calls it, those with no ray to replay too (`live` false): the
 // lanes stay in one loop until the warp's last ray has ended, each adding
-// only while its own ray is live.
-template <Shade S, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+// only while its own ray is live. With ESL a skipped sample takes part as
+// a lane that adds nothing (its colour 0 leaves the chain as it was), and
+// a step where no live lane of the warp has a sample is passed over whole.
+template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const float4* lut,
+                                             const EslArgs& esl,
                                              float (*wdtf)[4], float* d_vol,
                                              const Ray& ray, const Light& li,
                                              const float g4[4], float G,
@@ -888,10 +977,15 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
   Sample q{};
   Chain ch;
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
-    if (live) live = take_sample<S>(a, g, lut, ray, li, e, i, q);
+    if (live) live = take_sample<S, E>(a, g, lut, ray, li, e, esl, i, q);
     if (!__any_sync(FULL_WARP, live)) break;
+    bool adds = live;
+    if constexpr (E == Esl::kOn) {
+      adds = live && !q.skip;
+      if (!__any_sync(FULL_WARP, adds)) continue;
+    }
     replay_sample<S, NEED_DTF, NEED_DVOL, true>(lut, wdtf, d_vol, li, g4, G,
-                                                q, ch, live);
+                                                q, ch, adds);
     if (!NO_ERT && ch.acc_a > li.thr) live = false;
   }
 }
@@ -922,6 +1016,83 @@ __device__ __forceinline__ void march_replay_round1(
       live = false;
     }
   }
+}
+
+// The leading empty-space leap of rungs 2-4, one ray a thread: where each
+// ray starts its march (volrt_torch/renderers/batched.py:esl_start_raw,
+// volrt/renderers/batched.py:41-86). A ray in a block m blocks (Chebyshev,
+// the distance grid of core/esl.py:empty_distance_grid) from the nearest
+// non-empty one leaps the larger of the way to its block's exit face and
+// m - 1 block widths, each rounded down to whole steps, plus one step,
+// until it stands in a block with m == 0 or past kfar, at most max_rounds
+// times. Every operation is the plain version's, rounded alike: the
+// divisions by a tensor (not a product with a reciprocal), the norm
+// (x*x + y*y) + z*z, the voxel index truncated as torch's int64 cast
+// truncates; so k0 equals the plain version's to the bit.
+struct LeapArgs {
+  const float* o;       // [N, 3]
+  const float* d;       // [N, 3]
+  const float* knear;   // [N]
+  const float* kfar;    // [N]
+  const bool* hit;      // [N]
+  const int* dist;      // [32, 32, 32] distance grid, [z, y, x]
+  int w, h, depth, block;
+  float bw[3];          // a block's edge in world units, x, y, z
+  float min_bw;         // the least of bw
+  float step;
+  int max_rounds, n;
+};
+
+// The ESL block along one axis of world coordinate p: the voxel
+// trunc((p + 1) * 0.5 * n), clamped, over the block edge.
+__device__ __forceinline__ int leap_block(float p, int n, int block) {
+  const int i = __float2int_rz(mul(mul(add(p, 1.f), 0.5f),
+                                   static_cast<float>(n)));
+  return min(max(i, 0), n - 1) / block;
+}
+
+// The ray parameter from p to the far face of its block `b` along one
+// axis (core/esl.py:leap_distance), 100 where the ray does not move along
+// it.
+__device__ __forceinline__ float leap_face(float p, float d, int b,
+                                           float bw) {
+  if (d == 0.f) return 100.f;
+  const float face = add(-1.f, mul(bw, static_cast<float>(b + (d > 0.f))));
+  return __fdiv_rn(sub(face, p), d);
+}
+
+__device__ __forceinline__ float leap_start(const LeapArgs& a, int r) {
+  float k = a.knear[r];
+  if (!a.hit[r]) return k;
+  const float ox = a.o[3 * r], oy = a.o[3 * r + 1], oz = a.o[3 * r + 2];
+  const float dx = a.d[3 * r], dy = a.d[3 * r + 1], dz = a.d[3 * r + 2];
+  const float ke = a.kfar[r];
+  // Perspective directions are not normalised: the safe radius in world
+  // units becomes one in ray parameters.
+  const float dnorm = __fsqrt_rn(
+      add(add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz)), 1e-20f));
+#pragma unroll 1
+  for (int i = 0; i < a.max_rounds; ++i) {
+    const float px = add(ox, mul(dx, k)), py = add(oy, mul(dy, k)),
+                pz = add(oz, mul(dz, k));
+    const int bx = leap_block(px, a.w, a.block);
+    const int by = leap_block(py, a.h, a.block);
+    const int bz = leap_block(pz, a.depth, a.block);
+    const int m = a.dist[(bz * ESL_DIMS + by) * ESL_DIMS + bx];
+    if (!(k <= ke) || m < 1) break;
+    float dk = fminf(fminf(leap_face(px, dx, bx, a.bw[0]),
+                           leap_face(py, dy, by, a.bw[1])),
+                     leap_face(pz, dz, bz, a.bw[2]));
+    dk = dk < 0.f ? 0.f : dk;
+    const float face = mul(floorf(__fdiv_rn(dk, a.step)), a.step);
+    const float ball = mul(
+        floorf(__fdiv_rn(__fdiv_rn(mul(static_cast<float>(m - 1), a.min_bw),
+                                   dnorm),
+                         a.step)),
+        a.step);
+    k = add(add(k, fmaxf(face, ball)), a.step);
+  }
+  return k;
 }
 
 // Clears the block's shared dTF accumulator, `copies` of [TF_SIZE][4].

@@ -1,8 +1,10 @@
 // Forward march of the rung-5 render on Hopper: one thread per ray.
 //
 // Replaces volrt/renderers/pallas/diff_v3.py:_fwd_kernel in its unshaded,
-// diffuse and phong modes over an f32 volume (slab mode, saved samples,
-// ESL and bf16 storage are not ported yet). The TPU kernel gathers with
+// diffuse and phong modes, each with ESL and without, over an f32 volume
+// (slab mode, saved samples and bf16 storage are not ported yet). The TPU
+// kernel's ESL drops planned groups of samples; here each sample is tested
+// (Esl::kOn, march_common.cuh:esl_empty_cell). The TPU kernel gathers with
 // one-hot matrix products over planned window bricks because Mosaic has no
 // per-lane gather; here every ray loads its own eight taps, so none of the
 // window planning, brick DMA, x-phase copies or band groups exist, and the
@@ -46,52 +48,73 @@ namespace {
 
 using namespace volrt;
 
-template <Shade S, bool NO_ERT>
+template <Shade S, Esl E, bool NO_ERT>
 __global__ void __launch_bounds__(TILE * TILE) march_fwd_kernel(MarchArgs a,
-                                                                float* out) {
+                                                                float* out,
+                                                                EslArgs esl) {
   __shared__ float4 lut[LUT_ROWS];
   stage_padded_lut(a, lut);
+  if constexpr (E == Esl::kOn) {
+    __shared__ unsigned words[ESL_DIMS * ESL_DIMS];
+    esl = stage_esl(esl, words);
+  }
   __syncthreads();
 
   const int r = ray_index(a);
   if (r < 0) return;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (a.alive[r]) {
-    march_forward<S, NO_ERT>(a, lut, load_ray(a, r), load_light(a), acc);
+    march_forward<S, E, NO_ERT>(a, lut, esl, load_ray(a, r), load_light(a),
+                                acc);
   }
   reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-template <Shade S, bool NO_ERT>
-void launch(const MarchArgs& a, float* out, cudaStream_t stream) {
-  march_fwd_kernel<S, NO_ERT><<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out);
+template <Shade S, Esl E, bool NO_ERT>
+void launch(const MarchArgs& a, float* out, const EslArgs& esl,
+            cudaStream_t stream) {
+  march_fwd_kernel<S, E, NO_ERT>
+      <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out, esl);
+}
+
+template <Shade S, Esl E>
+void launch_ert(const MarchArgs& a, float* out, const EslArgs& esl,
+                bool no_ert, cudaStream_t s) {
+  no_ert ? launch<S, E, true>(a, out, esl, s)
+         : launch<S, E, false>(a, out, esl, s);
 }
 
 template <Shade S>
-void launch_ert(const MarchArgs& a, float* out, bool no_ert, cudaStream_t s) {
-  no_ert ? launch<S, true>(a, out, s) : launch<S, false>(a, out, s);
+void launch_esl(const MarchArgs& a, float* out, const EslArgs& esl,
+                bool no_ert, cudaStream_t s) {
+  esl.words ? launch_ert<S, Esl::kOn>(a, out, esl, no_ert, s)
+            : launch_ert<S, Esl::kOff>(a, out, esl, no_ert, s);
 }
 
 }  // namespace
 
 // Launches the march on `stream` and returns cudaGetLastError() as an int.
-// `shade` is 0 (none), 1 (the diffuse tap) or 2 (phong). Shapes, types and
+// `shade` is 0 (none), 1 (the diffuse tap) or 2 (phong). `esl_words` is
+// the packed ESL grid (u32[32 * 32]) and `esl_block` its block edge in
+// voxels, or null and 0 to march every sample. Shapes, types and
 // contiguity are checked by the Python wrapper.
 extern "C" int volrt_march_fwd(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
     const void* tf, const void* scal, void* out, int n, int width,
-    float step, int max_steps, int shade, int no_ert, void* stream) {
+    float step, int max_steps, int shade, int no_ert, const void* esl_words,
+    int esl_block, void* stream) {
   const MarchArgs a = make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                       tf, scal, n, width, step, max_steps);
+  const EslArgs esl = make_esl_args(esl_words, esl_block);
   float* dst = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shade == 2) {
-    launch_ert<Shade::kPhong>(a, dst, no_ert, s);
+    launch_esl<Shade::kPhong>(a, dst, esl, no_ert, s);
   } else if (shade) {
-    launch_ert<Shade::kDiffuse>(a, dst, no_ert, s);
+    launch_esl<Shade::kDiffuse>(a, dst, esl, no_ert, s);
   } else {
-    launch_ert<Shade::kNone>(a, dst, no_ert, s);
+    launch_esl<Shade::kNone>(a, dst, esl, no_ert, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

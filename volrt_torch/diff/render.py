@@ -28,11 +28,13 @@ from volrt_torch.constants import (
     SHADE_ALPHA_GATE,
     SHADE_KD_GATE,
 )
+from volrt_torch.core import esl as esl_mod
 from volrt_torch.core import rays as rays_mod
 from volrt_torch.core import sampling
 from volrt_torch.core import tf as tf_mod
 from volrt_torch.core.device import resolve_device
-from volrt_torch.core.types import View
+from volrt_torch.core.types import View, default_esl_block_dims
+from volrt_torch.renderers.batched import esl_start_raw
 from volrt_torch.renderers.common import classify_and_shade
 from volrt_torch.renderers.cuda.march import max_steps
 
@@ -64,10 +66,27 @@ class DiffScene(nn.Module):
         return tf_mod.premultiply(self.tf_base)
 
 
-def _unported(esl: bool) -> None:
-    if esl:
-        raise NotImplementedError(
-            "esl=True is not ported yet (ROADMAP.md, queue 1: ESL)")
+def scene_empty_grid(scene: DiffScene
+                     ) -> tuple[torch.Tensor, int, tuple[float, ...]]:
+    """The ESL emptiness grid of a float scene under its live TF
+    (``volrt/diff/render.py:57-86``): the density rounded to uint8 drives
+    the reference's min/max block grid, and the premultiplied ``tf_base``
+    says which blocks are empty -> ``(empty bool[32, 32, 32], block_dims,
+    block_size)``, as :func:`batched.esl_start_raw` takes them.
+
+    ESL is a forward optimisation: a skipped sample contributes no colour
+    under the current TF, but its (possibly nonzero) TF gradient is
+    skipped too, so a TF cannot open a density range that it maps to zero
+    opacity while every step skips it (``fit(esl_refresh_every=)``)."""
+    with torch.no_grad():
+        d, h, w = scene.density.shape
+        u8 = torch.round(scene.density * 255.0).clamp(0, 255).to(
+            torch.uint8)
+        block = default_esl_block_dims((w, h, d))
+        empty = esl_mod.derive_empty_grid(
+            esl_mod.build_min_max_grid(u8, block),
+            tf_mod.premultiply(scene.tf_base))
+    return empty, block, (2.0 * block / w, 2.0 * block / h, 2.0 * block / d)
 
 
 def _safe_normalize(v: torch.Tensor) -> torch.Tensor:
@@ -118,15 +137,21 @@ def render_diff(scene: DiffScene, origins: torch.Tensor,
     ``light_pos`` turns on the reference's gated one-tap diffuse with
     ``light_kd``, differentiable through both taps. ``phong=True``
     (requires ``light_pos``) replaces it with gradient Blinn-Phong.
-    ``esl=True`` raises ``NotImplementedError``.
+    ``esl=True`` leaps each ray's leading empty space
+    (:func:`batched.esl_start_raw` on :func:`scene_empty_grid`, as
+    ``volrt``'s oracle does) and marches from there.
     """
-    _unported(esl)
     if phong and light_pos is None:
         raise ValueError("phong=True requires light_pos")
     lead = origins.shape[:-1]
     o = origins.reshape(-1, 3)
     d = directions.reshape(-1, 3)
     knear, kfar, hit = rays_mod.intersect_aabb(o, d)
+    if esl:
+        dp, hp, wp = scene.density.shape
+        empty, block, bs = scene_empty_grid(scene)
+        knear = esl_start_raw(empty, (wp, hp, dp), block, bs,
+                              scene.ray_step, o, d, knear, kfar, hit)
     n_steps = max_steps(scene.ray_step)
     steps = torch.arange(n_steps, dtype=torch.float32,
                          device=o.device) * scene.ray_step
@@ -173,11 +198,12 @@ def render_diff_image(scene: DiffScene, view: View,
 
     ``shaded=True`` applies the diffuse light tap with the view's light
     position and ``light_kd``; ``phong=True`` applies gradient Blinn-Phong
-    instead."""
-    _unported(esl)
+    instead. ``esl=True`` leaps each ray's leading empty space
+    (:func:`render_diff`)."""
     origins, directions = rays_mod.get_rays(view)
     return render_diff(
-        scene, origins, directions, ray_threshold, light_kd=light_kd,
+        scene, origins, directions, ray_threshold, esl=esl,
+        light_kd=light_kd,
         light_pos=view.light_pos if (shaded or phong) else None, phong=phong)
 
 

@@ -2,7 +2,7 @@
 
 Hand-written CUDA kernels, one thread per ray. Three replace kernels of
 ``volrt/renderers/pallas/diff_v3.py`` (unshaded, diffuse and phong modes,
-f32):
+each with ESL and without, f32):
 
 - :func:`march_fwd` (``csrc/march_fwd.cu``): ``_fwd_kernel``, the forward
   march;
@@ -25,7 +25,8 @@ as rungs 0-1 do instead of ``k0 + i*step``:
   volume, converted on fetch.
 
 The four kernels of the round-1 differentiable routes have their wrappers
-in ``round1.py`` beside this file, on this file's helpers.
+in ``round1.py`` beside this file, and the leading ESL leap of rungs 2-4
+in ``leap.py``, on this file's helpers.
 
 On CUDA tensors a wrapper launches its kernel (built at first use) or
 raises; on CPU tensors it runs its plain version (``*_plain``), a lockstep
@@ -36,7 +37,10 @@ autograd, so that autograd through ``diff/render.py`` stays an independent
 check of both. Phong is v3's (:func:`phong_v3`: the gradient's taps one
 clipped voxel to either side), not rungs 0-1's (``renderers/common.py``:
 the world point moved by 2/n, normalised by a division), so that kernel
-and plain version take the same operations.
+and plain version take the same operations. ESL (``esl=(words,
+block)``) skips a sample when every ESL block of its trilinear cell is
+empty (:class:`EslSkip`), where ``volrt`` drops whole groups of samples by
+the same footprint test; the forward and the replay skip the same ones.
 
 Gradients are summed with atomics on the card, in an order that changes
 from run to run, so two runs agree to rounding, not to the bit. Images do
@@ -59,6 +63,7 @@ from volrt_torch.constants import (
     SHADE_LIGHT_OFFSET,
     TF_SIZE,
 )
+from volrt_torch.core import esl as esl_mod
 from volrt_torch.core import sampling
 from volrt_torch.renderers.common import (
     add_diffuse,
@@ -70,6 +75,8 @@ from volrt_torch.renderers.common import (
 
 # Pixel block edge of the kernels (csrc/march_common.cuh: TILE).
 TILE = 16
+# Words of the packed ESL grid (csrc/march_common.cuh: ESL_DIMS^2).
+ESL_WORDS = 32 * 32
 # Rays per lockstep chunk of the plain marches: keeps 1024^2 in memory.
 PLAIN_CHUNK = 1 << 18
 # Samples a ray may take, at most (exclusive): the kernels' f32 count of
@@ -84,10 +91,14 @@ _RAY_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 _FWD_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _I, _P]
 # ..., out, n, width, step, max_steps, nearest, shade, no_ert, stream
 _TRI_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _I, _I, _P]
+# The v3 kernels' ESL grid after their other arguments: words, block.
+_ESL_ARGTYPES = [_P, _I]
+# ..., out, n, width, step, max_steps, shade, no_ert, esl, stream
+_V3_FWD_ARGTYPES = _FWD_ARGTYPES[:-1] + _ESL_ARGTYPES + [_P]
 # ..., image in, image or cotangent, d_vol, d_tf, n, width, step,
-# max_steps, shade, no_ert, need_dtf, need_dvol, stream
+# max_steps, shade, no_ert, need_dtf, need_dvol, esl, stream
 _GRAD_ARGTYPES = _RAY_ARGTYPES + [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
-                                  _I, _P]
+                                  _I] + _ESL_ARGTYPES + [_P]
 
 
 def max_steps(ray_step: float) -> int:
@@ -105,10 +116,11 @@ def max_steps(ray_step: float) -> int:
 
 def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
            volume_dtype: torch.dtype = torch.float32, shade: bool = False,
-           phong: bool = False, **images) -> None:
+           phong: bool = False, esl=None, **images) -> None:
     """Refuse what the kernels do not take. ``density`` is the volume, of
     ``volume_dtype``. ``shade`` and ``phong`` are the shading modes asked
-    for, of which a kernel takes one at most. ``images`` are further
+    for, of which a kernel takes one at most. ``esl`` is ``None`` or the
+    v3 kernels' ESL grid ``(words, block)``. ``images`` are further
     ``f32[N, 4]`` tensors in raster order (an image, a cotangent, a
     target), by name."""
     if shade and phong:
@@ -126,9 +138,30 @@ def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
     }
     for name, t in images.items():
         want[name] = (t, torch.float32, (n, 4))
+    if esl is not None:
+        words, block = esl
+        want["esl words"] = (words, torch.int32, (ESL_WORDS,))
+        if not (isinstance(block, int) and block >= 1):
+            raise ValueError(f"the ESL block edge must be an int >= 1, "
+                             f"got {block!r}")
+    check_tensors(want, o.device)
+    if density.dim() != 3 or density.numel() >= 2 ** 31:
+        raise ValueError("density must be [D, H, W] with under 2^31 voxels")
+    if width <= 0 or n % width:
+        raise ValueError(f"width {width} does not divide the {n} rays")
+    if -(-(n // width) // TILE) > 65535:
+        raise ValueError(f"{n // width} image rows exceed the launch grid")
+
+
+def check_tensors(want: dict, device: torch.device) -> None:
+    """Refuse a tensor that a kernel cannot take: ``want`` maps a name to
+    ``(tensor, dtype, shape)``; each must be on ``device`` (the CPU or a
+    card), of that dtype and shape, and contiguous."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cpu or cuda, not {device}")
     for name, (t, dtype, shape) in want.items():
-        if t.device != o.device:
-            raise ValueError(f"{name} is on {t.device}, o on {o.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
@@ -136,14 +169,6 @@ def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if density.dim() != 3 or density.numel() >= 2 ** 31:
-        raise ValueError("density must be [D, H, W] with under 2^31 voxels")
-    if width <= 0 or n % width:
-        raise ValueError(f"width {width} does not divide the {n} rays")
-    if -(-(n // width) // TILE) > 65535:
-        raise ValueError(f"{n // width} image rows exceed the launch grid")
-    if o.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the march runs on cpu or cuda, not {o.device}")
 
 
 def _ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal) -> tuple:
@@ -151,6 +176,37 @@ def _ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal) -> tuple:
     return (o.data_ptr(), d.data_ptr(), k0.data_ptr(), kfar.data_ptr(),
             alive.data_ptr(), density.data_ptr(), w, h, depth,
             premult_tf.data_ptr(), scal.data_ptr())
+
+
+def _esl_pointers(esl) -> tuple:
+    """The kernels' ``esl_words`` and ``esl_block`` for ``esl``: null and 0
+    without ESL."""
+    return (None, 0) if esl is None else (esl[0].data_ptr(), esl[1])
+
+
+class EslSkip:
+    """The v3 kernels' ESL predicate as torch ops
+    (``csrc/march_common.cuh:esl_empty_cell``): a sample is skipped when
+    every ESL block of its clamp-addressed trilinear cell, the blocks of
+    its low and high tap on each axis, is empty. ``esl`` is ``(words,
+    block)``, the packed grid (``core/esl.py:pack_words``) and its block
+    edge in voxels; ``shape`` the volume's ``(D, H, W)``."""
+
+    def __init__(self, esl, shape):
+        words, self.block = esl
+        self.empty = esl_mod.unpack_bitmask(words)
+        self.shape = tuple(shape)
+
+    def __call__(self, pt: torch.Tensor) -> torch.Tensor:
+        """``bool[N]``: which samples at ``pt (N, 3)`` are skipped."""
+        _, (i0, i1, _) = sampling.trilinear_cell(self.shape, pt)
+        lo, hi = i0 // self.block, i1 // self.block
+        skip = torch.ones(pt.shape[0], dtype=torch.bool, device=pt.device)
+        for z in (lo[:, 2], hi[:, 2]):
+            for y in (lo[:, 1], hi[:, 1]):
+                for x in (lo[:, 0], hi[:, 0]):
+                    skip &= self.empty[z, y, x]
+        return skip
 
 
 def _shade_mode(shade: bool, phong: bool) -> int:
@@ -173,7 +229,7 @@ def _launch(name: str, argtypes: list, device: torch.device, *args) -> None:
 
 def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
               ray_step: float, shade: bool, no_ert: bool, width: int,
-              phong: bool = False) -> torch.Tensor:
+              phong: bool = False, esl=None) -> torch.Tensor:
     """March N rays through ``density`` and composite them -> ``f32[N, 4]``.
 
     Args:
@@ -192,25 +248,29 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
       no_ert: the threshold is >= 1 and can never be crossed.
       phong: apply gradient Blinn-Phong (:func:`phong_v3`) with the light
         of ``scal``; not with ``shade``.
+      esl: ``None``, or ``(words, block)``: skip the samples whose trilinear
+        cell lies in empty ESL blocks (:class:`EslSkip`); ``words`` is the
+        packed grid ``int32[1024]`` (``core/esl.py:pack_words``) on the
+        rays' device, ``block`` its block edge in voxels.
 
     CPU tensors take :func:`march_fwd_plain`. CUDA tensors launch the
     kernel, building it at first use, and raise if it cannot launch.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           shade=shade, phong=phong)
+           shade=shade, phong=phong, esl=esl)
     if o.device.type == "cpu":
         return march_fwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            phong=phong)
+            phong=phong, esl=esl)
     n = o.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     if n == 0:
         return out
-    _launch("volrt_march_fwd", _FWD_ARGTYPES, o.device,
+    _launch("volrt_march_fwd", _V3_FWD_ARGTYPES, o.device,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             out.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            _shade_mode(shade, phong), int(no_ert))
+            _shade_mode(shade, phong), int(no_ert), *_esl_pointers(esl))
     march_fwd.launches += 1
     return out
 
@@ -220,16 +280,19 @@ march_fwd.launches = 0
 
 def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
                     ray_step: float, shade: bool, no_ert: bool,
-                    width: int, phong: bool = False) -> torch.Tensor:
+                    width: int, phong: bool = False,
+                    esl=None) -> torch.Tensor:
     """The plain torch version of :func:`march_fwd`, same arguments.
 
     All rays of a chunk step in lockstep for ``max_steps(ray_step)`` steps,
-    with masks in place of the kernel's per-ray ``break``. ``width`` only
+    with masks in place of the kernel's per-ray ``break``; a sample that
+    ESL skips is masked as one past the ray's end is. ``width`` only
     shapes the kernel's blocks and is unused here. Differentiable with
     respect to ``density`` and ``premult_tf`` (the tests hold the plain
     backward to its autograd).
     """
     del width
+    skip = None if esl is None else EslSkip(esl, density.shape)
     out = torch.empty((o.shape[0], 4), dtype=torch.float32, device=o.device)
     steps = torch.arange(max_steps(ray_step), dtype=torch.float32,
                          device=o.device) * ray_step
@@ -245,6 +308,8 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
             k = kc + step
             active = live & (k <= kf)
             pt = oc + dc * k[:, None]
+            if skip is not None:
+                active = active & ~skip(pt)
             color = classify_and_shade(
                 density, premult_tf, pt,
                 light_pos=light_pos if shade else None, light_kd=kd)
@@ -540,11 +605,13 @@ def march_blocked_plain(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
 def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
               ray_step: float, shade: bool, no_ert: bool, width: int,
               need_dtf: bool = True, need_dvol: bool = True,
-              phong: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+              phong: bool = False,
+              esl=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward of :func:`march_fwd`
     -> ``(d_density f32[D, H, W], d_premult_tf f32[TF_SIZE, 4])``.
 
-    The first eight arguments and the keywords are the forward's; ``out``
+    The first eight arguments and the keywords are the forward's (``esl``
+    too: the replay skips the forward's samples); ``out``
     is the image it returned and ``g`` the cotangent of that image, both
     ``f32[N, 4]``. A ray that is not alive, or whose cotangent is zero,
     sends no gradient. ``need_dtf=False`` / ``need_dvol=False`` skip that
@@ -555,12 +622,12 @@ def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
     into with atomics, so two runs on the card differ by rounding.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           shade=shade, phong=phong, out=out, g=g)
+           shade=shade, phong=phong, esl=esl, out=out, g=g)
     if o.device.type == "cpu":
         return march_bwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong)
+            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong, esl=esl)
     d_density = torch.zeros_like(density)
     d_tf = torch.zeros_like(premult_tf)
     n = o.shape[0]
@@ -571,7 +638,7 @@ def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
             out.data_ptr(), g.data_ptr(), d_density.data_ptr(),
             d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
             _shade_mode(shade, phong), int(no_ert), int(need_dtf),
-            int(need_dvol))
+            int(need_dvol), *_esl_pointers(esl))
     march_bwd.launches += 1
     return d_density, d_tf
 
@@ -714,15 +781,17 @@ class PlainReplay:
 def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
                     *, ray_step: float, shade: bool, no_ert: bool,
                     width: int, need_dtf: bool = True,
-                    need_dvol: bool = True, phong: bool = False
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    need_dvol: bool = True, phong: bool = False,
+                    esl=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain torch version of :func:`march_bwd`, same arguments.
 
     The analytic backward of ``volrt/renderers/pallas/diff_v3.py:
     1907-1957``, one lockstep step at a time (:class:`PlainReplay`), on the
-    forward's lattice ``k0 + i*ray_step``.
+    forward's lattice ``k0 + i*ray_step``, where a sample that ESL skips
+    is replayed as inactive: its colour is 0 and it adds nothing.
     """
     del width
+    skip = None if esl is None else EslSkip(esl, density.shape)
     replay = PlainReplay(density, premult_tf, scal, shade=shade,
                          need_dtf=need_dtf, need_dvol=need_dvol,
                          in_range=True, phong=phong)
@@ -737,7 +806,10 @@ def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
         for step in steps:
             k = kc + step
             active = live & (k <= kf)
-            acc_a = replay.sample(oc + dc * k[:, None], active)
+            pt = oc + dc * k[:, None]
+            if skip is not None:
+                active = active & ~skip(pt)
+            acc_a = replay.sample(pt, active)
             if not no_ert:
                 live &= ~(active & (acc_a > thr))
     return replay.gradients()
@@ -746,7 +818,7 @@ def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
 def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
             ray_step: float, shade: bool, no_ert: bool, width: int,
             need_dtf: bool = True, need_dvol: bool = True,
-            phong: bool = False
+            phong: bool = False, esl=None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole L2 step in one launch
     -> ``(out f32[N, 4], d_density, d_premult_tf)``.
@@ -763,12 +835,12 @@ def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
     kernel or raise.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           shade=shade, phong=phong, tgt=tgt)
+           shade=shade, phong=phong, esl=esl, tgt=tgt)
     if o.device.type == "cpu":
         return l2_step_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal, tgt,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong)
+            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong, esl=esl)
     n = o.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     d_density = torch.zeros_like(density)
@@ -780,7 +852,7 @@ def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
             tgt.data_ptr(), out.data_ptr(), d_density.data_ptr(),
             d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
             _shade_mode(shade, phong), int(no_ert), int(need_dtf),
-            int(need_dvol))
+            int(need_dvol), *_esl_pointers(esl))
     l2_step.launches += 1
     return out, d_density, d_tf
 
@@ -791,12 +863,12 @@ l2_step.launches = 0
 def l2_step_plain(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
                   ray_step: float, shade: bool, no_ert: bool, width: int,
                   need_dtf: bool = True, need_dvol: bool = True,
-                  phong: bool = False
+                  phong: bool = False, esl=None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain torch version of :func:`l2_step`, same arguments: the
     plain forward, the cotangent, the plain backward."""
     kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-              phong=phong)
+              phong=phong, esl=esl)
     out = march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal,
                           **kw)
     g = (out - tgt) * (scal[6] * alive[:, None])
@@ -811,17 +883,17 @@ class MarchFunction(torch.autograd.Function):
     backward (the counterpart of ``render_tiles_v3``'s custom_vjp).
 
     ``MarchFunction.apply(density, premult_tf, o, d, k0, kfar, alive, scal,
-    ray_step, shade, no_ert, width, phong)`` returns the image ``f32[N,
-    4]``.
+    ray_step, shade, no_ert, width, phong, esl)`` returns the image
+    ``f32[N, 4]``.
     Gradients flow to ``density`` and ``premult_tf`` only; a leaf that does
     not require one skips its scatter (``need_dtf`` / ``need_dvol``).
     """
 
     @staticmethod
     def forward(ctx, density, premult_tf, o, d, k0, kfar, alive, scal,
-                ray_step, shade, no_ert, width, phong=False):
+                ray_step, shade, no_ert, width, phong=False, esl=None):
         ctx.kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert,
-                      width=width, phong=phong)
+                      width=width, phong=phong, esl=esl)
         out = march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal,
                         **ctx.kw)
         ctx.save_for_backward(o, d, k0, kfar, alive, density, premult_tf,
@@ -835,4 +907,4 @@ class MarchFunction(torch.autograd.Function):
             *ctx.saved_tensors, g.contiguous(), need_dtf=need_dtf,
             need_dvol=need_dvol, **ctx.kw)
         return (d_density if need_dvol else None,
-                d_tf if need_dtf else None) + (None,) * 11
+                d_tf if need_dtf else None) + (None,) * 12

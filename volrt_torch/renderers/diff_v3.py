@@ -13,14 +13,15 @@ from __future__ import annotations
 
 import torch
 
+from volrt_torch.core import esl as esl_mod
 from volrt_torch.core import tf as tf_mod
 from volrt_torch.core.types import View
-from volrt_torch.diff.render import DiffScene
+from volrt_torch.diff.render import DiffScene, scene_empty_grid
 from volrt_torch.renderers import fwd_v3
 from volrt_torch.renderers.cuda.march import MarchFunction, l2_step
 
 
-def check_modes(fast: bool, esl: bool, shaded: bool = False,
+def check_modes(fast: bool, shaded: bool = False,
                 phong: bool = False) -> None:
     """Refuse the modes the march kernels do not have yet, and ``shaded``
     with ``phong``, which no kernel composes (``diff_v3.py:2608-2609``)."""
@@ -28,32 +29,41 @@ def check_modes(fast: bool, esl: bool, shaded: bool = False,
         raise NotImplementedError(
             "fast (bf16) storage is not ported yet (ROADMAP.md, queue 2, "
             "row 1)")
-    if esl:
-        raise NotImplementedError(
-            "esl=True is not ported yet (ROADMAP.md, queue 1: ESL)")
     if shaded and phong:
         raise ValueError("shaded and phong are mutually exclusive")
+
+
+def scene_esl(scene: DiffScene) -> tuple[torch.Tensor, int]:
+    """The kernels' ESL grid ``(words, block)`` of ``scene`` under its live
+    TF, derived anew on each call as ``volrt`` derives it
+    (``diff_v3.py:2638-2646``): the TF trains, and with it the empty
+    set."""
+    empty, block, _ = scene_empty_grid(scene)
+    return esl_mod.pack_words(empty), block
 
 
 def render_view_v3(density: torch.Tensor, premult_tf: torch.Tensor,
                    ray_step: float, view: View, ray_threshold: float = 0.95,
                    light_kd: float = 0.0, shaded: bool = False,
-                   phong: bool = False) -> tuple[torch.Tensor, float]:
+                   phong: bool = False, esl=None
+                   ) -> tuple[torch.Tensor, float]:
     """Premult-level render -> ``(f32[H, W, 4], overflow count)``,
     differentiable with respect to ``density`` ``f32[D, H, W]`` and
     ``premult_tf`` ``f32[TF_SIZE, 4]``. ``shaded`` takes the diffuse tap,
-    ``phong`` gradient Blinn-Phong, each with ``light_kd``. The overflow
-    count is 0: the kernels have no windows (see
-    ``fwd_v3.render_float``)."""
-    check_modes(False, False, shaded, phong)
+    ``phong`` gradient Blinn-Phong, each with ``light_kd``. ``esl`` is
+    ``None`` or the ESL grid ``(words, block)`` (:func:`scene_esl`):
+    the kernels skip the samples whose cell lies in empty blocks, in the
+    forward and the backward alike. The overflow count is 0: the kernels
+    have no windows (see ``fwd_v3.render_float``)."""
+    check_modes(False, shaded, phong)
     args, kw = fwd_v3.ray_args(
         view, density, premult_tf, ray_step, ray_threshold,
-        light_kd if (shaded or phong) else 0.0, phong=phong)
+        light_kd if (shaded or phong) else 0.0, phong=phong, esl=esl)
     o, d, knear, kfar, alive, density, premult_tf, scal = args
     colors = MarchFunction.apply(
         density, premult_tf, o, d, knear, kfar, alive, scal,
         kw["ray_step"], kw["shade"], kw["no_ert"], kw["width"],
-        kw.get("phong", False))
+        kw.get("phong", False), esl)
     w, h = view.dims
     return colors.reshape(h, w, 4), 0.0
 
@@ -64,9 +74,10 @@ def render_image_v3_with_ovf(scene: DiffScene, view: View,
                              shaded: bool = False, phong: bool = False
                              ) -> tuple[torch.Tensor, float]:
     """As :func:`render_image_v3` but also returns the overflow count."""
-    check_modes(fast, esl)
+    check_modes(fast)
     return render_view_v3(scene.density, scene.premult_tf(), scene.ray_step,
-                          view, ray_threshold, light_kd, shaded, phong)
+                          view, ray_threshold, light_kd, shaded, phong,
+                          scene_esl(scene) if esl else None)
 
 
 def render_image_v3(scene: DiffScene, view: View,
@@ -83,8 +94,13 @@ def render_image_v3(scene: DiffScene, view: View,
     ``phong=True`` shades with ``volrt``'s v3 gradient Blinn-Phong, whose
     normal taps lie one clipped voxel to either side (the oracle's move
     the world point by 2/n: the two differ at the volume's faces).
-    ``shaded`` with ``phong`` raises ``ValueError``; ``fast`` and ``esl``
-    raise ``NotImplementedError``.
+    ``esl=True`` skips the samples whose trilinear cell lies in ESL blocks
+    that the live TF leaves empty (:func:`scene_esl`), where ``volrt``
+    drops whole groups of them: the port skips those and more. The TF
+    gradient that those samples would give the zero-opacity rows they
+    read is dropped too (see ``diff.render.scene_empty_grid``). ``shaded`` with
+    ``phong`` raises ``ValueError``; ``fast`` raises
+    ``NotImplementedError``.
     """
     return render_image_v3_with_ovf(scene, view, ray_threshold, fast, esl,
                                     light_kd, shaded, phong)[0]
@@ -106,11 +122,12 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
     autograd. ``target`` is ``f32[H, W, 4]`` on the scene's device.
     ``need_dtf=False`` / ``need_dvol=False`` skip that leaf's scatter and
     return zeros for it. ``shaded`` takes the diffuse tap, ``phong``
-    gradient Blinn-Phong (not both), each with ``light_kd``. The TF
-    gradient is chained from the premultiplied LUT's to ``tf_base`` here,
-    as ``volrt``'s does it in XLA.
+    gradient Blinn-Phong (not both), each with ``light_kd``. ``esl=True``
+    skips as :func:`render_image_v3` does, on the grid of the live TF.
+    The TF gradient is chained from the premultiplied LUT's to
+    ``tf_base`` here, as ``volrt``'s does it in XLA.
     """
-    check_modes(fast, esl, shaded, phong)
+    check_modes(fast, shaded, phong)
     w, h = view.dims
     scale = 2.0 / (float(h) * float(w) * 4.0)
     with torch.no_grad():
@@ -118,7 +135,8 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
         args, kw = fwd_v3.ray_args(
             view, scene.density, tf_mod.premultiply(base), scene.ray_step,
             ray_threshold, light_kd if (shaded or phong) else 0.0,
-            loss_scale=scale, phong=phong)
+            loss_scale=scale, phong=phong,
+            esl=scene_esl(scene) if esl else None)
         tgt = target.to(torch.float32).reshape(-1, 4).contiguous()
         out, d_density, d_premult = l2_step(
             *args, tgt, need_dtf=need_dtf, need_dvol=need_dvol, **kw)

@@ -30,11 +30,16 @@ def render_float(rc: Raycaster, fast: bool = False
     every ray loads its own taps. It stays in the return so that callers of
     both packages match.
 
-    ``rc.esl`` marches every sample: the image is the same, since rung 5's
-    ESL drops only groups that contribute exactly zero. The skipping itself
-    is still to come (ROADMAP.md, queue 1: ESL); the leading leap of rungs
-    0-4 is not this rung's. ``rc.shading == "phong"`` shades with gradient
-    Blinn-Phong under ``rc.light_kd``, as ``volrt``'s rung 5 does.
+    ``rc.esl`` skips every sample whose trilinear cell lies in ESL blocks
+    that the TF leaves empty (the kernel's ESL mode, on the render state's
+    packed grid ``rc.esl_words``): ``volrt``'s rung 5 drops whole groups
+    of samples by the same footprint test, so the port skips those and
+    more. The leading leap of rungs 0-4 is not this rung's. Where the
+    grid is conservative the image is the ESL-off image; where a block
+    is called empty by its TF buckets though the lerped TF gives its
+    samples some opacity, it is not, in ``volrt`` too (ROADMAP.md, queue
+    3). ``rc.shading == "phong"`` shades with gradient Blinn-Phong under
+    ``rc.light_kd``, as ``volrt``'s rung 5 does.
     ``fast=True`` (bf16 storage) raises ``NotImplementedError``.
     """
     if rc.interpolation != "trilinear":
@@ -65,17 +70,19 @@ def check_modes(rc: Raycaster, fast: bool = False,
 
 def march_args(rc: Raycaster) -> tuple[tuple, dict]:
     """The ray setup: ``(args, kwargs)`` of :func:`march_fwd` for ``rc``,
-    with the uint8 volume converted to an f32 density."""
+    with the uint8 volume converted to an f32 density, and ESL's grid
+    when ``rc.esl``."""
     density = rc.volume.data.to(torch.float32) / 255.0
     return ray_args(rc.view, density, rc.transfer_fn, rc.ray_step,
                     rc.ray_threshold, rc.light_kd,
-                    phong=rc.shading == "phong")
+                    phong=rc.shading == "phong",
+                    esl=(rc.esl_words, rc.esl_block_dims) if rc.esl else None)
 
 
 def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
              ray_step: float, ray_threshold: float, light_kd: float,
              loss_scale: float = 0.0, esl_start=None,
-             phong: bool = False) -> tuple[tuple, dict]:
+             phong: bool = False, esl=None) -> tuple[tuple, dict]:
     """``(args, kwargs)`` of the march kernels' wrappers for one view of
     a volume (an f32 ``density`` for rung 5 and the differentiable path)
     under a premultiplied TF; both may require grad.
@@ -89,7 +96,8 @@ def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
     one-launch L2 step reads. ``phong=True`` shades with gradient
     Blinn-Phong in place of the diffuse tap: it adds the ``phong`` keyword
     of the v3 kernels' wrappers (``march_fwd``, ``march_bwd``,
-    ``l2_step``), which the ladder's do not take.
+    ``l2_step``), which the ladder's do not take; ``esl``, the ESL grid
+    ``(words, block)`` of their ESL mode, adds their ``esl`` keyword.
     """
     dev = density.device
     origins, directions = rays_mod.get_rays(view)
@@ -119,6 +127,8 @@ def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
         width=view.dims[0])
     if phong:
         kw.update(shade=False, phong=kw["shade"])
+    if esl is not None:
+        kw["esl"] = esl
     return args, kw
 
 

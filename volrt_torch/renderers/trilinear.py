@@ -3,7 +3,8 @@
 
 Trilinear sampling with CUDA-texture semantics and the linearly
 interpolated TF (reference: GPURenderer4.cu:53-87), after the leading
-empty-space leap. Ray setup and the leap are torch ops; the march is
+empty-space leap. Ray setup is torch ops; the leap is
+:func:`volrt_torch.renderers.cuda.leap.esl_start` and the march
 :func:`volrt_torch.renderers.cuda.march.march_tri` over the volume as f32
 raw values. The TPU kernel's ``(wz, wy)`` windows, its ``window=`` argument
 and its ``W <= 128`` bound do not exist here: every ray loads its own taps
@@ -15,7 +16,8 @@ import torch
 
 from volrt_torch.core import sampling
 from volrt_torch.core.types import Raycaster
-from volrt_torch.renderers import batched, fwd_v3
+from volrt_torch.renderers import fwd_v3
+from volrt_torch.renderers.cuda import leap
 from volrt_torch.renderers.cuda.march import march_tri
 
 NAME = "pallas-trilinear"
@@ -25,14 +27,17 @@ def ladder_args(rc: Raycaster, volume: torch.Tensor,
                 shade: bool = True) -> tuple[tuple, dict]:
     """``(args, kwargs)`` of rungs 2-4's march wrappers for ``rc`` over
     ``volume`` (``rc.volume.data`` in the type the rung's kernel reads):
-    :func:`fwd_v3.ray_args` with the leading ESL leap as each ray's start
-    when ``rc.esl``. ``shade=False`` skips the diffuse tap whatever
+    :func:`fwd_v3.ray_args` with the leading ESL leap (the leap kernel,
+    on the render state's distance grid) as each ray's start when
+    ``rc.esl``. ``shade=False`` skips the diffuse tap whatever
     ``rc.light_kd`` says."""
     fwd_v3.check_modes(rc)
     esl_start = None
     if rc.esl:
         def esl_start(o, d, knear, kfar, hit):
-            return batched.esl_start(rc, o, d, knear, kfar, hit)
+            return leap.esl_start(o, d, knear, kfar, hit, rc.esl_dist,
+                                  rc.volume.dims, rc.esl_block_dims,
+                                  rc.esl_block_size, rc.ray_step)
     args, kw = fwd_v3.ray_args(
         rc.view, volume, rc.transfer_fn, rc.ray_step, rc.ray_threshold,
         rc.light_kd, esl_start=esl_start)

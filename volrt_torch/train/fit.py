@@ -122,20 +122,26 @@ def fit(
     Blinn-Phong: ``volrt``'s v3 form in the kernel, the oracle's form
     through autograd).
 
+    ``esl=True`` skips empty space in every step: the one-launch step's
+    ESL mode with ``fused=True`` (the grid re-derived from the live TF
+    each step), the oracle's leading leap without. A TF entry whose
+    density range the running TF maps to zero opacity then gets no
+    gradient from the skipped samples, so the TF can never open it;
+    ``esl_refresh_every=N`` runs every Nth step (steps 0, N, 2N, ...) as
+    a full march, which gives every entry its gradient
+    (``volrt/train/fit.py:408-447``). Without ``esl`` it changes nothing.
+
     Not ported yet, each raising ``NotImplementedError`` when given
     another value than its default: ``mesh`` and ``volume_sharded``
     (ROADMAP.md, queue 1: ``dist/``), ``grad_chunks`` (ROADMAP.md, "Do not
-    port"), ``esl`` and ``esl_refresh_every`` (queue 1: ESL),
-    ``checkpoint_path``, ``checkpoint_every`` and ``resume`` (queue 1:
-    ``train/checkpoint.py``).
+    port"), ``checkpoint_path``, ``checkpoint_every`` and ``resume`` (queue
+    1: ``train/checkpoint.py``).
     """
     for name, given, item in (
             ("mesh", mesh is not None, "queue 1: dist/"),
             ("volume_sharded", volume_sharded, "queue 1: dist/"),
             ("grad_chunks", grad_chunks and grad_chunks > 1,
              '"Do not port": loss_grads_v3_chunked'),
-            ("esl", esl, "queue 1: ESL"),
-            ("esl_refresh_every", esl_refresh_every, "queue 1: ESL"),
             ("checkpoint_path", checkpoint_path is not None,
              "queue 1: train/checkpoint.py"),
             ("checkpoint_every", checkpoint_every,
@@ -149,26 +155,34 @@ def fit(
     shaded, phong = shading == "diffuse", shading == "phong"
     kd = light_kd if shading else 0.0
 
-    loss_grads_fn = None
-    if fused:
-        def loss_grads_fn(scene, view, target):
-            return l2_loss_grads_v3_onepass(
-                scene, view, target, need_dtf=train_tf,
-                need_dvol=train_density, shaded=shaded, phong=phong,
-                light_kd=light_kd)
+    def build_step(esl: bool) -> Callable:
+        loss_grads_fn = None
+        if fused:
+            def loss_grads_fn(scene, view, target):
+                return l2_loss_grads_v3_onepass(
+                    scene, view, target, need_dtf=train_tf,
+                    need_dvol=train_density, esl=esl, shaded=shaded,
+                    phong=phong, light_kd=light_kd)
 
-    def loss_fn(scene, view, target):
-        img = render_diff_image(scene, view, light_kd=kd, shaded=shaded,
-                                phong=phong)
-        return torch.mean((img - target) ** 2)
+        def loss_fn(scene, view, target):
+            img = render_diff_image(scene, view, esl=esl, light_kd=kd,
+                                    shaded=shaded, phong=phong)
+            return torch.mean((img - target) ** 2)
 
-    train_step = make_train_step(loss_fn, train_density, train_tf,
-                                 loss_grads_fn)
+        return make_train_step(loss_fn, train_density, train_tf,
+                               loss_grads_fn)
+
+    train_step = build_step(esl)
+    refresh_step = (build_step(False) if esl and esl_refresh_every
+                    else None)
     state = init_state(scene, make_optimizer(scene, lr))
     losses = []
     for i in range(steps):
         view, target = views_and_targets[i % len(views_and_targets)]
-        state, loss = train_step(state, view, target)
+        step_fn = train_step
+        if refresh_step is not None and i % esl_refresh_every == 0:
+            step_fn = refresh_step
+        state, loss = step_fn(state, view, target)
         losses.append(float(loss))
         if log_every and (i % log_every == 0):
             msg = f"fit step {i}: loss {losses[-1]:.6f}"
