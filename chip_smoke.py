@@ -40,9 +40,9 @@ Phases, each synchronised with the card, none catching its own failure:
    times on the 256^3 uniform-noise density under the same pose and TF,
    whose warps spread over the TF's rows;
 8. run the trainer: ``cli fit --fused --train both`` at 256^3 / 1024^2 for
-   8 steps, ``cli fit`` through autograd at 64^3 / 128^2, and ``cli
-   bench``. A fit cycles through four views whose losses differ by a
-   factor of two, so "the loss falls" is read as: the mean over the second
+   8 steps, ``cli fit`` through autograd at 64^3 / 128^2, and the
+   headline, ``python -m volrt_torch.bench``. A fit cycles through four
+   views whose losses differ by a factor of two, so "the loss falls" is read as: the mean over the second
    pass through the views is below the mean over the first. Both fits run
    at ``--lr 0.02``: at the default 0.05 the first steps from a flat TF
    overshoot (at 64^3 the second pass comes out above the first, in the
@@ -144,14 +144,44 @@ Phases, each synchronised with the card, none catching its own failure:
     kernel on the CLI's default look and the benchmark pose, equal to the
     plain leap to the bit, timed, with its loads of the distance grid;
     the CLI's default frame in wall time. Rows 1-3 of the ``kernels``
-    line gain an ``esl`` entry and the leap kernel a line of its own.
+    line gain an ``esl`` entry and the leap kernel a line of its own;
+17. volumes of 2^31 voxels or more (rows 5, 8 and 9, whose 64-bit voxel
+    offsets the wrappers pick from the shape): the 64-bit instances at
+    32^3 / 64^2 against their plain versions and the 32-bit ones; then a
+    [4160, 1024, 1024] volume, zero but for an ellipsoid whose voxels all
+    lie past offset 2^32, uint8 for rung 4's ``render_float`` and f32 for
+    ``diff_blocked_fwd``/``_bwd``, at 256^2 from the front, ERT off:
+    images equal to the plain versions' to the bit, the gradients within 2e-5 of the
+    largest entry (dVol held slab by slab), the 32-bit instances on the
+    same volume shown to lose the blob; each timed; on the benchmark pose
+    the 64-bit instances beside the 32-bit ones, their registers and
+    SASS instructions a sample, and the 32-bit instances' SASS against
+    the parent tree's (``PARENT_SASS``). Rows 5, 8 and 9 of the
+    ``kernels`` line gain a ``wide`` entry;
+18. checkpoints: a fused fit's state saved and loaded on the card equal
+    to the one in memory to the bit, and the next step's loss from either
+    too; then ``cli fit --fused``, 4 steps saved, resumed to 8
+    (``--checkpoint-every 2 --resume``), against 8 steps straight through
+    (the first loss equal, the others within the atomics' class, rtol
+    5e-2), the launch counters reset before each fit; both files load on
+    the CPU;
+19. ``cli render --orbit 4 --background 0.2`` at 256^2 on
+    ``tests/assets/shell32.pvm``: each frame equal to the bit to a single
+    render at its pose;
+20. ``cli bench --small --frames 2 --renderers 2 3 4 5 --diff -f
+    tests/assets/shell32.pvm -o CSV``, ``volrt``'s suite: every (config,
+    renderer) cell timed, every roofline share finite, the tables
+    printed. Phase 8 runs the headline line, ``python -m
+    volrt_torch.bench``.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
 output written once, the zero-fill of a gradient counted as a write) over
 3.35 TB/s and its f32 operations, counted by hand from
 ``volrt_torch/csrc/march_common.cuh`` per composited sample of this run's
-rays, over 67 TFLOP/s (the published peaks of an H100 SXM at 700 W).
+rays, over 67 TFLOP/s (the published peaks of an H100 SXM at 700 W); the
+count and the peaks live in ``volrt_torch/utils/profiler.py``, whose
+roofline table the suite (``cli bench``) prints from them.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -180,6 +210,7 @@ import numpy as np
 import torch
 
 from volrt_torch import _build, cli
+from volrt_torch.bench import __main__ as headline
 from volrt_torch.bench.harness import (
     bench_diff_step, bench_fwd_step, bench_pose, crop_bench_scene,
     diff_bench_scene, synthetic_volume, time_cuda)
@@ -188,7 +219,7 @@ from volrt_torch.bench.step_ab import (
 from volrt_torch.constants import SHADE_ALPHA_GATE
 from volrt_torch.core import esl as esl_mod
 from volrt_torch.core import sampling
-from volrt_torch.core.tf import default_transfer_fn
+from volrt_torch.core.tf import default_transfer_fn, premultiply
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
@@ -197,6 +228,7 @@ from volrt_torch.diff.render import (
 from volrt_torch.renderers import (
     batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
 from volrt_torch.renderers.cuda import leap
+from volrt_torch.train import checkpoint as ckpt_mod
 from volrt_torch.renderers.cuda.march import (
     EslSkip, div255_mismatches, l2_step, l2_step_plain, march_blocked,
     march_blocked_plain, march_bwd, march_bwd_plain, march_fwd,
@@ -205,6 +237,10 @@ from volrt_torch.renderers.cuda.round1 import (
     diff_blocked_bwd, diff_blocked_bwd_plain, diff_blocked_fwd,
     diff_blocked_fwd_plain, diff_tri_bwd, diff_tri_bwd_plain, diff_tri_fwd,
     diff_tri_fwd_plain)
+from volrt_torch.utils.profiler import (
+    FLOPS_BWD, FLOPS_ESL_SKIP, FLOPS_FWD, FLOPS_LEAP, FLOPS_NEAREST,
+    FLOPS_PHONG_BWD, FLOPS_PHONG_FWD, FLOPS_ROUND1_BWD, FLOPS_ROUND1_FWD,
+    FLOPS_TRI, bound)
 
 # Kernel against plain version. The kernel rounds every f32 multiply and add
 # on its own, as torch does, so unshaded the two should agree to the bit;
@@ -228,28 +264,6 @@ RTOL_GRAD = 2e-5
 RTOL_DTF_WIDE = 1e-4
 RTOL_GRAD_AUTOGRAD = 1e-4
 RTOL_GRAD_DIFFUSE = 2e-3
-# Published peaks of one H100 SXM at its full 700 W power limit.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-# f32 operations per composited sample, counted by hand from
-# csrc/march_common.cuh. Forward: the position 8, three axes' taps 15, seven
-# lerps of the trilinear sample 28, the TF coordinate and its lerps 20, the
-# composite 9. Replay: the forward without its three colour composites 74,
-# the cotangent chain 20, the TF rows' weights and adds 17, the TF slope
-# and the eight voxels' weights and adds 35.
-FLOPS_FWD = 80
-FLOPS_BWD = 146
-# The ladder (raw units). Trilinear: the position and the next k 7, the taps
-# 15, the seven lerps 28, the division by 255 1, the TF coordinate and its
-# lerps 20, the composite 9. Nearest: the position and the next k 7, three
-# axes' indices 9, the composite 9.
-FLOPS_TRI = 80
-FLOPS_NEAREST = 25
-# Round 1 (a density). Forward: the ladder's trilinear sample without the
-# division. Replay: that without its three colour composites 73, and the
-# cotangent chain, TF rows, slope and voxels as above 72.
-FLOPS_ROUND1_FWD = 79
-FLOPS_ROUND1_BWD = 145
 # The round-1 routes against autograd through the plain torch march, which
 # samples at k0 + i*step where they accumulate k += step: the images differ
 # by the repo's lattice tolerance, the gradients by the same last-bit
@@ -266,25 +280,7 @@ RTOL_GRAD_LATTICE = 2e-3
 ATOL_PHONG = 1e-5
 RTOL_GRAD_PHONG = 2e-3
 ATOL_PHONG_RGB = 1e-5
-# Phong's f32 operations a gated sample, counted by hand from
-# csrc/march_common.cuh (shade_phong, phong_chain), on top of FLOPS_FWD /
-# FLOPS_BWD. Forward: the six shifted axes 48 (two clips, the shift, the
-# floor and the weight), six trilinear samples 168 and their differences
-# 3, the normal's and the light's and the half vector's norms and
-# directions 36, the two dots 13, the powers 4, the specular, lit and
-# colour 10. Replay: the forward's again, the chain 54 (drgb, dlit, the
-# masks, dnh, the powers, dc, dn, dn.g, dg), the six cells' weights and
-# adds 168.
-FLOPS_PHONG_FWD = 282
-FLOPS_PHONG_BWD = 504
 PHONG_KD = 0.6
-# ESL (phase 16). A skipped sample's f32 operations: the position 6 and
-# the three axes' voxel coordinates 9 (the block test is integer work).
-# A round of the leap kernel that leaps: the position 6, the voxel
-# indices 9, the three faces 12, their minimum and clamp 3, the face's
-# and the ball's whole steps 8, the larger and the two adds 3.
-FLOPS_ESL_SKIP = 15
-FLOPS_LEAP = 41
 # The shades phase 16 holds ESL in: (label, light kd, phong, image
 # tolerance, gradient tolerance), the classes of phases 3, 6 and 15.
 ESL_SHADES = (
@@ -416,23 +412,26 @@ def _n_samples(args, kw) -> int:
 
 
 def _bound(args, kw, flops_per_sample: int, images: int,
-           grads: bool, extra_ops: int = 0) -> dict:
+           grads: bool, extra_ops: int = 0, sparse: bool = False) -> dict:
     """``bound_ms`` and ``bound_by`` of one kernel call on these inputs.
     ``images`` counts the f32[N, 4] tensors beside the ray tensors (the
     output, a target, a cotangent); ``grads`` adds the two gradients, each
     zero-filled and then written; ``extra_ops`` are f32 operations on top
     of ``flops_per_sample`` a composited sample (phong's, on the samples
-    whose gate opens)."""
+    whose gate opens). ``sparse``: the rays read a small part of the
+    volume (phase 17's, 4 voxels apart in x and y, a voxel a step in z),
+    so the volume counts one voxel a sample, and a gradient its zero-fill
+    and one write a sample."""
     o, d, k0, kfar, alive, density, tf, scal = args
+    n = _n_samples(args, kw)
     nbytes = sum(t.numel() * t.element_size() for t in args)
     nbytes += images * o.shape[0] * 16
+    if sparse:
+        nbytes += (n - density.numel()) * density.element_size()
     if grads:
-        nbytes += 2 * (density.numel() + tf.numel()) * 4
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ((_n_samples(args, kw) * flops_per_sample + extra_ops)
-             / PEAK_F32_FLOPS * 1e3)
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        nbytes += 2 * tf.numel() * 4 + (
+            (density.numel() + n) * 4 if sparse else 2 * density.numel() * 4)
+    return bound(nbytes, n * flops_per_sample + extra_ops)
 
 
 def phase_main(dev: torch.device) -> dict:
@@ -886,9 +885,9 @@ def phase_trainer() -> None:
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        code = cli.main(["bench", "--iters", "10"])
+        code = headline.main(["--iters", "10"])
     _sync()
-    assert code == 0, f"cli bench returned {code}"
+    assert code == 0, f"python -m volrt_torch.bench returned {code}"
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     print(f"[bench] {json.dumps(line)}")
     assert line["metric"] == "diff_fwd_bwd_ray_steps_per_s"
@@ -2272,21 +2271,18 @@ def _leap_main(dev: torch.device) -> dict:
         nbytes = (sum(t.numel() * t.element_size()
                       for t in (o, d, knear, kfar, hit, rc.esl_dist))
                   + k0.numel() * 4)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = loads * FLOPS_LEAP / PEAK_F32_FLOPS * 1e3
-        bound = {"bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        limit = bound(nbytes, loads * FLOPS_LEAP)
         skipped = ((k0 - knear)[hit] / rc.ray_step).sum().item()
         print(f"{tag} {pose}: k0 equal to the plain leap's; kernel "
               f"{_spread(times)}; plain {plain_ms:.2f} ms (one call, "
               f"{rounds} lockstep rounds); {loads} loads of the distance "
               f"grid ({loads / int(hit.sum()):.3f} a ray that meets the "
               f"cube); some {skipped:.6g} samples leapt; bound "
-              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+              f"{limit['bound_ms']:.4f} ms by {limit['bound_by']}")
         if entry is None:
             entry = {"launches": got[9], "max_abs_err": 0.0,
                      "ms": float(np.median(times)), "plain_ms": plain_ms,
-                     **bound, "library_ms": None, "loads": loads}
+                     **limit, "library_ms": None, "loads": loads}
     # The CLI's frame, in wall time, beside the 26.333 ms it took with the
     # lockstep torch leap (PERF.md section 5).
     for label, state in (("with the leap", look),
@@ -2321,6 +2317,452 @@ def phase_esl(dev: torch.device, build: dict) -> dict:
     return {"esl": kernels, "leap": _leap_main(dev)}
 
 
+# Phase 17: a volume past 2^32 voxels, uint8 [4160, 1024, 1024] (4.4 GB)
+# for rung 4 and the same shape in f32 (17.4 GB, and as much again for
+# each of the kernel's and the plain version's dVol) for diff_blocked.
+# Every voxel is zero but an ellipsoid whose voxels all lie past offset
+# 2^32 (z from 4099; 4096 * 2^20 = 2^32), so that a 32-bit offset, which
+# wraps below 2^32, reads the zeros in front of it: the 32-bit instance is
+# launched on it too, to show the blob lost. Rendered at 256^2 from the
+# front (+z), where the blob faces the camera.
+WIDE_SHAPE = (4160, 1024, 1024)
+WIDE_BLOB = ((4129, 30), (512, 256), (512, 256))  # (centre, semi-axis)
+# The parent tree's 32-bit instances on the benchmark pose: loop SASS
+# instructions a sample (or a replayed sample) and the digest of the
+# variant's SASS (bench/step_ab.py:sass_counts), from the NVIDIA H100 80GB
+# HBM3's toolkit (CUDA 12.8); a toolkit of its own gives other digests.
+PARENT_SASS = {
+    "march_ladder_kernel<u8,0,0,1>": (149, "8b3abba667d9"),
+    "round1_fwd_kernel<1>": (131, "ac6cbe11dfc1"),
+    "round1_bwd_kernel<1,1,1>": (386, "57145bbc6af9"),
+}
+
+
+def _wide_blob(dtype: torch.dtype, scale: float, dev: torch.device
+               ) -> torch.Tensor:
+    """The phase's volume on the card: zeros, and ``scale * (1 - r)`` inside
+    the ellipsoid ``WIDE_BLOB`` (r its normalised radius)."""
+    vol = torch.zeros(WIDE_SHAPE, dtype=dtype, device=dev)
+    (cz, az), (cy, ay), (cx, ax) = WIDE_BLOB
+    z = (torch.arange(cz - az, WIDE_SHAPE[0], device=dev) - cz) / az
+    y = (torch.arange(cy - ay, cy + ay, device=dev) - cy) / ay
+    x = (torch.arange(cx - ax, cx + ax, device=dev) - cx) / ax
+    r = torch.sqrt(z[:, None, None] ** 2 + y[None, :, None] ** 2
+                   + x[None, None, :] ** 2)
+    val = (scale * (1.0 - r)).clamp(min=0.0)
+    vol[cz - az:, cy - ay:cy + ay, cx - ax:cx + ax] = (
+        val.round() if dtype == torch.uint8 else val).to(dtype)
+    first = (cz - az) * WIDE_SHAPE[1] * WIDE_SHAPE[2]
+    assert first >= 2 ** 32 and not vol.reshape(-1)[:first].any()
+    return vol
+
+
+def _wide_small(dev: torch.device) -> None:
+    """The 64-bit instances at 32^3 / 64^2 against their plain versions and
+    the 32-bit instances: images to the bit, gradients within RTOL_GRAD."""
+    rc = bench_pose(32, 64, dev).replace(ray_threshold=0.95)
+    args, kw = trilinear.ladder_args(rc, rc.volume.data)
+    want = march_blocked_plain(*args, **kw)
+    for wide in (False, True):
+        got = march_blocked(*args, **kw, wide=wide)
+        assert torch.equal(got, want), f"march_blocked wide={wide}"
+    scene = scene_from_volume(synthetic_volume(32), default_transfer_fn(dev),
+                              2.0 / 32, device=dev)
+    args, kw = _round1_args(rc.view, scene, 0.95)
+    out = diff_blocked_fwd_plain(*args, **kw)
+    g = out * (2.0 / out.numel())
+    want_vol, want_tf = diff_blocked_bwd_plain(*args, out, g, **kw)
+    for wide in (False, True):
+        assert torch.equal(diff_blocked_fwd(*args, **kw, wide=wide), out)
+        got = diff_blocked_bwd(*args, out, g, **kw, wide=wide)
+        _hold("[wide]", f"32^3 diff_blocked_bwd wide={wide} d_density",
+              got[0], want_vol, RTOL_GRAD, quiet=True)
+        _hold("[wide]", f"32^3 diff_blocked_bwd wide={wide} d_premult_tf",
+              got[1], want_tf, RTOL_GRAD, quiet=True)
+    print("[wide] 32^3/64^2: march_blocked and diff_blocked_fwd equal to "
+          "their plain versions to the bit with 32- and 64-bit offsets, "
+          f"diff_blocked_bwd within {RTOL_GRAD:g} of the largest entry")
+
+
+def _timed(fn) -> tuple:
+    """``(result, ms)`` of one call, between CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    start.record()
+    out = fn()
+    end.record()
+    _sync()
+    return out, start.elapsed_time(end)
+
+
+def _hold_chunked(tag: str, what: str, got: torch.Tensor,
+                  want: torch.Tensor, rtol: float) -> float:
+    """:func:`_hold` over z-slabs, so that no difference of two volumes of
+    this size is held at once. Returns the difference."""
+    err = top = 0.0
+    for z in range(0, got.shape[0], 256):
+        assert torch.isfinite(got[z:z + 256]).all(), f"{tag}: non-finite"
+        err = max(err, (got[z:z + 256] - want[z:z + 256]).abs().max().item())
+        top = max(top, want[z:z + 256].abs().max().item())
+    print(f"{tag} {what}: max|diff| = {err:.3g}, max|ref| = {top:.3g} "
+          f"(tol {rtol:g} of it = {rtol * top:.3g})")
+    assert top > 0 and err <= rtol * top, f"{tag}: {what} disagrees"
+    return err
+
+
+def _sass_line(build: dict, variant: str) -> str:
+    kernel = variant.split("<")[0]
+    regs = dict(zip(build["ptxas"][kernel]["variants"],
+                    build["ptxas"][kernel]["registers"]))
+    sass = build["sass"].get(kernel, {}).get("variants", {}).get(variant, {})
+    loop = sass.get("loop", {}).get("total")
+    return (f"{variant}: {regs.get(variant)} registers, {loop} SASS "
+            f"instructions in the march loop, digest {sass.get('digest')}")
+
+
+def phase_wide(dev: torch.device, build: dict) -> dict:
+    """Rows 5, 8 and 9 past 2^31 voxels (``WIDE_SHAPE``) -> each row's
+    ``wide`` entry: rung 4's frame through ``render_float`` and the
+    round-1 pair, the 64-bit instances against their plain versions, the
+    32-bit forwards on the same volume (which lose the blob), the 64-bit
+    instances' times, registers and loop instructions, and the 32-bit
+    instances' SASS against the parent's (``PARENT_SASS``)."""
+    _wide_small(dev)
+    tag = f"[wide] {list(WIDE_SHAPE)}"
+    voxels = int(np.prod(WIDE_SHAPE))
+    cam = Camera(dims=(256, 256))
+    cam.zoom(-1.0)
+    view = cam.view(dev)
+    entries = {}
+
+    vol = Volume(data=_wide_blob(torch.uint8, 255.0, dev),
+                 dims=WIDE_SHAPE[::-1])
+    rc = make_raycaster(vol, view, ray_threshold=2.0, esl=False,
+                        light_kd=0.0, interpolation="trilinear")
+    march_blocked.launches = 0
+    img = blocked.render_float(rc)[0]
+    _sync()
+    launches = march_blocked.launches
+    args, kw = trilinear.ladder_args(rc, rc.volume.data)
+    got = march_blocked(*args, **kw)
+    want, plain_ms = _timed(lambda: march_blocked_plain(*args, **kw))
+    narrow = march_blocked(*args, **kw, wide=False)
+    assert launches == 1 and torch.equal(img.reshape(-1, 4), got)
+    assert torch.equal(got, want), "rung 4 past 2^32 voxels differs from plain"
+    alpha = want[:, 3].max().item()
+    assert alpha > 0.5, "the blob is not in the frame"
+    lost = narrow[:, 3].max().item()
+    assert lost < alpha, "the 32-bit instance found the blob"
+    times = time_cuda(lambda: march_blocked(*args, **kw), 20)
+    print(f"{tag} uint8 ({voxels} voxels), rung 4 render_float 256^2: "
+          f"{launches} launch of march_blocked, image equal to plain to the "
+          f"bit (alpha max {alpha:.4f}; the 32-bit instance on it {lost:.4f}); "
+          f"64-bit kernel {_spread(times)}, plain {plain_ms:.2f} ms")
+    entries["march_blocked"] = {
+        "voxels": voxels, "launches": launches, "max_abs_err": 0.0,
+        "ms": float(np.median(times)), "plain_ms": plain_ms,
+        **_bound(args, kw, FLOPS_TRI, images=1, grads=False, sparse=True)}
+    del vol, rc, img, args, kw, got, want, narrow
+    torch.cuda.empty_cache()
+
+    density = _wide_blob(torch.float32, 1.0, dev)
+    premult = premultiply(default_transfer_fn(dev))
+    step = 2.0 / max(WIDE_SHAPE) * (1.0 - 1.0 / max(WIDE_SHAPE))
+    args, kw = fwd_v3.ray_args(view, density, premult, step, 2.0, 0.0)
+    del kw["shade"]
+    for fn in WRAPPERS:
+        fn.launches = 0
+    out = diff_blocked_fwd(*args, **kw)
+    g = out * (2.0 / out.numel())
+    got = diff_blocked_bwd(*args, out, g, **kw)
+    _sync()
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS if fn.launches}
+    assert counts == {"diff_blocked_fwd": 1, "diff_blocked_bwd": 1}, counts
+    want, fwd_plain_ms = _timed(lambda: diff_blocked_fwd_plain(*args, **kw))
+    narrow = diff_blocked_fwd(*args, **kw, wide=False)
+    assert torch.equal(out, want), "diff_blocked_fwd past 2^32 differs"
+    alpha, lost = want[:, 3].max().item(), narrow[:, 3].max().item()
+    assert alpha > 0.5 and lost < alpha
+    t_fwd = time_cuda(lambda: diff_blocked_fwd(*args, **kw), 10)
+    print(f"{tag} f32, diff_blocked_fwd 256^2: image equal to plain to the "
+          f"bit (alpha max {alpha:.4f}; the 32-bit instance on it "
+          f"{lost:.4f}); 64-bit kernel {_spread(t_fwd)}, plain "
+          f"{fwd_plain_ms:.2f} ms")
+    entries["diff_blocked_fwd"] = {
+        "voxels": voxels, "launches": counts["diff_blocked_fwd"],
+        "max_abs_err": 0.0, "ms": float(np.median(t_fwd)),
+        "plain_ms": fwd_plain_ms,
+        **_bound(args, kw, FLOPS_ROUND1_FWD, images=1, grads=False,
+                 sparse=True)}
+    del narrow, want
+    (want_vol, want_tf), bwd_plain_ms = _timed(
+        lambda: diff_blocked_bwd_plain(*args, out, g, **kw))
+    err = max(_hold_chunked(tag, "diff_blocked_bwd d_density vs plain",
+                            got[0], want_vol, RTOL_GRAD),
+              _hold(tag, "diff_blocked_bwd d_premult_tf vs plain", got[1],
+                    want_tf, RTOL_GRAD))
+    del got, want_vol, want_tf
+    t_bwd = time_cuda(lambda: diff_blocked_bwd(*args, out, g, **kw), 5)
+    print(f"{tag} diff_blocked_bwd (zero-fill of 17 GB and kernel) "
+          f"{_spread(t_bwd)}, plain {bwd_plain_ms:.2f} ms")
+    entries["diff_blocked_bwd"] = {
+        "voxels": voxels, "launches": counts["diff_blocked_bwd"],
+        "max_abs_err": err, "ms": float(np.median(t_bwd)),
+        "plain_ms": bwd_plain_ms,
+        **_bound(args, kw, FLOPS_ROUND1_BWD, images=2, grads=True,
+                 sparse=True)}
+    del density, args, kw, out, g
+    torch.cuda.empty_cache()
+
+    # On the benchmark pose, 256^3 / 1024^2: the 64-bit instances beside
+    # the 32-bit ones, and their SASS.
+    for name, narrow_v, wide_v in (
+            ("march_blocked", "march_ladder_kernel<u8,0,0,1>",
+             "march_blocked_wide_kernel<0,1>"),
+            ("diff_blocked_fwd", "round1_fwd_kernel<1>",
+             "round1_fwd_wide_kernel<1>"),
+            ("diff_blocked_bwd", "round1_bwd_kernel<1,1,1>",
+             "round1_bwd_wide_kernel<1,1,1>")):
+        if name == "march_blocked":
+            rc = bench_pose(256, 1024, dev)
+            fn, _, args, kw = _ladder_call(rc, 4)
+            call = lambda wide: fn(*args, **kw, wide=wide)  # noqa: E731
+        else:
+            scene, bview, _ = diff_bench_scene(256, 1024, device=dev)
+            args, kw = _round1_args(bview, scene, 2.0)
+            out = diff_blocked_fwd(*args, **kw)
+            g = out * (2.0 / out.numel())
+            if name == "diff_blocked_fwd":
+                call = lambda wide: diff_blocked_fwd(  # noqa: E731
+                    *args, **kw, wide=wide)
+            else:
+                call = lambda wide: diff_blocked_bwd(  # noqa: E731
+                    *args, out, g, **kw, wide=wide)
+        ms = {False: [], True: []}
+        for wide in (False, True, False, True):
+            ms[wide] += time_cuda(lambda: call(wide), 10)
+        print(f"[wide] 256^3/1024^2 {name}: 32-bit {_spread(ms[False])}, "
+              f"64-bit {_spread(ms[True])}")
+        print(f"[wide] 64-bit {_sass_line(build, wide_v)}")
+        print(f"[wide] 32-bit {_sass_line(build, narrow_v)}")
+        kernel = narrow_v.split("<")[0]
+        mine = build["sass"].get(kernel, {}).get("variants", {}).get(
+            narrow_v, {})
+        loop, digest = PARENT_SASS[narrow_v]
+        print(f"[wide] 32-bit {narrow_v} against the parent tree's: loop "
+              f"{mine.get('loop', {}).get('total')} (parent {loop}), digest "
+              f"{mine.get('digest')} (parent {digest})")
+        kernel = wide_v.split("<")[0]
+        regs = dict(zip(build["ptxas"][kernel]["variants"],
+                        build["ptxas"][kernel]["registers"]))
+        wide_sass = build["sass"].get(kernel, {}).get("variants", {}).get(
+            wide_v, {})
+        entries[name].update({
+            "ms_256": float(np.median(ms[True])),
+            "ms_256_narrow": float(np.median(ms[False])),
+            "registers": regs.get(wide_v),
+            "instr_per_sample": wide_sass.get("loop", {}).get("total")})
+    return entries
+
+
+def _fit_losses(argv: list) -> tuple[list, dict]:
+    """Run ``cli fit`` on the card -> (the losses it logged, the launch
+    counts of the march kernels, reset before)."""
+    for fn in WRAPPERS:
+        fn.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(["fit", *argv, "--device", "cuda"])
+    _sync()
+    assert code == 0, f"cli fit {argv} returned {code}"
+    losses = [float(x) for x in
+              re.findall(r"fit step \d+: loss ([0-9.eE+-]+|nan|inf)",
+                         buf.getvalue())]
+    return losses, {fn.__name__: fn.launches for fn in WRAPPERS
+                    if fn.launches}
+
+
+def _resume_is_exact(dev: torch.device) -> None:
+    """A fused fit's state after 4 steps (64^3 / 256^2, four views, train
+    both), saved and loaded back on the card, equals the one in memory
+    bit for bit, and the next step's loss from either is the same to the
+    bit: the step's forward has no atomics, so only its inputs can move
+    it."""
+    from volrt_torch.diff.render import DiffScene
+    from volrt_torch.train import fit as tfit
+
+    tf = default_transfer_fn(dev)
+    step = 2.0 / 64 * (1.0 - 1.0 / 64)
+    gt = scene_from_volume(synthetic_volume(64), tf, step, device=dev)
+    views = []
+    for angles in ((0, 0, 0), (0, 90, 0), (90, 0, 0), (45, 45, 0)):
+        cam = Camera(dims=(256, 256))
+        cam.set_camera_position(angles)
+        view = cam.view(dev)
+        with torch.no_grad():
+            views.append((view, render_diff_image(gt, view, light_kd=0.0)))
+    scene = DiffScene(torch.full_like(gt.density, 0.3),
+                      torch.full_like(tf, 0.5), step)
+    state = tfit.init_state(scene, tfit.make_optimizer(scene, 0.02))
+    train = tfit.make_train_step(
+        loss_grads_fn=lambda s, v, t: diff_v3.l2_loss_grads_v3_onepass(
+            s, v, t))
+    for i in range(4):
+        state, _ = train(state, *views[i])
+    path = os.path.join(tempfile.mkdtemp(), "s4.npz")
+    ckpt_mod.save(path, state)
+    back = ckpt_mod.load(path, lr=0.02, device=dev)
+    assert back.step == state.step == 4
+    for p, q in ((scene.density, back.scene.density),
+                 (scene.tf_base, back.scene.tf_base)):
+        assert torch.equal(p, q)
+        mine, theirs = state.optimizer.state[p], back.optimizer.state[q]
+        assert float(mine["step"]) == float(theirs["step"]) == 4.0
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(mine[key], theirs[key]), key
+    _, in_memory = train(state, *views[0])
+    _, resumed = train(back, *views[0])
+    _sync()
+    assert in_memory.item() == resumed.item()
+    print(f"[checkpoint] 64^3/256^2 fused fit, 4 steps: the state saved and "
+          f"loaded on the card equals the one in memory to the bit; step 5's "
+          f"loss {resumed.item():.8g} from either")
+
+
+def phase_checkpoint() -> None:
+    """Checkpoints on the card. The resume is exact
+    (:func:`_resume_is_exact`). Then ``cli fit --fused``: 4 steps saved,
+    resumed to 8 (``--checkpoint-every 2``), against 8 steps straight
+    through, the launch counters reset before each fit: the first loss
+    equal, the others within rtol 5e-2. The backward sums gradients with
+    atomics in an order that changes from run to run, and Adam moves an
+    entry whose gradient is rounding noise by a full ``lr`` whichever way
+    the noise points, so two straight runs of this fit part from step 5
+    on by up to 1.9e-2 in loss (measured) where both start from states
+    equal to the rounding. Both files load on the CPU at step 8."""
+    _resume_is_exact(torch.device("cuda", 0))
+    tmp = tempfile.mkdtemp()
+    part, whole = (os.path.join(tmp, f"{n}.npz") for n in ("part", "whole"))
+    base = ["--fused", "--train", "both", "--synthetic", "64", "-s", "256",
+            "256", "--lr", "0.02"]
+    first, n1 = _fit_losses(base + ["--steps", "4", "--checkpoint", part])
+    rest, n2 = _fit_losses(base + ["--steps", "8", "--checkpoint", part,
+                                   "--checkpoint-every", "2", "--resume"])
+    straight, n3 = _fit_losses(base + ["--steps", "8", "--checkpoint",
+                                       whole])
+    print(f"[checkpoint] 64^3/256^2 cli fit --fused: 4 steps {first} "
+          f"(launches {n1}), resumed to 8 {rest} (launches {n2}), straight "
+          f"{straight} (launches {n3}); resumed against straight, steps 5-8: "
+          f"max relative difference "
+          f"{max(abs(a - b) / b for a, b in zip(rest, straight[4:])):.3g}")
+    assert n1 == {"l2_step": 4} and n2 == {"l2_step": 4}
+    assert n3 == {"l2_step": 8}
+    assert len(first) == 4 and len(rest) == 4 and len(straight) == 8
+    assert first[0] == straight[0]
+    np.testing.assert_allclose(first + rest, straight, rtol=5e-2)
+    a = ckpt_mod.load(part, device="cpu")
+    b = ckpt_mod.load(whole, device="cpu")
+    assert a.step == b.step == 8
+    for name in ("density", "tf_base"):
+        x, y = getattr(a.scene, name), getattr(b.scene, name)
+        assert x.device.type == "cpu" and torch.isfinite(x).all()
+        close = ((x - y).abs() <= 1e-3).float().mean().item()
+        print(f"[checkpoint] {name} resumed vs straight: max|diff| "
+              f"{(x - y).abs().max().item():.3g}, share within 1e-3 "
+              f"{close:.4f}")
+    for p in (a.scene.density, a.scene.tf_base):
+        state = a.optimizer.state[p]
+        assert int(state["step"].item()) == 8
+        assert torch.isfinite(state["exp_avg_sq"]).all()
+    print("[checkpoint] both files load on the CPU at step 8")
+
+
+def phase_orbit() -> None:
+    """``cli render --orbit 4 --background 0.2`` at 256^2 on
+    ``tests/assets/shell32.pvm`` (rung 3, its leap): each frame's PNG
+    equal to the bit to a single render at that pose, composited alike."""
+    from volrt_torch.utils.logger import Logger
+    from volrt_torch.viz import read_png
+
+    tmp = tempfile.mkdtemp()
+    out = os.path.join(tmp, "orb.png")
+    for fn in (*WRAPPERS, leap.esl_start):
+        fn.launches = 0
+    code = cli.main(["render", "-f", ASSET, "-s", "256", "256", "--orbit",
+                     "4", "--background", "0.2", "-o", out])
+    _sync()
+    assert code == 0
+    counts = {fn.__name__: fn.launches for fn in (*WRAPPERS, leap.esl_start)
+              if fn.launches}
+    assert counts == {"march_tri": 4, "esl_start": 4}, counts
+    args = cli.parser().parse_args(["render", "-f", ASSET, "-s", "256",
+                                    "256"])
+    rc = cli._make_rc(args)
+    mod = get_renderer(3)
+    cam = Camera(dims=rc.view.dims)
+    cam.toggle_perspective(update_mode=True)
+    cam.set_camera_position(tuple(args.angles), args.distance)
+    log = Logger(path=None, quiet=True)
+    for i in range(4):
+        frame = cli._composite_bg(cli._render_frame(
+            mod, rc.replace(view=cam.view(rc.device)), log), 0.2)
+        got = read_png(os.path.join(tmp, f"orb_{i:04d}.png"))[::-1]
+        assert got.shape == (256, 256, 3) and np.array_equal(got, frame), i
+        assert got.std() > 1.0, f"orbit frame {i} is uniform"
+        cam.rotate((0.0, 90.0, 0.0))
+    print(f"[orbit] cli render --orbit 4 --background 0.2, 256^2 on "
+          f"{os.path.basename(ASSET)}: launches {counts}; four frames, each "
+          f"equal to the bit to a single render at its pose")
+
+
+def phase_suite() -> None:
+    """``cli bench --small --frames 2 --renderers 2 3 4 5 --diff -o CSV -f
+    tests/assets/shell32.pvm``: every (config, renderer) cell that the
+    suite's rules give a time, every roofline share finite."""
+    from volrt_torch.bench import harness
+
+    tmp = tempfile.mkdtemp()
+    csv = os.path.join(tmp, "suite.csv")
+    for fn in (*WRAPPERS, leap.esl_start):
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(["bench", "--small", "--frames", "2", "--renderers",
+                         "2", "3", "4", "5", "--diff", "-o", csv, "-f",
+                         ASSET])
+    _sync()
+    assert code == 0
+    secs = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in (*WRAPPERS, leap.esl_start)
+              if fn.launches}
+    for name in ("march_tri", "march_blocked", "march_fwd", "march_bwd",
+                 "l2_step", "esl_start"):
+        assert counts.get(name, 0) > 0, f"the suite never launched {name}"
+    text = open(csv).read()
+    tables = {t.splitlines()[0]: [ln.split(",") for ln in t.splitlines()[1:]]
+              for t in text.strip().split("\n\n")}
+    avg = tables["average ms:"]
+    cols = avg[0][1:]
+    cells = {row[0]: dict(zip(cols, row[1:])) for row in avg[1:]}
+    configs = harness.default_suite(small=True, files=[ASSET])
+    for cfg in configs:
+        rc = harness.make_raycaster_for(cfg, device="cuda")
+        for _, name, _ in harness.renderer_fns(rc, (2, 3, 4, 5)):
+            v = cells[cfg.name][name]
+            assert v and float(v.rstrip("*")) > 0, (cfg.name, name, v)
+    for n, vp in ((64, 256), (128, 512)):
+        for name in ("fused-v3", "fused-onepass"):
+            assert float(cells[f"diff_{n}_{vp}"][name].rstrip("*")) > 0
+    roof = [ln for ln in tables if ln.startswith("nominal_roofline_x")][0]
+    shares = [float(v) for row in tables[roof][1:] for v in row[1:] if v]
+    assert shares and all(np.isfinite(shares)), shares
+    print(f"[suite] cli bench --small --frames 2 --renderers 2 3 4 5 --diff "
+          f"-f {os.path.basename(ASSET)}: {len(configs)} configs + 2 diff "
+          f"configs in {secs:.1f} s, launches {counts}; roofline shares "
+          f"{min(shares):.4g} to {max(shares):.4g}")
+    print(text)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -2353,6 +2795,10 @@ def main() -> int:
     run(phase_phong, dev)
     phong = run(phase_phong_kernels, dev, build)
     esl = run(phase_esl, dev, build)
+    wide = run(phase_wide, dev, build)
+    run(phase_checkpoint)
+    run(phase_orbit)
+    run(phase_suite)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -2380,10 +2826,11 @@ def main() -> int:
         {"name": "march_blocked", "route": "cuda",
          "source": "volrt_torch/csrc/march_ladder.cu",
          "replaces": "volrt/renderers/pallas/blocked.py:57",
-         **ladder["march_blocked"]},
+         **ladder["march_blocked"], "wide": wide["march_blocked"]},
         *({"name": name, "route": "cuda",
            "source": "volrt_torch/csrc/march_round1.cu",
-           "replaces": f"volrt/renderers/pallas/{where}", **round1[name]}
+           "replaces": f"volrt/renderers/pallas/{where}", **round1[name],
+           **({"wide": wide[name]} if name in wide else {})}
           for name, where in (("diff_tri_fwd", "diff_tri.py:121"),
                               ("diff_tri_bwd", "diff_tri.py:194"),
                               ("diff_blocked_fwd", "diff_blocked.py:90"),

@@ -4,6 +4,8 @@ loops of rungs 0-1) against ``volrt``'s, on volumes made from a numpy seed.
 Grids are integers and booleans and must agree exactly. Leap distances and
 starts are a few f32 operations on the same inputs: 1e-6.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -338,3 +340,42 @@ def test_the_lerp_bucket_gap():
     off, _ = fwd_v3.render_float(rc.replace(esl=False))
     assert on.abs().max() == 0.0
     assert off[..., 3].max() > 0.1
+
+
+def test_replacing_the_grid_rederives_the_kernels_tables():
+    """``rc.replace(esl_empty=g)`` renders on rungs 3 (the leap) and 5 (the
+    kernel's skipping) as a state built with ``g`` does, and rung 3 as
+    ``volrt``'s same ``replace`` does (Pallas in interpret mode, 1e-5: the
+    ladder's trilinear class); a ``replace`` of the view keeps the tables,
+    and the tables cannot be replaced alone. 16^3 / 16^2."""
+    from tests.test_torch_ladder import _image, _rcs
+    from volrt.renderers import get_renderer as j_get_renderer
+    from volrt_torch.renderers import get_renderer
+
+    jrc, trc = _rcs("trilinear", 0.0, 0.95, True, False, wh=16)
+    grid = trc.esl_empty.clone()
+    grid[:, :, 1:] = True  # the blocks of x >= 8 empty too
+    assert not torch.equal(grid, trc.esl_empty)
+    swapped = trc.replace(esl_empty=grid)
+    fresh = dataclasses.replace(trc, esl_empty=grid, esl_dist=None,
+                                esl_words=None)
+    for t in ("esl_dist", "esl_words"):
+        want = tesl.esl_tables(grid)[t == "esl_words"]
+        assert torch.equal(getattr(swapped, t), want), t
+        assert torch.equal(getattr(fresh, t), want), t
+        assert not torch.equal(getattr(trc, t), want), t
+    for rung in (3, 5):
+        render = get_renderer(rung).render_float
+        got = _image(render(swapped))
+        assert torch.equal(got, _image(render(fresh))), rung
+        assert not torch.equal(got, _image(render(trc))), rung
+    want = np.asarray(_image(j_get_renderer(3).render_float(
+        jrc.replace(esl_empty=jnp.asarray(grid.numpy())))))
+    np.testing.assert_allclose(
+        _image(get_renderer(3).render_float(swapped)).numpy(), want,
+        atol=1e-5, rtol=0)
+    moved = swapped.replace(ray_threshold=0.9)
+    assert moved.esl_dist is swapped.esl_dist
+    assert moved.esl_words is swapped.esl_words
+    with pytest.raises(ValueError, match="esl_empty"):
+        trc.replace(esl_dist=swapped.esl_dist)

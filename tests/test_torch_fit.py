@@ -15,6 +15,7 @@ exceeds 1e-7 in magnitude. Against ``volrt``'s fused route, which stores
 the volume in bf16, the losses are held to 2e-2.
 """
 import inspect
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,7 @@ from tests.test_torch_diff import CPU, STEP, _pair
 from volrt.diff import render as jrender
 from volrt.train.fit import fit as jfit
 from volrt_torch import cli
+from volrt_torch.bench import __main__ as headline
 from volrt_torch.bench import harness
 from volrt_torch.diff import render as trender
 from volrt_torch.renderers import diff_v3 as tdiff_v3
@@ -181,24 +183,32 @@ def test_train_step_and_losses(problem):
     assert scene.density.max().item() == 1.0
 
 
-def test_fit_refuses_what_is_not_ported(problem):
+def test_fit_refuses_what_is_not_ported(problem, tmp_path):
     """(f) Arguments of ``volrt``'s fit that wait for a later port; phong
-    with ``fused=True`` and ``esl`` run since the kernels have them."""
+    with ``fused=True``, ``esl`` and a ``.npz`` checkpoint run since the
+    kernels and ``train/checkpoint.py`` have them, and a checkpoint path
+    of another kind (``volrt``'s orbax directory) is refused."""
     scene = trender.scene_from_arrays(*_init(problem, "both"), STEP,
                                       device=CPU)
     pair = [(problem["tview"], torch.from_numpy(problem["target"]))]
+    ckpt = str(tmp_path / "state.npz")
     for kw in (dict(mesh=object()), dict(volume_sharded=True),
                dict(grad_chunks=4), dict(esl=True),
-               dict(checkpoint_path="state.npz"),
+               dict(checkpoint_path=ckpt),
                dict(shading="phong", fused=True)):
-        if kw.get("shading") == "phong" or kw.get("esl"):
-            # Ported since: the one-launch step's phong mode, and ESL (here
-            # the oracle's leading leap).
+        if (kw.get("shading") == "phong" or kw.get("esl")
+                or "checkpoint_path" in kw):
+            # Ported since: the one-launch step's phong mode, ESL (here
+            # the oracle's leading leap) and checkpoints.
             _, losses = tfit_mod.fit(scene, pair, steps=1, **kw)
             assert len(losses) == 1 and np.isfinite(losses[0])
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfit_mod.fit(scene, pair, steps=1, **kw)
+    assert os.path.exists(ckpt)
+    with pytest.raises(ValueError, match="npz"):
+        tfit_mod.fit(scene, pair, steps=1,
+                     checkpoint_path=str(tmp_path / "orbax_dir"))
     with pytest.raises(ValueError):
         tfit_mod.fit(scene, pair, steps=1, shading="toon")
     assert tfit_mod.fit(scene, pair, steps=0) == (scene, [])
@@ -214,10 +224,9 @@ def test_fit_refuses_what_is_not_ported(problem):
                               "esl_refresh_every"])
 def test_fit_takes_volrts_checkpoint_and_refresh_parameters(problem, kw):
     """(f) ``volrt``'s ``fit`` parameters for checkpoints and ESL refresh
-    sit in its order; the checkpoint parameters, until those are ported,
-    raise naming their ROADMAP item, and the ESL refresh, ported, runs
-    (without ``esl`` it changes nothing, as in ``volrt``); their defaults
-    fit as before."""
+    sit in its order; each runs (``checkpoint_every`` and ``resume``
+    without a ``checkpoint_path``, like the ESL refresh without ``esl``,
+    change nothing, as in ``volrt``); their defaults fit as before."""
     (name, _), = kw.items()
     want = [p for p in inspect.signature(jfit).parameters
             if p not in ("window", "flush")]
@@ -228,22 +237,18 @@ def test_fit_takes_volrts_checkpoint_and_refresh_parameters(problem, kw):
     scene = trender.scene_from_arrays(*_init(problem, "both"), STEP,
                                       device=CPU)
     pair = [(problem["tview"], torch.from_numpy(problem["target"]))]
-    if name == "esl_refresh_every":
-        _, losses = tfit_mod.fit(scene, pair, steps=1, **kw)
-        assert len(losses) == 1 and np.isfinite(losses[0])
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=rf"fit\({name}\).*ROADMAP"):
-            tfit_mod.fit(scene, pair, steps=1, **kw)
+    _, losses = tfit_mod.fit(scene, pair, steps=1, **kw)
+    assert len(losses) == 1 and np.isfinite(losses[0])
     _, losses = tfit_mod.fit(scene, pair, steps=1, **{name: type(
         kw[name])()})
     assert len(losses) == 1 and np.isfinite(losses[0])
 
 
-def test_cli_fit_fits_a_file(capsys):
+def test_cli_fit_fits_a_file(capsys, tmp_path):
     """(f) ``cli fit -f`` on the committed DDS-compressed PVM, 32 x 32 for
-    2 steps on the CPU; its checkpoint flags reach ``fit()``, which
-    refuses them."""
+    2 steps on the CPU; its checkpoint flags reach ``fit()``: a resume
+    from the file at its last step has nothing to do, and a checkpoint
+    path that is no ``.npz`` file is refused."""
     assert cli.main(["fit", "-f", ASSET_PATH, "-s", "32", "32", "--steps",
                      "2", "--device", CPU]) == 0
     captured = capsys.readouterr()
@@ -251,19 +256,26 @@ def test_cli_fit_fits_a_file(capsys):
               if ln.startswith("fit step")]
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert "final loss" in captured.err and "on cpu" in captured.err
-    for flag in (["--checkpoint", "state.npz"], ["--checkpoint-every", "5"],
-                 ["--resume"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["fit", "-f", ASSET_PATH, "-s", "8", "8", "--steps",
-                      "1", "--device", CPU, *flag])
+    ckpt = str(tmp_path / "state.npz")
+    for flag in (["--checkpoint", ckpt], ["--checkpoint-every", "5"],
+                 ["--resume"], ["--checkpoint", ckpt, "--resume"]):
+        capsys.readouterr()
+        assert cli.main(["fit", "-f", ASSET_PATH, "-s", "8", "8", "--steps",
+                         "1", "--device", CPU, *flag]) == 0
+    assert os.path.exists(ckpt)
+    assert "fit step" not in capsys.readouterr().out
+    with pytest.raises(ValueError, match="npz"):
+        cli.main(["fit", "-f", ASSET_PATH, "-s", "8", "8", "--steps", "1",
+                  "--device", CPU, "--checkpoint", str(tmp_path / "d")])
 
 
 def test_step_bench_needs_a_card():
-    """(f) A time on the CPU is no device metric: the bench refuses."""
+    """(f) A time on the CPU is no device metric: the headline
+    (``python -m volrt_torch.bench``) refuses."""
     with pytest.raises(ValueError, match="CUDA"):
         harness.bench_diff_step(volume_size=8, viewport=16, device=CPU)
     with pytest.raises(ValueError, match="CUDA"):
-        cli.main(["bench", "--synthetic", "8", "-s", "16", "--device", CPU])
+        headline.main(["--synthetic", "8", "-s", "16", "--device", CPU])
 
 
 @pytest.mark.parametrize("argv", [
@@ -297,11 +309,13 @@ def test_cli_fit_and_bench_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default is None
     if torch.cuda.is_available():
         return
-    for argv in (["fit", "--synthetic", "8", "-s", "16", "16", "--steps",
-                  "1"], ["bench", "--synthetic", "8", "-s", "16"]):
+    for main, argv in (
+            (cli.main, ["fit", "--synthetic", "8", "-s", "16", "16",
+                        "--steps", "1"]),
+            (headline.main, ["--synthetic", "8", "-s", "16"])):
         with pytest.raises((AssertionError, RuntimeError),
                            match="CUDA|cuda"):
-            cli.main(argv)
+            main(argv)
 
 
 def _trap():

@@ -23,7 +23,8 @@ import pytest
 import torch
 
 from volrt_torch.renderers.cuda.march import (
-    MAX_STEPS_LIMIT, march_fwd_plain, max_steps)
+    MAX_STEPS_LIMIT, OFFSET_LIMIT, check_volume_shape, march_fwd_plain,
+    max_steps, wide_offsets)
 
 # csrc/march_common.cuh: the round-down bias 1.5 * 2^23 and its bits.
 BIAS = np.float32(12582912.0)
@@ -388,3 +389,73 @@ def test_replay_tf_row_and_slope_from_the_padded_rows(where):
     assert np.array_equal(rows[j + 2] - rows[j + 1], tf[hi] - tf[lo])
     if where != "rows":
         assert (lo == hi).all() and (lo == (0 if where == "below" else 127)).all()
+
+
+# Voxel offsets (csrc/march_common.cuh: Unsigned, cell_axis, cell_at,
+# cell_key): 32-bit for a volume under 2^31 voxels, 64-bit from there on,
+# chosen by the wrapper from the shape alone.
+@pytest.mark.parametrize("voxels,wide", [(OFFSET_LIMIT - 1, False),
+                                         (OFFSET_LIMIT, True)])
+def test_the_offset_width_is_a_function_of_the_shape(voxels, wide):
+    """2^31 - 1 is prime: that many voxels make a line. 2^31 make the
+    [2048, 1024, 1024] volume. Neither is allocated."""
+    assert OFFSET_LIMIT == 2 ** 31
+    assert wide_offsets((voxels, 1, 1)) is wide
+    shape = (voxels // 2 ** 20, 1024, 1024) if wide else (voxels, 1, 1)
+    assert np.prod(shape, dtype=np.int64) == voxels
+    assert wide_offsets(shape) is wide
+    if wide:
+        # The 32-bit kernels refuse it; the any-size ones take it.
+        with pytest.raises(ValueError, match="2\\^31"):
+            check_volume_shape(shape, any_size=False)
+        check_volume_shape(shape, any_size=True)
+    else:
+        check_volume_shape((2047, 1024, 1024), any_size=False)
+    for bad in ((8, 2 ** 16, 2 ** 15), (2 ** 22, 2, 2)):
+        with pytest.raises(ValueError, match="2\\^22|slice"):
+            check_volume_shape(bad, any_size=True)
+
+
+def _first_tap(iz, iy, ix, shape, dtype):
+    """cell_at's base in ``dtype`` arithmetic: each axis's clamped index
+    times its stride (a product at that width), summed, then read as
+    the unsigned type of the same width, as the fetch adds it."""
+    _, h, w = shape
+    with np.errstate(over="ignore"):
+        i = [np.asarray(v, dtype) for v in (iz, iy, ix)]
+        off = (i[0] * dtype(w * h) + i[1] * dtype(w) + i[2])
+    return off.view(np.uint32 if dtype is np.int32 else np.uint64)
+
+
+def test_32_bit_offsets_wrap_and_64_bit_ones_do_not():
+    """On the phase-17 volume of ``chip_smoke.py`` (uint8 [4160, 1024,
+    1024]): past 2^31 the 32-bit product wraps negative, and past 2^32 the
+    unsigned sum wraps too, onto a voxel 4096 slices nearer; the 64-bit
+    offset is the voxel's. Below 2^32 the wrapped sum, read unsigned,
+    still lands on the voxel, which is why the card's check places its
+    blob past 2^32. The dVol scatter's 64-bit cell key (first tap
+    and the three steps' flags) tells cells apart that share a first
+    tap."""
+    shape = (4160, 1024, 1024)
+    iz = np.array([0, 2047, 2048, 4095, 4096, 4159])
+    iy, ix = np.full(6, 1023), np.full(6, 5)
+    exact = (iz.astype(np.int64) * 2 ** 20 + 1023 * 1024 + 5)
+    narrow = _first_tap(iz, iy, ix, shape, np.int32)
+    wide = _first_tap(iz, iy, ix, shape, np.int64)
+    np.testing.assert_array_equal(wide, exact)
+    with np.errstate(over="ignore"):
+        z_off = iz.astype(np.int32) * np.int32(2 ** 20)
+    np.testing.assert_array_equal(z_off != iz * 2 ** 20, iz >= 2048)
+    np.testing.assert_array_equal(z_off < 0, (iz >= 2048) & (iz < 4096))
+    np.testing.assert_array_equal(narrow, exact % 2 ** 32)
+    np.testing.assert_array_equal(narrow != exact, iz >= 4096)
+    # cell_key of a 64-bit cell: a clamped cell (steps 0) and the cell
+    # beside it share a first tap but not a key.
+    base = np.uint64(exact[-1])
+
+    def key(sx, sy, sz):
+        return (base << np.uint64(3)) | np.uint64(
+            (sx != 0) << 2 | (sy != 0) << 1 | (sz != 0))
+    keys = {int(key(sx, sy, sz)) for sx in (0, 1) for sy in (0, 1024)
+            for sz in (0, 2 ** 20)}
+    assert len(keys) == 8 and max(keys) < 2 ** 63 - 32

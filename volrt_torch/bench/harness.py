@@ -1,16 +1,61 @@
-"""Benchmark helpers of the port (the counterparts of
-``volrt/bench/harness.py:50-59, 472-633, 636-717``)."""
+"""Benchmarks of the port (the counterpart of ``volrt/bench/harness.py``).
+
+The scripted suite (``cli bench``): :func:`default_suite`'s configurations,
+each rendered by every rung of the ladder that applies on eight camera
+poses (four orientations, orthographic and perspective; reference:
+VolR.cpp:225-321) through :class:`~volrt_torch.utils.profiler.Profiler`
+(avg, max and samples tables and the nominal roofline), and the
+differentiable suite :func:`run_diff_suite`. Then the headline's two
+timers, :func:`bench_fwd_step` and :func:`bench_diff_step`
+(``python -m volrt_torch.bench``), on CUDA events.
+
+Not ported: ``volrt``'s scoped-VMEM window fallback (``_is_vmem_oom``) and
+its one-hot matrix-unit MFU and roofline (``_nominal_roofline``), which
+have no role on the card, and ``bench_sharded_render`` (with ``dist/``).
+"""
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from volrt_torch.core.device import resolve_device
 from volrt_torch.core.tf import default_transfer_fn
-from volrt_torch.core.types import Volume, default_ray_step, make_raycaster
+from volrt_torch.core.types import (
+    Raycaster, Volume, default_ray_step, make_raycaster)
 from volrt_torch.core.view import Camera
+from volrt_torch.diff import fused as fused_mod
 from volrt_torch.diff.render import render_diff_image, scene_from_volume
-from volrt_torch.renderers import diff_v3, get_renderer
+from volrt_torch.renderers import diff_v3, get_renderer, renderer_name
+from volrt_torch.utils import profiler as prof_mod
+from volrt_torch.utils.logger import get_logger
+
+MAX_BENCH_SAMPLE_MS = 7500.0  # reference: VolR.cpp:26
+
+# 4 poses x {ortho, persp} (reference: VolR.cpp:233-248).
+BENCH_ANGLES = [
+    (0.0, 0.0, 0.0),
+    (-90.0, 0.0, 0.0),
+    (0.0, -90.0, 0.0),
+    (45.0, 45.0, 0.0),
+]
+
+
+@dataclasses.dataclass
+class BenchConfig:
+    name: str
+    volume_size: int = 64
+    viewport: int = 256
+    esl: bool = True
+    ert: bool = True
+    ray_step_factor: float = 1.0
+    interpolation: str = "trilinear"
+    light_kd: float = 0.6
+    shading: str = "diffuse"  # "diffuse" (reference one-tap) | "phong"
+    file: str | None = None  # PVM/RAW dataset (reference: VolR.cpp:255-268)
 
 
 def synthetic_volume(n: int, seed: int = 0) -> np.ndarray:
@@ -23,6 +68,272 @@ def synthetic_volume(n: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     noise = rng.uniform(0, 20, size=(n, n, n))
     return np.clip(shell + blob + noise, 0, 255).astype(np.uint8)
+
+
+def default_suite(small: bool = False,
+                  files: list[str] | None = None) -> list[BenchConfig]:
+    """The benchmark sweep, ``volrt``'s configurations under its names
+    (``volrt/bench/harness.py:62-106``), mirroring the reference's
+    24-config structure (reference: VolR.cpp:34-38,270-321) with synthetic
+    datasets, plus a configuration for each PVM/RAW file in ``files``
+    (the reference loads seven named PVM files, VolR.cpp:255-268)."""
+    cfgs: list[BenchConfig] = []
+    for path in files or []:
+        cfgs.append(BenchConfig(
+            os.path.splitext(os.path.basename(path))[0], file=path))
+    # Dataset sweep (reference configs 1-7: seven PVM datasets).
+    sizes = [32, 64, 128] if small else [32, 64, 128, 256]
+    for n in sizes:
+        cfgs.append(BenchConfig(f"synthetic_{n}", volume_size=n))
+    # Nearest-neighbour config, so that rung 2 runs in the default sweep.
+    cfgs.append(BenchConfig(
+        "nearest_64", volume_size=64, interpolation="nearest"))
+    # Unshaded config: the flagship rung 5 and rungs 3-4 with no shade tap.
+    cfgs.append(BenchConfig(
+        "noshade_128" if not small else "noshade_64",
+        volume_size=64 if small else 128, light_kd=0.0))
+    # BASELINE config 4: gradient Blinn-Phong + ESL (rung 5's phong path).
+    cfgs.append(BenchConfig(
+        "phong_esl_64" if small else "phong_esl_256",
+        volume_size=64 if small else 256,
+        viewport=256 if small else 512, shading="phong"))
+    # Optimisation toggles on one dataset (reference configs 8-10).
+    base = 64 if small else 128
+    cfgs.append(BenchConfig("no_optim", base, esl=False, ert=False))
+    cfgs.append(BenchConfig("ert_only", base, esl=False, ert=True))
+    cfgs.append(BenchConfig("ert_esl", base, esl=True, ert=True))
+    # Viewport scale sweep (reference configs 11-17).
+    for s in ([0.9, 0.5] if small else [0.9, 0.7, 0.5, 0.3]):
+        cfgs.append(
+            BenchConfig(f"viewport_{s}", base, viewport=int(512 * s))
+        )
+    # Ray-step factor sweep (reference configs 18-24).
+    for f in ([1.1, 1.7] if small else [1.1, 1.3, 1.5, 1.7]):
+        cfgs.append(BenchConfig(f"ray_step_{f}", base, ray_step_factor=f))
+    return cfgs
+
+
+def make_raycaster_for(cfg: BenchConfig, volume: Volume | None = None,
+                       camera: Camera | None = None,
+                       device: torch.device | str | None = None
+                       ) -> Raycaster:
+    """The render state of ``cfg`` on ``device`` (the card when ``None``),
+    from ``volume`` (the synthetic volume of ``cfg.volume_size`` when
+    ``None``) under ``camera``, as ``volrt``'s ``make_raycaster_for``."""
+    device = resolve_device(device)
+    if volume is None:
+        volume = Volume.from_numpy(synthetic_volume(cfg.volume_size), device)
+    if camera is None:
+        camera = Camera(dims=(cfg.viewport, cfg.viewport))
+    step = default_ray_step(volume.dims) * cfg.ray_step_factor
+    return make_raycaster(
+        volume,
+        view=camera.view(device),
+        ray_step=step,
+        ray_threshold=0.95 if cfg.ert else 1.1,
+        esl=cfg.esl,
+        light_kd=cfg.light_kd,
+        interpolation=cfg.interpolation,
+        shading=cfg.shading,
+    )
+
+
+def _image(out) -> torch.Tensor:
+    return out[0] if isinstance(out, tuple) else out
+
+
+def renderer_fns(rc: Raycaster, renderers) -> list[tuple]:
+    """``(id, name, fn)`` for each requested rung of the ladder that applies
+    to ``rc``, ``fn()`` rendering the image: rung 2 in nearest mode only,
+    rungs 3-5 in trilinear mode only, phong on rung 5 only, as ``volrt``'s
+    suite picks them (``volrt/bench/harness.py:131-173``)."""
+    out = []
+    for rid in renderers:
+        if rid == 2 and rc.interpolation != "nearest":
+            continue
+        if rid in (3, 4, 5) and rc.interpolation != "trilinear":
+            continue
+        if rid != 5 and rc.shading == "phong":
+            continue
+        mod = get_renderer(rid)
+        out.append((rid, renderer_name(rid),
+                    lambda rc=rc, mod=mod: _image(mod.render_float(rc))))
+    return out
+
+
+def _flops_per_sample(rid: int, interpolation: str) -> int:
+    """A sample's f32 operations in the roofline's nominal march: the
+    unshaded counts of ``utils/profiler.py`` (the shade taps' operations
+    left out, so the bound stays a least time)."""
+    if interpolation == "nearest":
+        return prof_mod.FLOPS_NEAREST
+    return prof_mod.FLOPS_FWD if rid == 5 else prof_mod.FLOPS_TRI
+
+
+def _trace(trace_dir: str | None, name: str):
+    """A ``torch.profiler`` context that writes a Chrome trace of the
+    timed frames to ``trace_dir/<name>.json`` (nothing without a
+    directory)."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+
+    def write(prof):
+        prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
+
+    return profile(activities=activities, on_trace_ready=write)
+
+
+def run_suite(
+    configs: list[BenchConfig] | None = None,
+    renderers=(0, 1, 2, 3, 4, 5),
+    frames: int = 8,
+    warmup: int = 1,
+    profiler: prof_mod.Profiler | None = None,
+    logger=None,
+    trace_dir: str | None = None,
+    device: torch.device | str | None = None,
+) -> prof_mod.Profiler:
+    """Run the benchmark sweep on ``device`` (the card when ``None``);
+    returns the filled profiler.
+
+    Each (config, renderer) renders ``frames`` frames over ``volrt``'s
+    eight camera poses after ``warmup`` frames of each projection; a frame
+    that takes more than the reference's 7.5 s ends that renderer's run
+    of the config (reference: VolR.cpp:237), and the golden rung 0 runs
+    only on light configs (reference: VolR.cpp:228-230). A file config
+    loads its volume through ``io/pvm.py``. Each cell gets a
+    ``roofline_x`` note (:meth:`Profiler.print_roofline`). ``trace_dir``
+    keeps a ``torch.profiler`` trace of each cell's timed frames.
+    """
+    device = resolve_device(device)
+    log = (logger or get_logger()).log
+    prof = profiler or prof_mod.Profiler()
+    configs = configs if configs is not None else default_suite()
+
+    for cfg in configs:
+        if cfg.file:
+            from volrt_torch.io.pvm import load_volume
+
+            data, _ = load_volume(cfg.file)
+        else:
+            data = synthetic_volume(cfg.volume_size)
+        volume = Volume.from_numpy(data, device)
+        camera = Camera(dims=(cfg.viewport, cfg.viewport))
+        poses = []
+        for angles in BENCH_ANGLES:
+            for persp in (False, True):
+                camera.perspective = persp
+                camera.toggle_perspective(update_mode=True)
+                camera.set_camera_position(angles)
+                poses.append(camera.view(device))
+
+        for rid in renderers:
+            if rid == 0 and (cfg.volume_size > 64 or cfg.viewport > 256
+                             or cfg.file):
+                continue
+            rc0 = make_raycaster_for(cfg, volume, camera, device)
+            fns = renderer_fns(rc0, [rid])
+            if not fns:
+                continue
+            name = fns[0][1]
+            # Warm both projections; a failure (out of memory, a mode the
+            # rung refuses) skips the renderer for this config.
+            try:
+                for _ in range(warmup):
+                    for wview in poses[:2]:
+                        renderer_fns(rc0.replace(view=wview), [rid])[0][2]()
+            except Exception as e:  # noqa: BLE001
+                log(f"bench {cfg.name}/{name}: skipped ({e})")
+                continue
+            frame_fns = [renderer_fns(rc0.replace(view=poses[f % len(poses)]),
+                                      [rid])[0][2] for f in range(frames)]
+            with _trace(trace_dir, f"{cfg.name}_{name}"):
+                for fn in frame_fns:
+                    prof.start(cfg.name, name)
+                    fn()
+                    if prof.stop() > MAX_BENCH_SAMPLE_MS:
+                        break
+            avg_ms = prof.stats[cfg.name][name].avg_ms
+            n_rays = cfg.viewport * cfg.viewport
+            bound_ms = prof_mod.nominal_bound_ms(
+                n_rays, int(2.0 / rc0.ray_step), volume.data.numel(),
+                _flops_per_sample(rid, cfg.interpolation))
+            if avg_ms > 0.0:
+                prof.note(cfg.name, name, roofline_x=bound_ms / avg_ms)
+        log(f"bench config {cfg.name} done")
+    return prof
+
+
+def run_diff_suite(
+    configs: list[tuple[int, int]] | None = None,
+    frames: int = 4,
+    profiler: prof_mod.Profiler | None = None,
+    logger=None,
+    fused: bool = True,
+    device: torch.device | str | None = None,
+) -> prof_mod.Profiler:
+    """The differentiable forward+backward sweep (no reference analog):
+    one row per ``(volume_size, viewport)`` config, each frame a whole
+    loss-and-gradients step of the synthetic scene under the zoomed
+    orthographic view against a zero target, timed through the profiler
+    like the forward suite. ``fused=True`` times the two-kernel route
+    (``fused-v3``: ``march_fwd`` and ``march_bwd`` under autograd) and the
+    one-launch ``l2_step`` (``fused-onepass``), whose cell gets a
+    ``roofline_x`` note; ``fused=False`` autograd through the plain torch
+    march (``plain-diff``)."""
+    device = resolve_device(device)
+    log = (logger or get_logger()).log
+    prof = profiler or prof_mod.Profiler()
+    if configs is None:
+        configs = [(64, 256), (128, 512), (256, 1024)]
+    for n, viewport in configs:
+        cfg = f"diff_{n}_{viewport}"
+        scene, view, target = diff_bench_scene(n, viewport, device=device)
+        leaves = [scene.density, scene.tf_base]
+
+        def autograd_step(loss_fn):
+            def step():
+                loss = loss_fn(scene, view, target)
+                return loss, torch.autograd.grad(loss, leaves)
+            return step
+
+        if fused:
+            variants = [
+                ("fused-v3", autograd_step(fused_mod.l2_loss_fused)),
+                ("fused-onepass", lambda: diff_v3.l2_loss_grads_v3_onepass(
+                    scene, view, target))]
+        else:
+            variants = [("plain-diff", autograd_step(
+                lambda s, v, t: torch.mean((render_diff_image(s, v) - t)
+                                           ** 2)))]
+        for vname, step in variants:
+            try:
+                step()
+            except Exception as e:  # noqa: BLE001
+                log(f"bench {cfg}/{vname}: skipped ({e})")
+                continue
+            for _ in range(frames):
+                prof.start(cfg, vname)
+                step()
+                if prof.stop() > MAX_BENCH_SAMPLE_MS:
+                    break
+        if fused and "fused-onepass" in prof.stats.get(cfg, {}):
+            avg_ms = prof.stats[cfg]["fused-onepass"].avg_ms
+            numel = scene.density.numel()
+            bound_ms = prof_mod.nominal_bound_ms(
+                viewport * viewport, int(2.0 / scene.ray_step), numel * 4,
+                prof_mod.FLOPS_FWD + prof_mod.FLOPS_BWD,
+                grad_bytes=numel * 4)
+            if avg_ms > 0.0:
+                prof.note(cfg, "fused-onepass", roofline_x=bound_ms / avg_ms)
+        log(f"bench config {cfg} done")
+    return prof
 
 
 def bench_pose(volume_size: int, viewport: int,

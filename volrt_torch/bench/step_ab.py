@@ -34,6 +34,9 @@ imports ``volrt_torch`` from that root, builds its kernels and times, at
   ``esl=True`` (rung 5's ESL mode, the leap kernel on rungs 2-4); the CLI
   look's frame with the leap and the leap kernel alone
   (``leap.esl_start``);
+- where the root has them (``wide=``), the 64-bit voxel offsets'
+  instances on the same volumes: ``march_blocked wide`` on the ladder's
+  pose, ``diff_blocked_fwd``/``_bwd`` ``wide`` on scene ``a``;
 - the round-1 routes beside them: ``diff_blocked_fwd`` and
   ``diff_blocked_bwd`` (whole, ``need_dtf=False``, ``need_dvol=False``) on
   both scenes, and the ``render_image_fused(blocked=True)`` step on scene
@@ -87,7 +90,10 @@ NEEDS = (("", {}), (" need_dtf=False", {"need_dtf": False}),
 # The kernels whose build and SASS are reported: the forwards, then the
 # backwards.
 KERNELS = ("march_ladder_kernel", "march_fwd_kernel", "round1_fwd_kernel",
-           "l2_step_kernel", "march_bwd_kernel", "round1_bwd_kernel")
+           "l2_step_kernel", "march_bwd_kernel", "round1_bwd_kernel",
+           # The 64-bit voxel offsets' instances of rows 5, 8 and 9.
+           "march_blocked_wide_kernel", "round1_fwd_wide_kernel",
+           "round1_bwd_wide_kernel")
 # The scatter's opcodes, counted per kernel over its variants.
 SCATTER_OPS = ("ATOMS", "RED", "REDG", "ATOM", "ATOMG", "MATCH", "SHFL",
                "VOTE")
@@ -312,6 +318,9 @@ def _ladder_times(dev, med) -> tuple[dict, int]:
             if fn is march_tri:
                 kw["nearest"] = interp == "nearest"
             t[name] = med(lambda: fn(*args, **kw))
+            if (fn is march_blocked
+                    and "wide" in inspect.signature(fn).parameters):
+                t[name + " wide"] = med(lambda: fn(*args, **kw, wide=True))
             if warp_steps is None:
                 warp_steps = _warp_steps(args, kw, accumulate=True)
         for rung in (5, 4, 3, 2):
@@ -405,6 +414,7 @@ def child(root: str, sass_file: str | None = None,
     # an older root has no times for them.
     has_phong = "phong" in inspect.signature(march_fwd).parameters
     has_esl = "esl" in inspect.signature(march_fwd).parameters
+    has_wide = "wide" in inspect.signature(diff_blocked_fwd).parameters
     _build.load()
     lib = _build.library_path()
     sass = cuobjdump_sass(str(lib))
@@ -520,6 +530,12 @@ def child(root: str, sass_file: str | None = None,
                     lambda: march_bwd(*e_args, e_out, e_g, **e_kw))
             t.update(_round1_times(diff_blocked_fwd, diff_blocked_bwd, args,
                                    kw, med, forwards_only))
+            if name == "a" and has_wide:
+                # The 64-bit voxel offsets' instances on the same scene.
+                wide = _round1_times(diff_blocked_fwd, diff_blocked_bwd,
+                                     args, dict(kw, wide=True), med,
+                                     forwards_only)
+                t.update({k + " wide": v for k, v in wide.items()})
         leaves[name] = t
         if forwards_only:
             continue
@@ -636,6 +652,11 @@ VARIANT_ROWS = (
     ("a", "l2_step ERT 0.95", "l2_step_kernel<0,0,1,1>", None),
     ("a", "diff_blocked_bwd", "round1_bwd_kernel<1,1,1>", None),
     ("crop", "diff_tri_bwd", "round1_bwd_kernel<1,1,1>", None),
+    ("ladder", "march_blocked wide", "march_blocked_wide_kernel<0,1>",
+     "ladder"),
+    ("a", "diff_blocked_fwd wide", "round1_fwd_wide_kernel<1>",
+     "a accumulating"),
+    ("a", "diff_blocked_bwd wide", "round1_bwd_wide_kernel<1,1,1>", None),
 )
 # Issue slots of one H100: 132 SMs of four schedulers, one warp
 # instruction a clock each.

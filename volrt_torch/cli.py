@@ -4,26 +4,33 @@
     python -m volrt_torch.cli render -f volume.pvm -s 512 512 -o out.png
     python -m volrt_torch.cli render -r 5 --synthetic 256 -s 1024 1024 \\
         -o out.png
+    python -m volrt_torch.cli render --orbit 8 --background 0.25 -o orb.png
     python -m volrt_torch.cli fit --fused --train both --synthetic 256 \\
-        -s 1024 1024 --steps 100
-    python -m volrt_torch.cli bench
+        -s 1024 1024 --steps 100 --checkpoint fit.npz --resume
+    python -m volrt_torch.cli bench --small -f volume.pvm -o report.csv
     python -m volrt_torch.cli info -f volume.pvm
 
 Everything runs on the card unless ``--device cpu`` is given. The flags are
-those of ``volrt``'s (``volrt/cli.py:18-51, 509-550``) that the port
-supports; ``render`` takes renderer 3 with the leading empty-space leap by
-default, as ``volrt``'s does. ``--shading phong`` renders on renderers 0-1
-(torch ops) and 5 (the kernel's phong mode), refuses renderers 2-4, and
-trains with or without ``--fused``. ``fit`` takes ``render``'s arguments, so
-it fits a PVM or RAW file (``-f``) or the synthetic volume; its
-``--checkpoint``, ``--checkpoint-every`` and ``--resume`` reach ``fit()``,
-which refuses them until checkpoints are ported; its ``--esl`` trains
-with empty-space skipping (the one-launch step's ESL mode with
-``--fused``, the oracle's leading leap without). ``render`` leaps or
-skips empty space unless ``--no-esl`` is given (the leading leap on
-renderers 0-4, the kernel's sample skipping on renderer 5). Still to come:
-``--orbit`` and ``--background`` of ``render``; ``--dist`` and
-``--grad-chunks`` of ``fit``.
+``volrt``'s (``volrt/cli.py``) that the port supports; ``render`` takes
+renderer 3 with the leading empty-space leap by default, as ``volrt``'s
+does. ``--shading phong`` renders on renderers 0-1 (torch ops) and 5 (the
+kernel's phong mode), refuses renderers 2-4, and trains with or without
+``--fused``. ``render --orbit N`` writes N frames ``<base>_%04d.png`` round
+the volume (360/N degrees a frame), ``--background`` composites over a
+grey as the reference's display does, ``--nosafe`` carries an orbit on past
+a frame that fails; a frame that runs out of the card's memory is
+rendered again in row bands. ``fit`` takes ``render``'s arguments, so it
+fits a PVM or RAW file (``-f``) or the synthetic volume; ``--checkpoint``
+(a ``.npz`` file that ``volrt`` reads too), ``--checkpoint-every`` and
+``--resume`` save and resume; ``--esl`` trains with empty-space skipping.
+``bench`` is ``volrt``'s suite (``default_suite``'s configs, every rung,
+eight poses; ``--diff`` adds the training steps; ``-o`` writes the tables
+as CSV); the one-line headline is ``python -m volrt_torch.bench``.
+``--log FILE`` writes the session to ``FILE`` and echoes it to stdout
+(``volrt``'s default is ``volrt.log``; the port writes no file unless
+asked). Not ported: ``bench --sharded``, ``fit --dist`` (both with
+``dist/``), and ``--window``, ``--strict-overflow`` and ``--grad-chunks``
+(TPU windows and memory budgets).
 """
 from __future__ import annotations
 
@@ -121,23 +128,86 @@ def _make_rc(args):
     )
 
 
-def cmd_render(args) -> int:
+def _logger(path):
+    """``volrt``'s session logger on ``path`` (echoed to stdout), or a
+    silent one that writes nowhere when no ``--log`` is given."""
+    from volrt_torch.utils.logger import Logger
+
+    return Logger(path) if path else Logger(path=None, quiet=True)
+
+
+def _render_frame(mod, rc, log) -> np.ndarray:
+    """One frame as a ``uint8[H, W, 4]`` y-up buffer; a frame that runs out
+    of the card's memory is rendered again in row bands, on the same card
+    with the same kernel (``utils/errors.py``)."""
     from volrt_torch.core import sampling
-    from volrt_torch.renderers import get_renderer
+    from volrt_torch.utils.errors import render_with_oom_fallback
+
+    def one(sub_rc):
+        out = mod.render_float(sub_rc)
+        return out if isinstance(out, tuple) else (out, 0.0)
+
+    fimg, _ = render_with_oom_fallback(one, rc, log=log)
+    return sampling.write_color(fimg).cpu().numpy()
+
+
+def _composite_bg(img: np.ndarray, bg: float) -> np.ndarray:
+    """Composite the premultiplied uint8 frame over a grey background as
+    the reference's display blends it (GL_SRC_ALPHA / ONE_MINUS_SRC_ALPHA
+    over glClearColor(bg, bg, bg); reference: UI.cpp:122-128, 431-433) ->
+    ``(H, W, 3)`` uint8. ``volrt/cli.py:_composite_bg``, op for op."""
+    f = img.astype(np.float32) / 255.0
+    a = f[..., 3:4]
+    rgb = f[..., :3] * a + bg * (1.0 - a)
+    return np.clip(np.round(rgb * 255.0), 0, 255).astype(np.uint8)
+
+
+def cmd_render(args) -> int:
+    from volrt_torch.core.view import Camera
+    from volrt_torch.renderers import get_renderer, renderer_name
+    from volrt_torch.utils.errors import safe_call
     from volrt_torch.viz import write_png
 
+    log = _logger(args.log)
     mod = get_renderer(args.renderer)
     rc = _make_rc(args)
-    t0 = time.perf_counter()
-    fimg = mod.render_float(rc)
-    if isinstance(fimg, tuple):  # rungs 3-5 also return an overflow count
-        fimg = fimg[0]
-    img = sampling.write_color(fimg).cpu().numpy()
-    dt = time.perf_counter() - t0
-    write_png(args.output, img[::-1])  # y-up buffer -> top-down PNG
-    print(f"rendered {img.shape[1]}x{img.shape[0]} with {mod.NAME} on "
-          f"{rc.device} in {dt * 1e3:.1f} ms (first call) "
-          f"-> {args.output}", file=sys.stderr)
+    log.log_time("rendering with %s ...", renderer_name(args.renderer))
+    if args.orbit <= 1:
+        t0 = time.perf_counter()
+        img = _render_frame(mod, rc, log)
+        dt = time.perf_counter() - t0
+        if args.background is not None:
+            img = _composite_bg(img, args.background)
+        write_png(args.output, img[::-1])  # y-up buffer -> top-down PNG
+        log.log_time("wrote %s (%dx%d)", args.output, img.shape[1],
+                     img.shape[0])
+        print(f"rendered {img.shape[1]}x{img.shape[0]} with {mod.NAME} on "
+              f"{rc.device} in {dt * 1e3:.1f} ms (first call) "
+              f"-> {args.output}", file=sys.stderr)
+        return 0
+
+    # The orbit: the offline counterpart of the reference's auto-rotate
+    # (reference: UI.cpp:132-139), a new camera per frame.
+    base, ext = (args.output.rsplit(".", 1) + ["png"])[:2]
+    step_deg = 360.0 / args.orbit
+    cam = Camera(dims=rc.view.dims, perspective=args.perspective)
+    cam.toggle_perspective(update_mode=True)
+    cam.set_camera_position(tuple(args.angles), args.distance)
+    for i in range(args.orbit):
+        frame_rc = rc.replace(view=cam.view(rc.device))
+        # --nosafe carries on past a frame that fails (reference:
+        # VolR.cpp:404-406, cuda_utils.h:28-29).
+        img, err = safe_call(_render_frame, mod, frame_rc, log, log=log,
+                             nosafe=args.nosafe, what=f"orbit frame {i}")
+        if err is None:
+            path = f"{base}_{i:04d}.{ext}"
+            if args.background is not None:
+                img = _composite_bg(img, args.background)
+            write_png(path, img[::-1])
+            log.log_time("frame %d/%d -> %s", i + 1, args.orbit, path)
+        cam.rotate((0.0, step_deg, 0.0))
+    print(f"rendered {args.orbit} orbit frames with {mod.NAME} on "
+          f"{rc.device} -> {base}_*.{ext}", file=sys.stderr)
     return 0
 
 
@@ -151,6 +221,7 @@ def cmd_fit(args) -> int:
         DiffScene, render_diff_image, scene_from_volume)
     from volrt_torch.train.fit import fit
 
+    log = _logger(args.log)
     device = torch.device(args.device)
     data = _load_volume(args)
     step = args.ray_step or default_ray_step(data.shape)
@@ -186,40 +257,48 @@ def cmd_fit(args) -> int:
         train_density=train in ("density", "both"),
         train_tf=train in ("tf", "both"),
         log_every=max(1, args.steps // 10),
+        logger=log if args.log else None,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
         fused=args.fused, shading=shading, light_kd=args.light_kd,
         esl=args.esl)
     if losses:
+        log.log_time("final loss %.6f", losses[-1])
         print(f"final loss {losses[-1]:.6f} after {len(losses)} steps in "
               f"{time.perf_counter() - t0:.2f} s on {device}",
               file=sys.stderr)
+    else:
+        log.log("nothing to do: checkpoint already at %d steps", args.steps)
     return 0
 
 
 def cmd_bench(args) -> int:
-    """The headline line: the one-launch L2 step and the forward render at
-    256^3 / 1024^2, under the key names of ``volrt``'s root ``bench.py``
-    (no ``mfu`` and no ``vs_baseline``: both are defined against a TPU)."""
-    from volrt_torch.bench.harness import bench_diff_step, bench_fwd_step
+    """``volrt``'s benchmark suite (``volrt/cli.py:262-302``): the forward
+    sweep over ``default_suite``'s configs and the chosen rungs, with
+    ``--diff`` the training steps, then the avg, max, samples and roofline
+    tables, on stdout and, with ``-o``, as CSV."""
+    from volrt_torch.bench.harness import (
+        default_suite, run_diff_suite, run_suite)
 
-    m = bench_diff_step(args.synthetic, args.size, iters=args.iters,
-                        fused=True, onepass=True, device=args.device)
-    f = bench_fwd_step(args.synthetic, args.size, iters=args.iters,
-                       device=args.device)
-    print(json.dumps({
-        "metric": "diff_fwd_bwd_ray_steps_per_s",
-        "value": m["ray_steps_per_s"],
-        "unit": "rays*steps/s",
-        "ms": m["ms"],
-        "ms_p90": m["ms_p90"],
-        "loss": m["loss"],
-        "fwd_ms": f["ms"],
-        "fwd_ray_steps_per_s": f["ray_steps_per_s"],
-        "iters": args.iters,
-        "device": m["device"],
-        "precision": m["precision"],
-    }))
+    if args.sharded:
+        raise NotImplementedError(
+            "bench --sharded is not ported yet (ROADMAP.md, queue 1: dist/)")
+    log = _logger(args.log)
+    prof = run_suite(
+        configs=default_suite(small=args.small, files=args.files),
+        renderers=tuple(args.renderers), frames=args.frames, logger=log,
+        trace_dir=args.trace_dir, device=args.device)
+    if args.diff:
+        diff_cfgs = [(64, 256), (128, 512)] if args.small else None
+        run_diff_suite(configs=diff_cfgs, frames=max(2, args.frames // 2),
+                       profiler=prof, logger=log, device=args.device)
+    tables = [prof.print_avg(), prof.print_max(), prof.print_samples(),
+              prof.print_roofline()]
+    for table in tables:
+        (log.log if args.log else print)(table)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write("\n\n".join(tables) + "\n")
     return 0
 
 
@@ -250,7 +329,9 @@ def cmd_info(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser: ``parser().parse_args(["render", ...])``
+    gives a command's arguments with their defaults."""
     parser = argparse.ArgumentParser(
         prog="volrt_torch",
         description="volume raycaster on PyTorch and CUDA (port of volrt)")
@@ -258,7 +339,20 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("render", help="render one frame to PNG")
     _add_render_args(p)
+    p.add_argument("--orbit", type=int, default=1,
+                   help="render N orbit frames (auto-rotate analog)")
     p.add_argument("-o", "--output", default="out.png")
+    p.add_argument("--log", default=None,
+                   help="write the session to this file too (volrt's "
+                   "default is volrt.log; none unless given)")
+    p.add_argument("--background", type=float, default=None,
+                   metavar="GRAY",
+                   help="composite over a grayscale background in [0, 1] "
+                        "(the reference UI's Background slider, default "
+                        "0.25 there); omit to keep straight RGBA")
+    p.add_argument("--nosafe", action="store_true",
+                   help="continue past per-frame render errors in orbit "
+                   "sequences (reference: -nosafe, cuda_utils.h:28-29)")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("fit", help="inverse-rendering fit demo")
@@ -273,11 +367,13 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.05)
     p.add_argument("--checkpoint", default=None,
-                   help="TrainState checkpoint path (not ported yet)")
+                   help="TrainState checkpoint path (.npz, the format "
+                   "volrt reads and writes)")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="save the checkpoint every N steps (not ported yet)")
+                   help="save the checkpoint every N steps (0 = only at "
+                   "the end)")
     p.add_argument("--resume", action="store_true",
-                   help="resume from --checkpoint (not ported yet)")
+                   help="resume from --checkpoint if it exists")
     p.add_argument("--fused", action="store_true",
                    help="train through the one-launch L2 step kernel")
     p.add_argument("--esl", action="store_true",
@@ -285,25 +381,46 @@ def main(argv=None) -> int:
                    "kernel's sample skipping with --fused, the leading "
                    "leap without; the TF gets no gradient from skipped "
                    "samples)")
+    p.add_argument("--log", default=None,
+                   help="write the session to this file too (volrt's "
+                   "default is volrt.log; none unless given)")
     p.set_defaults(fn=cmd_fit)
 
     p = sub.add_parser(
-        "bench", help="time the L2 step and the forward render; prints "
-        "one JSON line")
-    p.add_argument("--synthetic", type=int, default=256,
-                   help="synthetic volume size")
-    p.add_argument("-s", "--size", type=int, default=1024,
-                   help="viewport edge")
-    p.add_argument("--iters", type=int, default=20)
+        "bench", help="run the benchmark suite (the one-line headline is "
+        "python -m volrt_torch.bench)")
+    p.add_argument("-f", "--files", nargs="*", default=None,
+                   help="PVM/RAW dataset files to bench, a config each")
+    p.add_argument("--renderers", type=int, nargs="+",
+                   default=[0, 1, 2, 3, 4, 5],
+                   help="ladder rungs to sweep (the golden rung 0 skips "
+                   "heavy configs)")
+    p.add_argument("--frames", type=int, default=8)
+    p.add_argument("--small", action="store_true")
+    p.add_argument("--trace-dir", default=None,
+                   help="keep a torch.profiler trace of each cell's timed "
+                   "frames here")
+    p.add_argument("--diff", action="store_true",
+                   help="append the training steps' rows (the two-kernel "
+                   "and the one-launch L2 step)")
+    p.add_argument("--sharded", action="store_true",
+                   help="the multi-device scaling row (not ported yet)")
+    p.add_argument("-o", "--output", default=None, help="CSV report path")
+    p.add_argument("--log", default=None,
+                   help="write the session to this file too")
     p.add_argument("--device", default="cuda",
-                   help="a CUDA device; the bench refuses the CPU")
+                   help="torch device to run on (cuda or cpu)")
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("info", help="device and volume info")
     p.add_argument("-f", "--file", default=None)
     p.set_defaults(fn=cmd_info)
 
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     return args.fn(args)
 
 

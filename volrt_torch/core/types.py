@@ -139,18 +139,21 @@ class Raycaster:
         on the volume's device.
       esl_block_dims: voxels per ESL block edge
         (reference: RaycasterBase.cpp:97-99).
-      esl_dist: ``int32[32, 32, 32]``, ``esl_empty``'s distance grid (the
-        leading leap's) and
-      esl_words: ``int32[1024]``, ``esl_empty`` packed (rung 5's skipping):
-        both built with ``esl_empty`` (:func:`esl_mod.esl_tables`), once
-        per TF, not per frame. A state made with ``replace(esl_empty=)``
-        must replace them too.
       interpolation: ``"nearest"`` (renderers 0-2: uint8 sample, bucketed
         TF) or ``"trilinear"`` (renderers 0-1 and 3-5: trilinear sample in
         [0, 1], linearly interpolated TF).
       shading: ``"diffuse"`` (the reference's one-tap diffuse, a no-op when
         ``light_kd <= SHADE_KD_GATE``) or ``"phong"`` (gradient Blinn-Phong;
         rungs 0-1).
+      esl_dist: ``int32[32, 32, 32]``, ``esl_empty``'s distance grid (the
+        leading leap's) and
+      esl_words: ``int32[1024]``, ``esl_empty`` packed (rung 5's skipping):
+        what the kernels read of ``esl_empty``, derived from it
+        (:func:`esl_mod.esl_tables`) when a state is made without them,
+        and by :meth:`replace` whenever it is given a new ``esl_empty``; a
+        ``replace`` of anything else carries them over, so a frame's new
+        view does not rebuild them. ``volrt``'s state holds ``esl_empty``
+        alone, so this keeps the two packages' ``replace`` alike.
     """
 
     volume: Volume
@@ -161,11 +164,17 @@ class Raycaster:
     light_kd: float
     esl_empty: torch.Tensor
     esl_block_dims: int
-    esl_dist: torch.Tensor
-    esl_words: torch.Tensor
     esl: bool = False
     interpolation: str = "trilinear"
     shading: str = "diffuse"
+    esl_dist: torch.Tensor | None = None
+    esl_words: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.esl_dist is None or self.esl_words is None:
+            dist, words = esl_mod.esl_tables(self.esl_empty)
+            object.__setattr__(self, "esl_dist", dist)
+            object.__setattr__(self, "esl_words", words)
 
     @property
     def device(self) -> torch.device:
@@ -179,6 +188,15 @@ class Raycaster:
         return (2.0 * b / w, 2.0 * b / h, 2.0 * b / d)
 
     def replace(self, **kw: Any) -> "Raycaster":
+        """A copy with the fields ``kw`` changed. A new ``esl_empty``
+        brings new ``esl_dist`` and ``esl_words``, derived from it; the
+        tables cannot be replaced on their own."""
+        tables = {"esl_dist", "esl_words"} & kw.keys()
+        if tables:
+            raise ValueError(f"{sorted(tables)} are derived from esl_empty: "
+                             f"replace esl_empty instead")
+        if "esl_empty" in kw:
+            kw.update(esl_dist=None, esl_words=None)
         return dataclasses.replace(self, **kw)
 
 
@@ -229,7 +247,6 @@ def make_raycaster(
     block_dims = default_esl_block_dims(volume.dims)
     empty = esl_mod.derive_empty_grid(
         esl_mod.build_min_max_grid(volume.data, block_dims), premult)
-    dist, words = esl_mod.esl_tables(empty)
     return Raycaster(
         volume=volume,
         view=view,
@@ -239,8 +256,6 @@ def make_raycaster(
         light_kd=float(light_kd),
         esl_empty=empty,
         esl_block_dims=block_dims,
-        esl_dist=dist,
-        esl_words=words,
         esl=bool(esl),
         interpolation=_check_interpolation(interpolation),
         shading=shading,
@@ -278,7 +293,6 @@ def raycaster_from_arrays(
             raise ValueError(
                 f"esl_empty must be {(ESL_VOLUME_DIMS,) * 3}, "
                 f"got {tuple(empty.shape)}")
-    dist, words = esl_mod.esl_tables(empty)
     return Raycaster(
         volume=vol,
         view=View.from_arrays(origin, direction, right_plane, up_plane,
@@ -289,8 +303,6 @@ def raycaster_from_arrays(
         light_kd=float(light_kd),
         esl_empty=empty,
         esl_block_dims=int(esl_block_dims),
-        esl_dist=dist,
-        esl_words=words,
         esl=bool(esl),
         interpolation=_check_interpolation(interpolation),
         shading=shading,

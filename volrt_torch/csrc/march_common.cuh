@@ -157,24 +157,42 @@ __device__ __forceinline__ int floor_int(float m) {
   return __float_as_int(m) - FLOOR_BITS;
 }
 
+// Voxel offsets, by their signed type I: int for a volume under 2^31
+// voxels, the instances every kernel runs, tuned instruction by
+// instruction; long long for one of 2^31 voxels or more, which the three
+// kernels of volrt's "any size" rows take (march_blocked, diff_blocked_fwd,
+// diff_blocked_bwd). The wrapper picks the width from the voxel count
+// (renderers/cuda/march.py:wide_offsets). An offset is added to the
+// volume's address as its unsigned type: a 32-bit one zero-extends, which
+// measured 1 % faster on the uint8 rung than a signed index. A stride
+// between two taps (1, w or w * h) stays an int at either width: the
+// wrappers refuse a slice w * h of 2^31 voxels or more.
+template <typename I> struct Unsigned;
+template <> struct Unsigned<int> { using T = unsigned; };
+template <> struct Unsigned<long long> { using T = unsigned long long; };
+
 // The volume's edges as the per-sample code takes them: n and n / 2 per
 // axis (n / 2 is an f32 for any n under 2^24), and the z stride w * h.
+template <typename I = int>
 struct Grid {
   float hx, hy, hz;
-  int w, h, depth, wh;
+  int w, h, depth;
+  I wh;
 };
 
-__device__ __forceinline__ Grid make_grid(const MarchArgs& a) {
-  return Grid{0.5f * a.w, 0.5f * a.h, 0.5f * a.depth, a.w, a.h, a.depth,
-              a.w * a.h};
+template <typename I = int>
+__device__ __forceinline__ Grid<I> make_grid(const MarchArgs& a) {
+  return Grid<I>{0.5f * a.w, 0.5f * a.h, 0.5f * a.depth, a.w, a.h, a.depth,
+                 static_cast<I>(a.w) * a.h};
 }
 
 // The trilinear cell of one sample: the offset of its first tap, the step
 // to the second tap along x, y and z (the axis's stride, or 0 where both
 // taps clamp to one voxel), and the second taps' weights. Its eight taps
 // are base + {0, sx} + {0, sy} + {0, sz}.
+template <typename I = int>
 struct Cell {
-  unsigned base;
+  typename Unsigned<I>::T base;
   int sx, sy, sz;
   float fx, fy, fz;
 };
@@ -185,25 +203,31 @@ struct Cell {
 // version's floor, clamped taps and weight for |t| < 2^22, that is for
 // |p| < 2^23 / n - 1; the kernels' positions lie in the cube up to
 // rounding, the light tap 0.01 beyond (tests/test_torch_ladder_bits.py).
+// The offset is the product at the width of I: a 64-bit one for a volume
+// of 2^31 voxels or more, where a 32-bit product would wrap.
+template <typename I>
 __device__ __forceinline__ void cell_axis(float p, float half_n, int n,
-                                          int stride, int& off, int& step,
+                                          I stride, I& off, int& step,
                                           float& f) {
   // (p + 1) * 0.5 * n in one product: the product by 0.5 is exact.
   const float t = sub(mul(add(p, 1.f), half_n), 0.5f);
   const float m = floor_biased(t);
   f = sub(t, sub(m, FLOOR_BIAS));
   const int i = floor_int(m);
-  off = min(max(i, 0), n - 1) * stride;
-  step = static_cast<unsigned>(i) < static_cast<unsigned>(n - 1) ? stride : 0;
+  off = static_cast<I>(min(max(i, 0), n - 1)) * stride;
+  step = static_cast<unsigned>(i) < static_cast<unsigned>(n - 1)
+             ? static_cast<int>(stride)
+             : 0;
 }
 
-__device__ __forceinline__ Cell cell_at(const Grid& g, float px, float py,
-                                        float pz) {
-  Cell t;
-  int ox, oy, oz;
-  cell_axis(px, g.hx, g.w, 1, ox, t.sx, t.fx);
-  cell_axis(py, g.hy, g.h, g.w, oy, t.sy, t.fy);
-  cell_axis(pz, g.hz, g.depth, g.wh, oz, t.sz, t.fz);
+template <typename I>
+__device__ __forceinline__ Cell<I> cell_at(const Grid<I>& g, float px,
+                                           float py, float pz) {
+  Cell<I> t;
+  I ox, oy, oz;
+  cell_axis<I>(px, g.hx, g.w, 1, ox, t.sx, t.fx);
+  cell_axis<I>(py, g.hy, g.h, g.w, oy, t.sy, t.fy);
+  cell_axis<I>(pz, g.hz, g.depth, g.wh, oz, t.sz, t.fz);
   t.base = ox + oy + oz;
   return t;
 }
@@ -213,8 +237,9 @@ __device__ __forceinline__ Cell cell_at(const Grid& g, float px, float py,
 // v3 takes it (diff_v3.py:1226-1262); its first tap's offset, the step to
 // the second and the second's weight. The clipped coordinate needs no
 // clamp on its taps: the second steps 0 only at n - 1, with weight 0.
+template <typename I>
 __device__ __forceinline__ void shifted_axis(float p, float half_n, int n,
-                                             int stride, float by, int& off,
+                                             I stride, float by, I& off,
                                              int& step, float& f) {
   const float top = static_cast<float>(n - 1);
   const float t = sub(mul(add(p, 1.f), half_n), 0.5f);
@@ -222,54 +247,57 @@ __device__ __forceinline__ void shifted_axis(float p, float half_n, int n,
   const float m = floor_biased(u);
   f = sub(u, sub(m, FLOOR_BIAS));
   const int i = floor_int(m);
-  off = i * stride;
-  step = i < n - 1 ? stride : 0;
+  off = static_cast<I>(i) * stride;
+  step = i < n - 1 ? static_cast<int>(stride) : 0;
 }
 
 // The six cells of the central-difference gradient at p, in the order
 // x + 1, x - 1, y + 1, y - 1, z + 1, z - 1: each shifts one axis of the
 // sample's own cell t and keeps the other two, clamp-addressed as t has
 // them.
-__device__ __forceinline__ void gradient_cells(const Grid& g, const Cell& t,
-                                               float px, float py, float pz,
-                                               Cell (&c)[6]) {
-  int o[3], s;
+template <typename I>
+__device__ __forceinline__ void gradient_cells(const Grid<I>& g,
+                                               const Cell<I>& t, float px,
+                                               float py, float pz,
+                                               Cell<I> (&c)[6]) {
+  I o[3];
+  int s;
   float f;
-  cell_axis(px, g.hx, g.w, 1, o[0], s, f);
-  cell_axis(py, g.hy, g.h, g.w, o[1], s, f);
-  cell_axis(pz, g.hz, g.depth, g.wh, o[2], s, f);
+  cell_axis<I>(px, g.hx, g.w, 1, o[0], s, f);
+  cell_axis<I>(py, g.hy, g.h, g.w, o[1], s, f);
+  cell_axis<I>(pz, g.hz, g.depth, g.wh, o[2], s, f);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const float by = k == 0 ? 1.f : -1.f;
-    Cell& cx = c[k];
-    Cell& cy = c[2 + k];
-    Cell& cz = c[4 + k];
+    Cell<I>& cx = c[k];
+    Cell<I>& cy = c[2 + k];
+    Cell<I>& cz = c[4 + k];
     cx = cy = cz = t;
-    int off;
-    shifted_axis(px, g.hx, g.w, 1, by, off, cx.sx, cx.fx);
+    I off;
+    shifted_axis<I>(px, g.hx, g.w, 1, by, off, cx.sx, cx.fx);
     cx.base = off + o[1] + o[2];
-    shifted_axis(py, g.hy, g.h, g.w, by, off, cy.sy, cy.fy);
+    shifted_axis<I>(py, g.hy, g.h, g.w, by, off, cy.sy, cy.fy);
     cy.base = o[0] + off + o[2];
-    shifted_axis(pz, g.hz, g.depth, g.wh, by, off, cz.sz, cz.fz);
+    shifted_axis<I>(pz, g.hz, g.depth, g.wh, by, off, cz.sz, cz.fz);
     cz.base = o[0] + o[1] + off;
   }
 }
 
-// One voxel as f32, a uint8 one widened by I2F, at an unsigned offset
-// (its address arithmetic zero-extends, which measured 1 % faster on the
-// uint8 rung than a signed index).
-template <typename V>
-__device__ __forceinline__ float fetch(const V* v, unsigned i) {
+// One voxel as f32, a uint8 one widened by I2F, at an offset of an
+// unsigned type (Unsigned<I>::T).
+template <typename V, typename U>
+__device__ __forceinline__ float fetch(const V* v, U i) {
   return static_cast<float>(__ldg(v + i));
 }
 
 // The trilinear sample of a cell in the volume's own units: the eight
 // taps lerped along x, then y, then z, every product and sum rounded on
 // its own.
-template <typename V>
-__device__ __forceinline__ float trilinear(const V* vol, const Cell& t) {
-  const unsigned b00 = t.base, b01 = b00 + t.sy;  // rows (z0,y0), (z0,y1)
-  const unsigned b10 = b00 + t.sz, b11 = b10 + t.sy;  // (z1,y0), (z1,y1)
+template <typename V, typename I>
+__device__ __forceinline__ float trilinear(const V* vol, const Cell<I>& t) {
+  using U = typename Unsigned<I>::T;
+  const U b00 = t.base, b01 = b00 + t.sy;  // rows (z0,y0), (z0,y1)
+  const U b10 = b00 + t.sz, b11 = b10 + t.sy;  // (z1,y0), (z1,y1)
   const float gx = sub(1.f, t.fx), gy = sub(1.f, t.fy), gz = sub(1.f, t.fz);
   const float c00 = add(mul(fetch(vol, b00), gx), mul(fetch(vol, b00 + t.sx), t.fx));
   const float c01 = add(mul(fetch(vol, b01), gx), mul(fetch(vol, b01 + t.sx), t.fx));
@@ -321,18 +349,21 @@ __device__ __forceinline__ void stage_padded_lut(const MarchArgs& a,
 // n), 0, n - 1) times the stride (reference: common.h:105-110). The floor
 // stands in for the truncation: the two differ only on (-1, 0), where
 // both clamp to 0.
-__device__ __forceinline__ int nearest_off(float p, float half_n, int n,
-                                           int stride) {
+template <typename I>
+__device__ __forceinline__ I nearest_off(float p, float half_n, int n,
+                                         I stride) {
   const int i = floor_int(floor_biased(mul(add(p, 1.f), half_n)));
-  return min(max(i, 0), n - 1) * stride;
+  return static_cast<I>(min(max(i, 0), n - 1)) * stride;
 }
 
-template <typename V>
-__device__ __forceinline__ float nearest_voxel(const V* vol, const Grid& g,
-                                               float px, float py, float pz) {
-  return fetch(vol, nearest_off(px, g.hx, g.w, 1) +
-                        nearest_off(py, g.hy, g.h, g.w) +
-                        nearest_off(pz, g.hz, g.depth, g.wh));
+template <typename V, typename I>
+__device__ __forceinline__ float nearest_voxel(const V* vol,
+                                               const Grid<I>& g, float px,
+                                               float py, float pz) {
+  return fetch(vol, static_cast<typename Unsigned<I>::T>(
+                        nearest_off<I>(px, g.hx, g.w, 1) +
+                        nearest_off<I>(py, g.hy, g.h, g.w) +
+                        nearest_off<I>(pz, g.hz, g.depth, g.wh)));
 }
 
 // Where the diffuse tap samples: SHADE_LIGHT_OFFSET from p toward the light.
@@ -348,8 +379,9 @@ __device__ __forceinline__ void light_tap(const Light& li, float px, float py,
 
 // What phong's backward chain reads of a shaded sample: the terms of the
 // forward, kept rather than computed again (diff_v3.py:1862-1942).
+template <typename I = int>
 struct PhongTerms {
-  Cell tap[6];    // the gradient's cells (gradient_cells' order)
+  Cell<I> tap[6];    // the gradient's cells (gradient_cells' order)
   float g[3];     // the raw gradient: tap[0] - tap[1], tap[2] - tap[3], ...
   float ginv;     // rsqrt(|g|^2 + 1e-16); the normal is -g ginv
   float l[3];     // the unit light direction L
@@ -364,9 +396,10 @@ struct PhongTerms {
 // One classified (and shaded) sample. The forwards read its colour; the
 // replays read the rest too, and the compiler drops what a caller leaves
 // unread.
+template <typename I = int>
 struct Sample {
-  Cell t;        // the sample's own cell (trilinear mode)
-  Cell t2;       // the light tap's, valid where gate
+  Cell<I> t;     // the sample's own cell (trilinear mode)
+  Cell<I> t2;    // the light tap's, valid where gate
   float s;       // the sample: a density in [0, 1], raw in nearest mode
   float tc;      // TF coordinate s*TF_SIZE - 0.5, unclamped
   int j;         // floor(tc) clamped to [-1, TF_SIZE - 1]: the lerp reads
@@ -375,11 +408,12 @@ struct Sample {
   float c[4];    // premultiplied RGBA, shaded
   bool gate;     // the shade gate opened (alpha and kd above their gates)
   bool skip;     // ESL skipped it: c is 0 and nothing else is valid
-  PhongTerms ph; // phong's terms, valid where gate
+  PhongTerms<I> ph;  // phong's terms, valid where gate
 };
 
 // The lerped TF at q.s: q.tc, q.j, q.f and the colour q.c.
-__device__ __forceinline__ void tf_rgba(const float4* lut, Sample& q) {
+template <typename I>
+__device__ __forceinline__ void tf_rgba(const float4* lut, Sample<I>& q) {
   q.tc = sub(mul(q.s, static_cast<float>(TF_SIZE)), 0.5f);
   const float m = floor_biased(q.tc);
   q.f = sub(q.tc, sub(m, FLOOR_BIAS));
@@ -404,12 +438,12 @@ __device__ __forceinline__ float positive(float x) { return x > 0.f ? x : 0.f; }
 //   rgb = rgb (KA + kd max(n.L, 0)) + KS max((n.H) hinv, 0)^16 alpha.
 // Alpha is left as it is, so the composite and the ERT latch see the
 // unshaded path's opacities.
-template <typename V>
-__device__ __forceinline__ void shade_phong(const Grid& g, const V* vol,
+template <typename V, typename I>
+__device__ __forceinline__ void shade_phong(const Grid<I>& g, const V* vol,
                                             const Light& li, const Eye& e,
                                             float px, float py, float pz,
-                                            Sample& q) {
-  PhongTerms& f = q.ph;
+                                            Sample<I>& q) {
+  PhongTerms<I>& f = q.ph;
   gradient_cells(g, q.t, px, py, pz, f.tap);
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -450,11 +484,11 @@ __device__ __forceinline__ void shade_phong(const Grid& g, const V* vol,
 // units and lerps the TF; nearest mode (raw values only) reads one voxel
 // and the TF bucket int(v) / 2 with no lerp, and scales the shade delta by
 // 1/255. Phong (a density, trilinear) reads the ray's Eye `e`.
-template <typename V, Units U, bool NEAREST, Shade S>
-__device__ __forceinline__ void classify(const Grid& g, const V* vol,
+template <typename V, Units U, bool NEAREST, Shade S, typename I>
+__device__ __forceinline__ void classify(const Grid<I>& g, const V* vol,
                                          const float4* lut, const Light& li,
                                          float px, float py, float pz,
-                                         Sample& q, const Eye& e = Eye{}) {
+                                         Sample<I>& q, const Eye& e = Eye{}) {
   static_assert(!NEAREST || U == Units::kRaw, "nearest mode reads raw values");
   static_assert(S != Shade::kPhong || (!NEAREST && U == Units::kDensity),
                 "phong shades a trilinear density");
@@ -499,11 +533,12 @@ __device__ __forceinline__ void classify(const Grid& g, const V* vol,
 }
 
 // The classified sample of a density ray at ray parameter k.
-template <Shade S>
-__device__ __forceinline__ void sample_at(const MarchArgs& a, const Grid& g,
+template <Shade S, typename I>
+__device__ __forceinline__ void sample_at(const MarchArgs& a,
+                                          const Grid<I>& g,
                                           const float4* lut, const Ray& ray,
                                           const Light& li, const Eye& e,
-                                          float k, Sample& q) {
+                                          float k, Sample<I>& q) {
   classify<float, Units::kDensity, false, S>(
       g, a.vol, lut, li, add(ray.ox, mul(ray.dx, k)),
       add(ray.oy, mul(ray.dy, k)), add(ray.oz, mul(ray.dz, k)), q, e);
@@ -565,8 +600,9 @@ __device__ __forceinline__ void esl_axis(float p, float half_n, int n,
 }
 
 // Whether every ESL block of the cell at p is empty.
+template <typename I>
 __device__ __forceinline__ bool esl_empty_cell(const EslArgs& e,
-                                               const Grid& g, float px,
+                                               const Grid<I>& g, float px,
                                                float py, float pz) {
   unsigned x0, x1, y0, y1, z0, z1;
   esl_axis(px, g.hx, g.w, e.magic, x0, x1);
@@ -582,12 +618,13 @@ __device__ __forceinline__ bool esl_empty_cell(const EslArgs& e,
 // below 2^24, where max_steps lies): false once the ray has left the cube.
 // With ESL a sample whose cell is empty comes back with q.skip set and
 // colour 0, its taps never loaded.
-template <Shade S, Esl E>
-__device__ __forceinline__ bool take_sample(const MarchArgs& a, const Grid& g,
+template <Shade S, Esl E, typename I>
+__device__ __forceinline__ bool take_sample(const MarchArgs& a,
+                                            const Grid<I>& g,
                                             const float4* lut, const Ray& ray,
                                             const Light& li, const Eye& e,
                                             const EslArgs& esl, float i,
-                                            Sample& q) {
+                                            Sample<I>& q) {
   const float k = add(ray.ks, mul(i, a.step));
   if (!(k <= ray.ke)) return false;
   if constexpr (E == Esl::kOn) {
@@ -620,10 +657,10 @@ __device__ __forceinline__ void march_forward(const MarchArgs& a,
                                               const EslArgs& esl,
                                               const Ray& ray, const Light& li,
                                               float acc[4]) {
-  const Grid g = make_grid(a);
+  const Grid<> g = make_grid(a);
   const Eye e = eye_of<S>(ray);
   const float n = static_cast<float>(a.max_steps);
-  Sample q;
+  Sample<> q;
 #pragma unroll 1
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
     if (!take_sample<S, E>(a, g, lut, ray, li, e, esl, i, q)) break;
@@ -637,8 +674,10 @@ __device__ __forceinline__ void march_forward(const MarchArgs& a,
 // the ladder and round 1 (k starts at k0 and gains one rounded `+ step` a
 // sample; the first sample of a live ray is always taken, and the ray ends
 // after the sample where ERT latches or the next k exceeds kfar), its
-// image written to out. The caller has staged the padded LUT.
-template <typename V, Units U, bool NEAREST, bool SHADE, bool NO_ERT>
+// image written to out. The caller has staged the padded LUT. I is the
+// voxel offsets' type (Unsigned above).
+template <typename V, Units U, bool NEAREST, bool SHADE, bool NO_ERT,
+          typename I = int>
 __device__ __forceinline__ void march_accumulating(const MarchArgs& a,
                                                    const V* vol,
                                                    const float4* lut,
@@ -649,9 +688,9 @@ __device__ __forceinline__ void march_accumulating(const MarchArgs& a,
   if (a.alive[r]) {
     const Ray ray = load_ray(a, r);
     const Light li = load_light(a);
-    const Grid g = make_grid(a);
+    const Grid<I> g = make_grid<I>(a);
     float k = ray.ks;
-    Sample q;
+    Sample<I> q;
     // One sample an iteration, so that the loop's SASS counts a sample.
 #pragma unroll 1
     for (int i = 0; i < a.max_steps; ++i) {
@@ -725,7 +764,8 @@ __device__ __forceinline__ bool reduce_peers(unsigned peers, float (&v)[N]) {
 }
 
 // ds times the eight trilinear weights, in the order of add_taps' taps.
-__device__ __forceinline__ void tap_weights(const Cell& t, float ds,
+template <typename I>
+__device__ __forceinline__ void tap_weights(const Cell<I>& t, float ds,
                                             float (&w)[8]) {
   const float gx = 1.f - t.fx, gy = 1.f - t.fy, gz = 1.f - t.fz;
   const float w00 = ds * gz * gy, w01 = ds * gz * t.fy;
@@ -742,10 +782,12 @@ __device__ __forceinline__ void tap_weights(const Cell& t, float ds,
 
 // w added to the cell's eight taps. Two taps that clamp to one voxel add
 // twice (a step of 0), as the forward read it twice.
-__device__ __forceinline__ void add_taps(float* dv, const Cell& t,
+template <typename I>
+__device__ __forceinline__ void add_taps(float* dv, const Cell<I>& t,
                                          const float (&w)[8]) {
-  const unsigned b00 = t.base, b01 = b00 + t.sy;
-  const unsigned b10 = b00 + t.sz, b11 = b10 + t.sy;
+  using U = typename Unsigned<I>::T;
+  const U b00 = t.base, b01 = b00 + t.sy;
+  const U b10 = b00 + t.sz, b11 = b10 + t.sy;
   atomicAdd(dv + b00, w[0]);
   atomicAdd(dv + (b00 + t.sx), w[1]);
   atomicAdd(dv + b01, w[2]);
@@ -756,20 +798,33 @@ __device__ __forceinline__ void add_taps(float* dv, const Cell& t,
   atomicAdd(dv + (b11 + t.sx), w[7]);
 }
 
+// A key that names a cell's eight taps. At 32 bits, its first and last
+// taps, each a word (the high word under 2^31). At 64 bits, the first tap
+// with the three steps' flags below it (a step is the axis's stride or 0):
+// under 2^63 for any volume a card holds.
+__device__ __forceinline__ unsigned long long cell_key(const Cell<int>& t) {
+  return (static_cast<unsigned long long>(t.base + t.sx + t.sy + t.sz)
+          << 32) | t.base;
+}
+
+__device__ __forceinline__ unsigned long long cell_key(
+    const Cell<long long>& t) {
+  return t.base << 3 | static_cast<unsigned long long>(t.sx != 0) << 2 |
+         static_cast<unsigned long long>(t.sy != 0) << 1 |
+         static_cast<unsigned long long>(t.sz != 0);
+}
+
 // ds times the trilinear weights, summed over the warp's lanes that `add`
 // to one cell, added to the cell's eight taps.
-__device__ __forceinline__ void scatter_taps_warp(float* dv, const Cell& t,
+template <typename I>
+__device__ __forceinline__ void scatter_taps_warp(float* dv, const Cell<I>& t,
                                                   float ds, bool add) {
   if (!__any_sync(FULL_WARP, add)) return;
   float w[8];
   tap_weights(t, ds, w);
-  // The cell's first and last taps name all eight. A lane that does not
-  // add takes a key of its own that no cell has (cells' high words are
-  // under 2^31), so it groups with no one.
-  const unsigned long long cell =
-      add ? (static_cast<unsigned long long>(t.base + t.sx + t.sy + t.sz)
-             << 32) | t.base
-          : ~0ull - lane_id();
+  // A lane that does not add takes a key of its own that no cell has (a
+  // cell's key is under 2^63), so it groups with no one.
+  const unsigned long long cell = add ? cell_key(t) : ~0ull - lane_id();
   if (reduce_peers(__match_any_sync(FULL_WARP, cell), w) && add) {
     add_taps(dv, t, w);
   }
@@ -780,8 +835,9 @@ __device__ __forceinline__ void scatter_taps_warp(float* dv, const Cell& t,
 // dTF. Row lo takes dc (1 - f) and row lo + 1 takes dc f; a clamped lerp
 // (j = -1 or 127, both rows one) gives its whole dc to row lo, so a group
 // keyed by lo alone adds to rows lo and lo + 1.
+template <typename I>
 __device__ __forceinline__ void scatter_tf_warp(float (*wdtf)[4],
-                                                const Sample& q,
+                                                const Sample<I>& q,
                                                 const float dc[4], bool add) {
   const bool one_row = q.j < 0 || q.j == TF_SIZE - 1;
   float v[8];
@@ -835,7 +891,8 @@ struct Chain {
 //   dg = -ginv dn + ginv^3 (dn . g) g   (n = -g ginv).
 // The masks are strict, as the reference's are: where the density is
 // flat, g = 0 and n = 0, no cotangent flows through the normal.
-__device__ __forceinline__ void phong_chain(const PhongTerms& f,
+template <typename I>
+__device__ __forceinline__ void phong_chain(const PhongTerms<I>& f,
                                             const Light& li, float alpha,
                                             float dc[4], float dg[3]) {
   const float drgb = dc[0] + dc[1] + dc[2];
@@ -873,12 +930,13 @@ __device__ __forceinline__ void phong_chain(const PhongTerms& f,
 // cells, each a scatter of its own: seven cells, 56 voxels a sample. The
 // whole warp calls this (the scatter above), and a lane that is not
 // `live` adds nothing.
-template <Shade S, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE>
+template <Shade S, bool NEED_DTF, bool NEED_DVOL, bool IN_RANGE,
+          typename I>
 __device__ __forceinline__ void replay_sample(const float4* lut,
                                               float (*wdtf)[4], float* d_vol,
                                               const Light& li,
                                               const float g4[4], float G,
-                                              const Sample& q, Chain& ch,
+                                              const Sample<I>& q, Chain& ch,
                                               bool live) {
   const float T = sub(1.f, ch.acc_a);
   const float gc = add(add(add(mul(g4[0], q.c[0]), mul(g4[1], q.c[1])),
@@ -971,10 +1029,10 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const Ray& ray, const Light& li,
                                              const float g4[4], float G,
                                              bool live) {
-  const Grid g = make_grid(a);
+  const Grid<> g = make_grid(a);
   const Eye e = eye_of<S>(ray);
   const float n = static_cast<float>(a.max_steps);
-  Sample q{};
+  Sample<> q{};
   Chain ch;
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
     if (live) live = take_sample<S, E>(a, g, lut, ray, li, e, esl, i, q);
@@ -996,14 +1054,14 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
 // and the ray ends after its sample, when ERT latches or the next k exceeds
 // kfar (diff_tri.py:176-178), as the round-1 forward marches. take_sample's
 // test before the sample, on the k0 + i*step lattice, would add or drop a
-// ray's last sample here.
-template <bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+// ray's last sample here. I is the voxel offsets' type (Unsigned above).
+template <bool NO_ERT, bool NEED_DTF, bool NEED_DVOL, typename I = int>
 __device__ __forceinline__ void march_replay_round1(
     const MarchArgs& a, const float4* lut, float (*wdtf)[4],
     float* d_vol, const Ray& ray, const Light& li, const float g4[4],
     float G, bool live) {
-  const Grid g = make_grid(a);
-  Sample q{};
+  const Grid<I> g = make_grid<I>(a);
+  Sample<I> q{};
   Chain ch;
   float k = ray.ks;
   for (int i = 0; i < a.max_steps; ++i) {

@@ -11,7 +11,11 @@
 //   no lerp, and scales the shade delta by 1/255.
 // - volrt_march_blocked replaces volrt/renderers/pallas/blocked.py:_kernel
 //   (rung 4): a uint8 volume of any size in device memory, each tap
-//   converted to f32 after its fetch, trilinear only.
+//   converted to f32 after its fetch, trilinear only. A volume of 2^31
+//   voxels or more takes march_blocked_wide_kernel, the same body with
+//   64-bit voxel offsets (march_common.cuh:Unsigned); the wrapper passes
+//   `wide`. march_ladder_kernel keeps 32-bit offsets, so its SASS is the
+//   one measured below.
 //
 // What differs from march_fwd.cu (rung 5) is the ray's lattice, not only the
 // volume's units: k starts at the ray's own k0 (after the leading empty-space
@@ -66,6 +70,19 @@ __global__ void __launch_bounds__(TILE * TILE)
                                                              out);
 }
 
+// Rung 4 on a volume of 2^31 voxels or more: the same march with 64-bit
+// voxel offsets.
+template <bool SHADE, bool NO_ERT>
+__global__ void __launch_bounds__(TILE * TILE)
+    march_blocked_wide_kernel(MarchArgs a, const unsigned char* vol,
+                              float* out) {
+  __shared__ float4 lut[LUT_ROWS];
+  stage_padded_lut(a, lut);
+  __syncthreads();
+  march_accumulating<unsigned char, Units::kRaw, false, SHADE, NO_ERT,
+                     long long>(a, vol, lut, out);
+}
+
 template <typename V, bool NEAREST>
 int launch(const MarchArgs& a, const void* vol, void* out, int shade,
            int no_ert, void* stream) {
@@ -79,6 +96,22 @@ int launch(const MarchArgs& a, const void* vol, void* out, int shade,
   } else {
     if (no_ert) march_ladder_kernel<V, NEAREST, false, true><<<grid, block, 0, s>>>(a, v, dst);
     else march_ladder_kernel<V, NEAREST, false, false><<<grid, block, 0, s>>>(a, v, dst);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wide(const MarchArgs& a, const void* vol, void* out, int shade,
+                int no_ert, void* stream) {
+  const auto* v = static_cast<const unsigned char*>(vol);
+  float* dst = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid = march_grid(a), block(TILE, TILE);
+  if (shade) {
+    if (no_ert) march_blocked_wide_kernel<true, true><<<grid, block, 0, s>>>(a, v, dst);
+    else march_blocked_wide_kernel<true, false><<<grid, block, 0, s>>>(a, v, dst);
+  } else {
+    if (no_ert) march_blocked_wide_kernel<false, true><<<grid, block, 0, s>>>(a, v, dst);
+    else march_blocked_wide_kernel<false, false><<<grid, block, 0, s>>>(a, v, dst);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -106,7 +139,8 @@ __global__ void div255_check_kernel(const float* x, long long n,
 
 // Both launch the march on `stream` and return cudaGetLastError() as an int.
 // Shapes, types and contiguity are checked by the Python wrappers. `vol` is
-// f32[D, H, W] of raw values 0..255 for the first, u8[D, H, W] for the second.
+// f32[D, H, W] of raw values 0..255 for the first, u8[D, H, W] for the second,
+// whose `wide` picks 64-bit voxel offsets (a volume of 2^31 voxels or more).
 extern "C" int volrt_march_tri(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
@@ -124,11 +158,14 @@ extern "C" int volrt_march_blocked(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
     const void* tf, const void* scal, void* out, int n, int width,
-    float step, int max_steps, int shade, int no_ert, void* stream) {
+    float step, int max_steps, int shade, int no_ert, int wide,
+    void* stream) {
   const MarchArgs a = make_march_args(o, d, k0, kfar, alive, nullptr, w, h,
                                       depth, tf, scal, n, width, step,
                                       max_steps);
-  return launch<unsigned char, false>(a, vol, out, shade, no_ert, stream);
+  return wide ? launch_wide(a, vol, out, shade, no_ert, stream)
+              : launch<unsigned char, false>(a, vol, out, shade, no_ert,
+                                             stream);
 }
 
 // Adds to `mismatches` (a zeroed u64) the count of the n f32 at `x` whose

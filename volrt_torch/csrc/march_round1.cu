@@ -56,8 +56,13 @@
 // small volume under a large viewport (diff_tri's) many rays share a voxel,
 // and the dVol atomics collide across warps. Samples whose density cotangent
 // is exactly zero add nothing to dVol; the forward is replayed, not stored.
-// Voxel offsets are 32-bit, so a volume holds under 2^31 voxels (the wrapper
-// refuses more).
+// Voxel offsets are 32-bit in round1_fwd_kernel and round1_bwd_kernel, so
+// diff_tri's entry points take a volume under 2^31 voxels (the wrapper
+// refuses more). diff_blocked's take one of any size: given `wide` (2^31
+// voxels or more) they launch round1_fwd_wide_kernel and
+// round1_bwd_wide_kernel, the same bodies with 64-bit offsets
+// (march_common.cuh:Unsigned), the dVol scatter's addresses and cell keys
+// included.
 //
 // Every multiply and add of the forward chain is rounded on its own
 // (march_common.cuh), in the plain torch versions' order
@@ -105,43 +110,89 @@ __global__ void __launch_bounds__(TILE * TILE) round1_bwd_kernel(
   }
 }
 
-int launch_fwd(const MarchArgs& a, void* out, int no_ert, void* stream) {
+// The same two on a volume of 2^31 voxels or more: 64-bit voxel offsets.
+template <bool NO_ERT>
+__global__ void __launch_bounds__(TILE * TILE)
+    round1_fwd_wide_kernel(MarchArgs a, float* out) {
+  __shared__ float4 lut[LUT_ROWS];
+  stage_padded_lut(a, lut);
+  __syncthreads();
+  march_accumulating<float, Units::kDensity, false, false, NO_ERT,
+                     long long>(a, a.vol, lut, out);
+}
+
+template <bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+__global__ void __launch_bounds__(TILE * TILE) round1_bwd_wide_kernel(
+    MarchArgs a, const float* out, const float* g, GradArgs gr) {
+  __shared__ float4 lut[LUT_ROWS];
+  __shared__ float dtf[NEED_DTF ? WARPS * TF_SIZE : 1][4];
+  stage_padded_lut(a, lut);
+  if (NEED_DTF) clear_dtf(dtf, WARPS);
+  __syncthreads();
+
+  Ray ray{};
+  Light li{};
+  float g4[4] = {0.f, 0.f, 0.f, 0.f};
+  float G = 0.f;
+  const bool live = start_replay(a, out, g, ray_index(a), ray, li, g4, G);
+  march_replay_round1<NO_ERT, NEED_DTF, NEED_DVOL, long long>(
+      a, lut, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4, G, live);
+  if (NEED_DTF) {
+    __syncthreads();
+    flush_dtf(dtf, WARPS, gr.d_tf);
+  }
+}
+
+int launch_fwd(const MarchArgs& a, void* out, int no_ert, int wide,
+               void* stream) {
   float* dst = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid = march_grid(a), block(TILE, TILE);
-  if (no_ert) round1_fwd_kernel<true><<<grid, block, 0, s>>>(a, dst);
-  else round1_fwd_kernel<false><<<grid, block, 0, s>>>(a, dst);
+  if (wide) {
+    if (no_ert) round1_fwd_wide_kernel<true><<<grid, block, 0, s>>>(a, dst);
+    else round1_fwd_wide_kernel<false><<<grid, block, 0, s>>>(a, dst);
+  } else {
+    if (no_ert) round1_fwd_kernel<true><<<grid, block, 0, s>>>(a, dst);
+    else round1_fwd_kernel<false><<<grid, block, 0, s>>>(a, dst);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
 void launch_bwd_variant(const MarchArgs& a, const float* out, const float* g,
-                        const GradArgs& gr, cudaStream_t s) {
-  round1_bwd_kernel<NO_ERT, NEED_DTF, NEED_DVOL>
-      <<<march_grid(a), dim3(TILE, TILE), 0, s>>>(a, out, g, gr);
+                        const GradArgs& gr, bool wide, cudaStream_t s) {
+  const dim3 grid = march_grid(a), block(TILE, TILE);
+  if (wide) {
+    round1_bwd_wide_kernel<NO_ERT, NEED_DTF, NEED_DVOL>
+        <<<grid, block, 0, s>>>(a, out, g, gr);
+  } else {
+    round1_bwd_kernel<NO_ERT, NEED_DTF, NEED_DVOL>
+        <<<grid, block, 0, s>>>(a, out, g, gr);
+  }
 }
 
 template <bool NO_ERT>
 void launch_bwd_need(const MarchArgs& a, const float* out, const float* g,
-                     const GradArgs& gr, bool dtf, bool dvol, cudaStream_t s) {
+                     const GradArgs& gr, bool dtf, bool dvol, bool wide,
+                     cudaStream_t s) {
   if (dtf) {
-    dvol ? launch_bwd_variant<NO_ERT, true, true>(a, out, g, gr, s)
-         : launch_bwd_variant<NO_ERT, true, false>(a, out, g, gr, s);
+    dvol ? launch_bwd_variant<NO_ERT, true, true>(a, out, g, gr, wide, s)
+         : launch_bwd_variant<NO_ERT, true, false>(a, out, g, gr, wide, s);
   } else if (dvol) {
-    launch_bwd_variant<NO_ERT, false, true>(a, out, g, gr, s);
+    launch_bwd_variant<NO_ERT, false, true>(a, out, g, gr, wide, s);
   }
 }
 
 int launch_bwd(const MarchArgs& a, const void* out, const void* g,
                void* d_vol, void* d_tf, int no_ert, int need_dtf,
-               int need_dvol, void* stream) {
+               int need_dvol, int wide, void* stream) {
   const GradArgs gr{static_cast<float*>(d_vol), static_cast<float*>(d_tf)};
   const float* co = static_cast<const float*>(out);
   const float* cg = static_cast<const float*>(g);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool dtf = need_dtf != 0, dvol = need_dvol != 0;
-  no_ert ? launch_bwd_need<true>(a, co, cg, gr, dtf, dvol, s)
-         : launch_bwd_need<false>(a, co, cg, gr, dtf, dvol, s);
+  const bool dtf = need_dtf != 0, dvol = need_dvol != 0, w = wide != 0;
+  no_ert ? launch_bwd_need<true>(a, co, cg, gr, dtf, dvol, w, s)
+         : launch_bwd_need<false>(a, co, cg, gr, dtf, dvol, w, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -151,7 +202,8 @@ int launch_bwd(const MarchArgs& a, const void* out, const void* g,
 // Shapes, types and contiguity are checked by the Python wrappers. `vol` is
 // the f32[D, H, W] density in [0, 1]. For the backwards, `out` is the
 // forward's image and `g` its cotangent; `d_vol` and `d_tf` must come in
-// zero-filled and are accumulated into.
+// zero-filled and are accumulated into. diff_blocked's `wide` picks 64-bit
+// voxel offsets (a volume of 2^31 voxels or more).
 extern "C" int volrt_diff_tri_fwd(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
@@ -159,17 +211,17 @@ extern "C" int volrt_diff_tri_fwd(
     float step, int max_steps, int no_ert, void* stream) {
   return launch_fwd(make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                     tf, scal, n, width, step, max_steps),
-                    out, no_ert, stream);
+                    out, no_ert, 0, stream);
 }
 
 extern "C" int volrt_diff_blocked_fwd(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
     const void* tf, const void* scal, void* out, int n, int width,
-    float step, int max_steps, int no_ert, void* stream) {
+    float step, int max_steps, int no_ert, int wide, void* stream) {
   return launch_fwd(make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                     tf, scal, n, width, step, max_steps),
-                    out, no_ert, stream);
+                    out, no_ert, wide, stream);
 }
 
 extern "C" int volrt_diff_tri_bwd(
@@ -180,7 +232,8 @@ extern "C" int volrt_diff_tri_bwd(
     int no_ert, int need_dtf, int need_dvol, void* stream) {
   return launch_bwd(make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                     tf, scal, n, width, step, max_steps),
-                    out, g, d_vol, d_tf, no_ert, need_dtf, need_dvol, stream);
+                    out, g, d_vol, d_tf, no_ert, need_dtf, need_dvol, 0,
+                    stream);
 }
 
 extern "C" int volrt_diff_blocked_bwd(
@@ -188,8 +241,9 @@ extern "C" int volrt_diff_blocked_bwd(
     const void* alive, const void* vol, int w, int h, int depth,
     const void* tf, const void* scal, const void* out, const void* g,
     void* d_vol, void* d_tf, int n, int width, float step, int max_steps,
-    int no_ert, int need_dtf, int need_dvol, void* stream) {
+    int no_ert, int need_dtf, int need_dvol, int wide, void* stream) {
   return launch_bwd(make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                     tf, scal, n, width, step, max_steps),
-                    out, g, d_vol, d_tf, no_ert, need_dtf, need_dvol, stream);
+                    out, g, d_vol, d_tf, no_ert, need_dtf, need_dvol, wide,
+                    stream);
 }

@@ -82,6 +82,14 @@ PLAIN_CHUNK = 1 << 18
 # Samples a ray may take, at most (exclusive): the kernels' f32 count of
 # them is exact below 2^24.
 MAX_STEPS_LIMIT = 1 << 24
+# Voxels a volume may hold for the 32-bit voxel offsets of every kernel
+# (exclusive). march_blocked, diff_blocked_fwd and diff_blocked_bwd, the
+# rows volrt builds for a volume of any size, have a 64-bit instance for
+# larger ones (csrc/march_common.cuh:Unsigned).
+OFFSET_LIMIT = 1 << 31
+# An edge of the volume, at most (exclusive): the per-sample code's floor
+# is exact for a voxel coordinate under 2^22 (march_common.cuh:cell_axis).
+EDGE_LIMIT = 1 << 22
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,6 +99,8 @@ _RAY_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 _FWD_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _I, _P]
 # ..., out, n, width, step, max_steps, nearest, shade, no_ert, stream
 _TRI_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _I, _I, _P]
+# ..., out, n, width, step, max_steps, shade, no_ert, wide, stream
+_BLOCKED_ARGTYPES = _FWD_ARGTYPES[:-1] + [_I, _P]
 # The v3 kernels' ESL grid after their other arguments: words, block.
 _ESL_ARGTYPES = [_P, _I]
 # ..., out, n, width, step, max_steps, shade, no_ert, esl, stream
@@ -114,15 +124,49 @@ def max_steps(ray_step: float) -> int:
     return n
 
 
+def wide_offsets(shape) -> bool:
+    """Whether a volume of ``shape`` ``(D, H, W)`` needs 64-bit voxel
+    offsets: it holds 2^31 voxels or more, past what a 32-bit offset can
+    address. A function of the shape alone; the wrappers of the kernels
+    with a 64-bit instance launch it where this is true."""
+    return math.prod(int(n) for n in shape) >= OFFSET_LIMIT
+
+
+def check_volume_shape(shape, any_size: bool) -> None:
+    """Refuse a volume of ``shape`` that a kernel cannot address: not
+    ``(D, H, W)``; 2^31 voxels or more for a kernel with 32-bit voxel
+    offsets only (not ``any_size``); for one with a 64-bit instance
+    (``any_size``), an edge of 2^22 voxels or more or an ``H * W`` slice of
+    2^31 (the per-sample code keeps a tap's stride in 32 bits). A function
+    of the shape alone."""
+    if len(shape) != 3:
+        raise ValueError(f"density must be [D, H, W], got {tuple(shape)}")
+    _, h, w = (int(n) for n in shape)
+    if not any_size and wide_offsets(shape):
+        raise ValueError(
+            f"density {tuple(shape)} has 2^31 voxels or more: this kernel "
+            f"addresses under 2^31 ({OFFSET_LIMIT}) with 32-bit voxel "
+            f"offsets; march_blocked (rung 4) and diff_blocked_fwd/_bwd "
+            f"take a volume of any size")
+    if any_size and (max(int(n) for n in shape) >= EDGE_LIMIT
+                     or h * w >= OFFSET_LIMIT):
+        raise ValueError(
+            f"density {tuple(shape)}: every edge must lie under 2^22 voxels "
+            f"and an H * W slice under 2^31")
+
+
 def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
            volume_dtype: torch.dtype = torch.float32, shade: bool = False,
-           phong: bool = False, esl=None, **images) -> None:
+           phong: bool = False, esl=None, any_size: bool = False,
+           **images) -> None:
     """Refuse what the kernels do not take. ``density`` is the volume, of
-    ``volume_dtype``. ``shade`` and ``phong`` are the shading modes asked
-    for, of which a kernel takes one at most. ``esl`` is ``None`` or the
-    v3 kernels' ESL grid ``(words, block)``. ``images`` are further
-    ``f32[N, 4]`` tensors in raster order (an image, a cotangent, a
-    target), by name."""
+    ``volume_dtype``: under 2^31 voxels (32-bit voxel offsets), unless
+    ``any_size`` (a kernel with a 64-bit instance, which takes any volume
+    whose edges lie under 2^22 voxels and whose ``H * W`` slice under 2^31).
+    ``shade`` and ``phong`` are the shading modes asked for, of which a
+    kernel takes one at most. ``esl`` is ``None`` or the v3 kernels' ESL
+    grid ``(words, block)``. ``images`` are further ``f32[N, 4]`` tensors
+    in raster order (an image, a cotangent, a target), by name."""
     if shade and phong:
         raise ValueError("phong composes with no diffuse tap (shade)")
     n = o.shape[0] if o.dim() == 2 else -1
@@ -145,8 +189,7 @@ def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
             raise ValueError(f"the ESL block edge must be an int >= 1, "
                              f"got {block!r}")
     check_tensors(want, o.device)
-    if density.dim() != 3 or density.numel() >= 2 ** 31:
-        raise ValueError("density must be [D, H, W] with under 2^31 voxels")
+    check_volume_shape(density.shape, any_size)
     if width <= 0 or n % width:
         raise ValueError(f"width {width} does not divide the {n} rays")
     if -(-(n // width) // TILE) > 65535:
@@ -467,16 +510,21 @@ march_tri.launches = 0
 
 def march_blocked(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
                   ray_step: float, shade: bool, no_ert: bool,
-                  width: int) -> torch.Tensor:
+                  width: int, wide: bool | None = None) -> torch.Tensor:
     """March N rays through the ``uint8[D, H, W]`` volume and composite
     them -> ``f32[N, 4]``: rung 4's march. As :func:`march_tri` in
-    trilinear mode, with each tap converted to f32 after its fetch.
+    trilinear mode, with each tap converted to f32 after its fetch. The
+    volume may hold any number of voxels: ``wide`` (by default
+    :func:`wide_offsets` of its shape) launches the kernel's instance with
+    64-bit voxel offsets, which a volume of 2^31 voxels or more needs.
 
     CPU tensors take :func:`march_blocked_plain`. CUDA tensors launch the
     kernel or raise.
     """
     _check(o, d, k0, kfar, alive, volume, premult_tf, scal, width,
-           volume_dtype=torch.uint8)
+           volume_dtype=torch.uint8, any_size=True)
+    if wide is None:
+        wide = wide_offsets(volume.shape)
     if o.device.type == "cpu":
         return march_blocked_plain(
             o, d, k0, kfar, alive, volume, premult_tf, scal,
@@ -485,10 +533,10 @@ def march_blocked(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     if n == 0:
         return out
-    _launch("volrt_march_blocked", _FWD_ARGTYPES, o.device,
+    _launch("volrt_march_blocked", _BLOCKED_ARGTYPES, o.device,
             *_ray_pointers(o, d, k0, kfar, alive, volume, premult_tf, scal),
             out.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            int(shade), int(no_ert))
+            int(shade), int(no_ert), int(wide))
     march_blocked.launches += 1
     return out
 

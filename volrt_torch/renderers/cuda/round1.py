@@ -31,8 +31,11 @@ On CUDA tensors a wrapper launches its kernel (built at first use) or
 raises; on CPU tensors it runs its plain version, which is also what the
 kernel is held to on the card. The plain versions use no autograd.
 Gradients are summed with atomics on the card, so two runs agree to
-rounding, not to the bit; images agree to the bit. A volume holds under
-2^31 voxels (32-bit voxel offsets).
+rounding, not to the bit; images agree to the bit. ``diff_tri``'s pair
+takes a volume under 2^31 voxels (32-bit voxel offsets);
+``diff_blocked``'s takes one of any size, launching the kernels' instances
+with 64-bit offsets where :func:`march.wide_offsets` says the volume needs
+them.
 """
 from __future__ import annotations
 
@@ -41,19 +44,29 @@ import torch
 from volrt_torch.renderers.common import classify_and_shade, composite
 from volrt_torch.renderers.cuda.march import (
     _I, _F, _P, _RAY_ARGTYPES, PLAIN_CHUNK, PlainReplay, _check, _launch,
-    _ray_pointers, max_steps)
+    _ray_pointers, max_steps, wide_offsets)
 
-# ..., out, n, width, step, max_steps, no_ert, stream
+# ..., out, n, width, step, max_steps, no_ert, [wide,] stream
 _FWD_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _P]
 # ..., image, cotangent, d_vol, d_tf, n, width, step, max_steps, no_ert,
-# need_dtf, need_dvol, stream
+# need_dtf, need_dvol, [wide,] stream
 _BWD_ARGTYPES = _RAY_ARGTYPES + [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
                                  _P]
 
 
+def _wide_args(wide) -> tuple:
+    """The entry point's trailing ``wide`` argument: none for
+    ``diff_tri``'s (``wide`` None), else its type and value."""
+    return ([], ()) if wide is None else ([_I], (int(wide),))
+
+
 def _forward(wrapper, entry: str, o, d, k0, kfar, alive, density, premult_tf,
-             scal, ray_step, no_ert, width) -> torch.Tensor:
-    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width)
+             scal, ray_step, no_ert, width, wide=None) -> torch.Tensor:
+    """One forward wrapper; ``wide`` is None for ``diff_tri``'s, whose
+    kernel has 32-bit voxel offsets only, else whether to launch the 64-bit
+    instance."""
+    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
+           any_size=wide is not None)
     if o.device.type == "cpu":
         return round1_fwd_plain(o, d, k0, kfar, alive, density, premult_tf,
                                 scal, ray_step=ray_step, no_ert=no_ert,
@@ -62,19 +75,22 @@ def _forward(wrapper, entry: str, o, d, k0, kfar, alive, density, premult_tf,
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     if n == 0:
         return out
-    _launch(entry, _FWD_ARGTYPES, o.device,
+    types, vals = _wide_args(wide)
+    _launch(entry, _FWD_ARGTYPES[:-1] + types + _FWD_ARGTYPES[-1:],
+            o.device,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             out.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            int(no_ert))
+            int(no_ert), *vals)
     wrapper.launches += 1
     return out
 
 
 def _backward(wrapper, entry: str, o, d, k0, kfar, alive, density, premult_tf,
-              scal, out, g, ray_step, no_ert, width, need_dtf, need_dvol
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              scal, out, g, ray_step, no_ert, width, need_dtf, need_dvol,
+              wide=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One backward wrapper; ``wide`` as :func:`_forward`'s."""
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           out=out, g=g)
+           any_size=wide is not None, out=out, g=g)
     if o.device.type == "cpu":
         return round1_bwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
@@ -85,11 +101,13 @@ def _backward(wrapper, entry: str, o, d, k0, kfar, alive, density, premult_tf,
     n = o.shape[0]
     if n == 0 or not (need_dtf or need_dvol):
         return d_density, d_tf
-    _launch(entry, _BWD_ARGTYPES, o.device,
+    types, vals = _wide_args(wide)
+    _launch(entry, _BWD_ARGTYPES[:-1] + types + _BWD_ARGTYPES[-1:],
+            o.device,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             out.data_ptr(), g.data_ptr(), d_density.data_ptr(),
             d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            int(no_ert), int(need_dtf), int(need_dvol))
+            int(no_ert), int(need_dtf), int(need_dvol), *vals)
     wrapper.launches += 1
     return d_density, d_tf
 
@@ -117,17 +135,21 @@ diff_tri_fwd.launches = 0
 
 
 def diff_blocked_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
-                     ray_step: float, no_ert: bool, width: int
-                     ) -> torch.Tensor:
+                     ray_step: float, no_ert: bool, width: int,
+                     wide: bool | None = None) -> torch.Tensor:
     """As :func:`diff_tri_fwd`, through the entry point that replaces
-    ``diff_blocked._fwd_kernel``.
+    ``diff_blocked._fwd_kernel``, for a volume of any size: ``wide`` (by
+    default :func:`march.wide_offsets` of its shape) launches the
+    kernel's instance with 64-bit voxel offsets.
 
     CPU tensors take :func:`round1_fwd_plain`. CUDA tensors launch the
     kernel or raise.
     """
+    if wide is None:
+        wide = wide_offsets(density.shape)
     return _forward(diff_blocked_fwd, "volrt_diff_blocked_fwd", o, d, k0,
                     kfar, alive, density, premult_tf, scal, ray_step, no_ert,
-                    width)
+                    width, wide)
 
 
 diff_blocked_fwd.launches = 0
@@ -160,17 +182,22 @@ diff_tri_bwd.launches = 0
 
 def diff_blocked_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out,
                      g, *, ray_step: float, no_ert: bool, width: int,
-                     need_dtf: bool = True, need_dvol: bool = True
+                     need_dtf: bool = True, need_dvol: bool = True,
+                     wide: bool | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """As :func:`diff_tri_bwd`, through the entry point that replaces
-    ``diff_blocked._bwd_kernel``.
+    ``diff_blocked._bwd_kernel``, for a volume of any size (``wide`` as
+    :func:`diff_blocked_fwd`'s: the dVol scatter's addresses are 64-bit
+    too).
 
     CPU tensors take :func:`round1_bwd_plain`. CUDA tensors launch the
     kernel or raise.
     """
+    if wide is None:
+        wide = wide_offsets(density.shape)
     return _backward(diff_blocked_bwd, "volrt_diff_blocked_bwd", o, d, k0,
                      kfar, alive, density, premult_tf, scal, out, g,
-                     ray_step, no_ert, width, need_dtf, need_dvol)
+                     ray_step, no_ert, width, need_dtf, need_dvol, wide)
 
 
 diff_blocked_bwd.launches = 0

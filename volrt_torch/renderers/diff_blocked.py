@@ -6,8 +6,9 @@ The same function as ``renderers/diff_tri.py``, through
 :class:`DiffBlockedFunction`: on the TPU this pair streams a volume of any
 size and its gradient through HBM (bricks by DMA, a flushed accumulator),
 where the first keeps both in VMEM; on the card both pairs load and add per
-ray, and differ in their entry points only. A volume holds under 2^31
-voxels (the kernels' 32-bit voxel offsets; the wrapper refuses more).
+ray, and differ in their entry points only, and in the size of volume
+they take: this pair, like ``volrt``'s, any size (its kernels' 64-bit
+instance from 2^31 voxels on), ``diff_tri``'s under 2^31 voxels.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ scene it returns, trained.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import torch
@@ -131,25 +132,30 @@ def fit(
     a full march, which gives every entry its gradient
     (``volrt/train/fit.py:408-447``). Without ``esl`` it changes nothing.
 
+    ``checkpoint_path`` (a ``.npz`` file, ``train/checkpoint.py``'s format,
+    which ``volrt`` reads and writes too) is written every
+    ``checkpoint_every`` steps and once at the end; with ``resume`` and an
+    existing file the run starts from it, at its step: ``steps`` counts
+    every step, the resumed ones included, as ``volrt``'s
+    (``volrt/train/fit.py:412-465``).
+
     Not ported yet, each raising ``NotImplementedError`` when given
     another value than its default: ``mesh`` and ``volume_sharded``
     (ROADMAP.md, queue 1: ``dist/``), ``grad_chunks`` (ROADMAP.md, "Do not
-    port"), ``checkpoint_path``, ``checkpoint_every`` and ``resume`` (queue
-    1: ``train/checkpoint.py``).
+    port").
     """
     for name, given, item in (
             ("mesh", mesh is not None, "queue 1: dist/"),
             ("volume_sharded", volume_sharded, "queue 1: dist/"),
             ("grad_chunks", grad_chunks and grad_chunks > 1,
-             '"Do not port": loss_grads_v3_chunked'),
-            ("checkpoint_path", checkpoint_path is not None,
-             "queue 1: train/checkpoint.py"),
-            ("checkpoint_every", checkpoint_every,
-             "queue 1: train/checkpoint.py"),
-            ("resume", resume, "queue 1: train/checkpoint.py")):
+             '"Do not port": loss_grads_v3_chunked')):
         if given:
             raise NotImplementedError(
                 f"fit({name}) is not ported yet (ROADMAP.md, {item})")
+    from volrt_torch.train import checkpoint as ckpt
+
+    if checkpoint_path is not None:
+        ckpt.check_path(checkpoint_path)
     if shading not in (None, "diffuse", "phong"):
         raise ValueError(f"unknown shading mode: {shading!r}")
     shaded, phong = shading == "diffuse", shading == "phong"
@@ -176,8 +182,12 @@ def fit(
     refresh_step = (build_step(False) if esl and esl_refresh_every
                     else None)
     state = init_state(scene, make_optimizer(scene, lr))
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        ckpt.restore(checkpoint_path, state)
+        if logger:
+            logger.log(f"resumed from {checkpoint_path} at step {state.step}")
     losses = []
-    for i in range(steps):
+    for i in range(state.step, steps):
         view, target = views_and_targets[i % len(views_and_targets)]
         step_fn = train_step
         if refresh_step is not None and i % esl_refresh_every == 0:
@@ -187,6 +197,14 @@ def fit(
         if log_every and (i % log_every == 0):
             msg = f"fit step {i}: loss {losses[-1]:.6f}"
             (logger.log if logger else print)(msg)
+        if (checkpoint_path and checkpoint_every
+                and (i + 1) % checkpoint_every == 0):
+            ckpt.save(checkpoint_path, state)
+            if logger:
+                logger.log(f"checkpoint at step {i + 1} -> "
+                           f"{checkpoint_path}")
+    if checkpoint_path:
+        ckpt.save(checkpoint_path, state)
     # The step freezes a leaf by turning its requires_grad off.
     scene.density.requires_grad_(True)
     scene.tf_base.requires_grad_(True)
