@@ -172,7 +172,26 @@ Phases, each synchronised with the card, none catching its own failure:
     tests/assets/shell32.pvm -o CSV``, ``volrt``'s suite: every (config,
     renderer) cell timed, every roofline share finite, the tables
     printed. Phase 8 runs the headline line, ``python -m
-    volrt_torch.bench``.
+    volrt_torch.bench``;
+21. ``dist/`` with four ranks spawned on ``gloo`` that share the card,
+    each holding only its Z-slab, copied from the host: (a) the
+    volume-sharded render (``backend="pallas"``) and its gradients at
+    256^3 / 1024^2 on the benchmark pose and on a rotated pose with ERT
+    0.6, the launch counters reset before and read after (two
+    ``march_fwd`` and two ``march_bwd`` a rank: the prepass and the
+    seeded march), each rank's slab kernels on the inputs the path gave
+    them against their plain versions (images to the bit, dVol and dacc0
+    2e-5 of the largest entry, dTF 1e-4), the composed image within 2e-4
+    of the single-card ``render_image_v3``, each rank's peak allocation
+    beside its slab's and the whole volume's bytes; (b) the same forward
+    at 512^3 / 1024^2, each rank's peak under the whole volume's bytes;
+    (c) the row-split one-launch step on two ranks against the
+    single-rank step (2e-5, dTF 1e-4); (d) ``render_float_sharded`` on
+    rows 4, 5 and 1 at 1024^2 on two ranks, equal to the whole frame to
+    the bit; (e) the slab kernels' times, one rank at a time, beside the
+    slab-off kernels' of phases 4 and 7, their bounds, and the scan's and
+    the segments' ``all_reduce``'s ms. Rows 1 and 2 of the ``kernels``
+    line gain a ``slab`` entry.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -208,6 +227,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from volrt_torch import _build, cli
 from volrt_torch.bench import __main__ as headline
@@ -220,11 +240,15 @@ from volrt_torch.constants import SHADE_ALPHA_GATE
 from volrt_torch.core import esl as esl_mod
 from volrt_torch.core import sampling
 from volrt_torch.core.tf import default_transfer_fn, premultiply
-from volrt_torch.core.types import Volume, make_raycaster
+from volrt_torch.core.types import Volume, default_ray_step, make_raycaster
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
 from volrt_torch.diff.render import (
-    render_diff_image, scene_from_arrays, scene_from_volume)
+    DiffScene, render_diff_image, scene_from_arrays, scene_from_volume)
+from volrt_torch.dist import volume_sharded as vs
+from volrt_torch.dist.mesh import make_mesh, spawn, sub_mesh
+from volrt_torch.dist.render import (
+    l2_loss_grads_v3_sharded, render_float_sharded)
 from volrt_torch.renderers import (
     batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
 from volrt_torch.renderers.cuda import leap
@@ -412,7 +436,8 @@ def _n_samples(args, kw) -> int:
 
 
 def _bound(args, kw, flops_per_sample: int, images: int,
-           grads: bool, extra_ops: int = 0, sparse: bool = False) -> dict:
+           grads: bool, extra_ops: int = 0, sparse: bool = False,
+           extra_bytes: int = 0) -> dict:
     """``bound_ms`` and ``bound_by`` of one kernel call on these inputs.
     ``images`` counts the f32[N, 4] tensors beside the ray tensors (the
     output, a target, a cotangent); ``grads`` adds the two gradients, each
@@ -421,10 +446,11 @@ def _bound(args, kw, flops_per_sample: int, images: int,
     whose gate opens). ``sparse``: the rays read a small part of the
     volume (phase 17's, 4 voxels apart in x and y, a voxel a step in z),
     so the volume counts one voxel a sample, and a gradient its zero-fill
-    and one write a sample."""
+    and one write a sample. ``extra_bytes``: further inputs and outputs
+    (the slab mode's seed and its cotangent)."""
     o, d, k0, kfar, alive, density, tf, scal = args
     n = _n_samples(args, kw)
-    nbytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes = extra_bytes + sum(t.numel() * t.element_size() for t in args)
     nbytes += images * o.shape[0] * 16
     if sparse:
         nbytes += (n - density.numel()) * density.element_size()
@@ -2763,6 +2789,353 @@ def phase_suite() -> None:
     print(text)
 
 
+# Phase 21: dist/ on the card. DIST_RANKS ranks spawned from here share the
+# one card on gloo (NCCL refuses two ranks on one card), whose collectives
+# carry the CUDA tensors as they are. Each rank holds only its
+# slab of the volume, from the host. The poses of (a): the benchmark's
+# (ERT off) and a rotated one with ERT at 0.6, whose early ray termination
+# crosses slab planes. Tolerances: the slab kernels against their plain
+# versions, images to the bit, dVol and dacc0 RTOL_GRAD and dTF
+# RTOL_DTF_WIDE (phase 7's classes); the composed image against the
+# single-card render ATOL_RUNG5 (the seeds compose the opacity prefix in
+# another order); the row-split step against the single-rank one,
+# RTOL_GRAD (dTF RTOL_DTF_WIDE); the row-split frames to the bit.
+DIST_RANKS = 4
+DIST_SIZE, DIST_WIDE, DIST_VIEW = 256, 512, 1024
+DIST_POSES = (("benchmark pose, ERT off", None, 2.0),
+              ("rotated (30, 20, 0), ERT 0.6", (30.0, 20.0, 0.0), 0.6))
+
+
+def _dist_view(angles, viewport: int, dev: torch.device):
+    cam = Camera(dims=(viewport, viewport))
+    if angles is None:
+        cam.zoom(-1.0)
+    else:
+        cam.set_camera_position(angles)
+    return cam.view(dev)
+
+
+def _dist_scene(ray_step: float, dev: torch.device):
+    """A scene that holds the TF and the step only: the ranks' density is
+    their slab."""
+    return DiffScene(torch.zeros((1, 1, 1), device=dev),
+                     default_transfer_fn(dev), ray_step)
+
+
+def _dist_turns(mesh, fn):
+    """``fn()`` on one rank at a time, the others waiting: a rank's kernel
+    times are not its neighbours'."""
+    out = None
+    for r in range(mesh.size):
+        mesh.barrier()
+        if r == mesh.rank:
+            out = fn()
+        _sync()
+    mesh.barrier()
+    return out
+
+
+def _dist_slab_checks(mesh, slab, scene, view, thr, tag, timed):
+    """The slab kernels of this rank against their plain versions on the
+    inputs the main path gave them (the prepass, the scan's seed, the
+    seeded march), and with ``timed`` their times in turns."""
+    z0, full_d, halo = slab.z_start, slab.full_d, slab.halo
+    dens = slab.slab.detach()
+    premult = premultiply(scene.tf_base.detach())
+    o, d, k0, kend, alive = diff_v3.slab_rays(view, z0, slab.depth, full_d,
+                                              scene.ray_step, dens.device)
+    f32 = dict(dtype=torch.float32, device=dens.device)
+    res = {}
+    for label, t, seeded in (("prepass", 2.0, False), ("seeded", thr, True)):
+        scal = torch.cat([torch.full((1,), t, **f32), torch.zeros(1, **f32),
+                          view.light_pos, torch.full((1,), float(z0 - halo),
+                                                     **f32),
+                          torch.zeros(2, **f32)])
+        args = (o, d, k0, kend, alive, dens, premult, scal)
+        kw = dict(ray_step=scene.ray_step, shade=False, no_ert=t >= 1.0,
+                  width=view.dims[0])
+        seed = (p_i if seeded else torch.zeros_like(k0)).contiguous()
+        out = march_fwd(*args, slab=(seed, full_d), **kw)
+        _sync()
+        want = march_fwd_plain(*args, slab=(seed, full_d), **kw)
+        _sync()
+        assert torch.equal(out, want), f"{tag} {label} slab march_fwd"
+        if not seeded:
+            p_i = vs.OpacityScan.apply(
+                out[:, 3].reshape(view.dims[::-1]), mesh,
+                not bool(view.direction[2] >= 0)).reshape(-1).contiguous()
+            continue
+    g = out * (2.0 / out.numel())
+    got = march_bwd(*args, out, g, slab=(seed, full_d), **kw)
+    _sync()
+    want_b, plain_bwd_ms = _once(lambda: march_bwd_plain(
+        *args, out, g, slab=(seed, full_d), **kw))
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want_b)]
+    tops = [float(b.abs().max()) for b in want_b]
+    # The last slab in march order can sit behind opaque slabs: its
+    # gradients are then 0 in both, which the hold takes as equal.
+    for what, err, top, rtol in zip(("d_density", "d_premult_tf", "dacc0"),
+                                    errs, tops, (RTOL_GRAD, RTOL_DTF_WIDE,
+                                                 RTOL_GRAD)):
+        assert err <= rtol * top, (
+            f"{tag} rank {mesh.rank} slab march_bwd {what}: {err} of {top}")
+    res.update(errs_bwd=errs, tops_bwd=tops,
+               samples=_n_samples(args, kw))
+    if timed:
+        def times():
+            fwd = time_cuda(lambda: march_fwd(*args, slab=(seed, full_d),
+                                              **kw), 20)
+            bwd = time_cuda(lambda: march_bwd(*args, out, g,
+                                              slab=(seed, full_d), **kw), 10)
+            _, plain_fwd = _once(lambda: march_fwd_plain(
+                *args, slab=(seed, full_d), **kw))
+            return fwd, bwd, plain_fwd
+
+        fwd, bwd, plain_fwd = _dist_turns(mesh, times)
+        n = o.shape[0]
+        res.update(
+            ms_fwd=float(np.median(fwd)), ms_bwd=float(np.median(bwd)),
+            plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd_ms,
+            bound_fwd=_bound(args, kw, FLOPS_FWD, images=1, grads=False,
+                             extra_bytes=n * 4),
+            bound_bwd=_bound(args, kw, FLOPS_BWD, images=2, grads=True,
+                             extra_bytes=2 * n * 4))
+    return res
+
+
+def _dist_sharded(mesh, tmp: str) -> dict:
+    """(a) 256^3 / 1024^2, both poses: the volume-sharded render and its
+    gradients through the kernels' slab mode, launches counted; each
+    rank's slab kernels against their plain versions; the rank's peak
+    memory."""
+    dev = mesh.device
+    host = synthetic_volume(DIST_SIZE).astype(np.float32) / np.float32(255.0)
+    step = default_ray_step(host.shape)
+    out = {}
+    for k, (label, angles, thr) in enumerate(DIST_POSES):
+        tag = f"[dist] (a) 256^3/1024^2 {label}"
+        scene = _dist_scene(step, dev)
+        view = _dist_view(angles, DIST_VIEW, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        slab = vs.shard_slabs_to_devices(host, mesh, halo=1)
+        slab.slab.requires_grad_(True)
+        for fn in WRAPPERS:
+            fn.launches = 0
+        img = vs.render_volume_sharded(scene, view, mesh, ray_threshold=thr,
+                                       slabs=slab, backend="pallas")
+        torch.mean(img ** 2).backward()
+        _sync()
+        launches = (march_fwd.launches, march_bwd.launches)
+        assert launches == (2, 2), f"{tag}: launches {launches}"
+        assert torch.isfinite(slab.slab.grad).all()
+        assert scene.tf_base.grad.abs().max() > 0
+        peak = torch.cuda.max_memory_allocated(dev)
+        res = _dist_slab_checks(mesh, slab, scene, view, thr, tag, k == 0)
+        res.update(launches=launches, peak=peak,
+                   slab_bytes=slab.slab.numel() * 4,
+                   whole_bytes=host.size * 4)
+        if mesh.rank == 0:
+            torch.save(img.detach().cpu(), os.path.join(tmp, f"a{k}.pt"))
+        out[label] = res
+    return out
+
+
+def _dist_wide(mesh, tmp: str) -> dict:
+    """(b) 512^3 / 1024^2, forward only: each rank copies its slab from the
+    host array (a memory map of the parent's file), never the volume."""
+    dev = mesh.device
+    host = np.load(os.path.join(tmp, "vol512.npy"), mmap_mode="r")
+    scene = _dist_scene(default_ray_step(host.shape), dev)
+    view = _dist_view(None, DIST_VIEW, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    slab = vs.shard_slabs_to_devices(host, mesh, halo=1)
+    for fn in WRAPPERS:
+        fn.launches = 0
+    with torch.no_grad():
+        img = vs.render_volume_sharded(scene, view, mesh, ray_threshold=2.0,
+                                       slabs=slab, backend="pallas")
+    _sync()
+    assert march_fwd.launches == 2, march_fwd.launches
+    if mesh.rank == 0:
+        torch.save(img.cpu(), os.path.join(tmp, "b.pt"))
+    return dict(peak=torch.cuda.max_memory_allocated(dev),
+                slab_bytes=slab.slab.numel() * 4, whole_bytes=host.size * 4)
+
+
+def _dist_collective_ms(mesh) -> dict:
+    """The scan's and the segments' all_reduce's ms at 1024^2 (host clock,
+    synchronised, median of 10)."""
+    dev = mesh.device
+    plane = torch.rand((DIST_VIEW, DIST_VIEW), device=dev)
+    seg = torch.rand((DIST_VIEW, DIST_VIEW, 4), device=dev)
+    out = {}
+    for name, fn in (("scan", lambda: vs.OpacityScan.apply(plane, mesh,
+                                                           False)),
+                     ("all_reduce", lambda: vs.SumSegments.apply(seg, mesh))):
+        times = []
+        for _ in range(11):
+            mesh.barrier()
+            _sync()
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(times[1:]))
+    return out
+
+
+def _dist_pair(pair) -> dict:
+    """(c) the row-split one-launch step and (d) the row-split frames of
+    rows 4, 5 and 1, on two ranks, against the single-rank ones."""
+    dev = pair.device
+    scene, view, target = diff_bench_scene(DIST_SIZE, DIST_VIEW, device=dev)
+    for fn in WRAPPERS:
+        fn.launches = 0
+    loss, g = l2_loss_grads_v3_sharded(scene, view, target, pair,
+                                       ray_threshold=2.0)
+    _sync()
+    assert l2_step.launches == 1, l2_step.launches
+    one, g1 = diff_v3.l2_loss_grads_v3_onepass(scene, view, target,
+                                               ray_threshold=2.0)
+    err_loss = abs(float(loss) - float(one)) / float(one)
+    assert err_loss <= RTOL_GRAD, f"[dist] (c) loss {loss} against {one}"
+    errs = {}
+    for key, rtol in (("density", RTOL_GRAD), ("tf_base", RTOL_DTF_WIDE)):
+        err = float((g[key] - g1[key]).abs().max())
+        top = float(g1[key].abs().max())
+        assert top > 0 and err <= rtol * top, f"[dist] (c) d_{key}"
+        errs[key] = err / top
+    rc = bench_pose(DIST_SIZE, DIST_VIEW, dev)
+    frames = {}
+    for name, renderer, fn in (("march_tri", "pallas-trilinear", march_tri),
+                               ("march_blocked", "pallas-blocked",
+                                march_blocked),
+                               ("march_fwd", "pallas-v3", march_fwd)):
+        fn.launches = 0
+        img, _ = render_float_sharded(rc, pair, renderer=renderer)
+        _sync()
+        assert fn.launches == 1, (name, fn.launches)
+        rung = {"march_tri": 3, "march_blocked": 4, "march_fwd": 5}[name]
+        whole = get_renderer(rung).render_float(rc)[0]
+        assert torch.equal(img, whole), f"[dist] (d) {renderer} frame"
+        frames[name] = True
+    return dict(err_loss=err_loss, errs=errs, frames=frames)
+
+
+def _dist_rank(rank: int, size: int, tmp: str) -> None:
+    """Phase 21 on one rank; rank 0 writes what the ranks found."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(dev)
+    pair = sub_mesh(mesh, [0, 1])
+    found = {"a": _dist_sharded(mesh, tmp), "b": _dist_wide(mesh, tmp),
+             "coll": _dist_collective_ms(mesh)}
+    if pair is not None:
+        found["pair"] = _dist_pair(pair)
+    mesh.barrier()
+    every = [None] * size
+    dist.all_gather_object(every, found)
+    if rank == 0:
+        with open(os.path.join(tmp, "found.json"), "w") as f:
+            json.dump(every, f, default=float)
+
+
+def phase_dist(dev: torch.device, slab_off: dict | None = None) -> dict:
+    """Phase 21 -> the ``slab`` entries of rows 1 and 2 in the kernels
+    line. ``slab_off``: the whole volume's ``march_fwd`` and ``march_bwd``
+    ms on the same pose (phases 4 and 7), printed beside the slabs'."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        vol512 = synthetic_volume(DIST_WIDE).astype(np.float32) / np.float32(
+            255.0)
+        np.save(os.path.join(tmp, "vol512.npy"), vol512)
+        ref = {}
+        with torch.no_grad():
+            for k, (_, angles, thr) in enumerate(DIST_POSES):
+                sc = scene_from_arrays(
+                    synthetic_volume(DIST_SIZE).astype(np.float32) / 255.0,
+                    default_transfer_fn(dev).cpu().numpy(),
+                    default_ray_step((DIST_SIZE,) * 3), device=dev)
+                ref[f"a{k}"] = diff_v3.render_image_v3(
+                    sc, _dist_view(angles, DIST_VIEW, dev), thr).cpu()
+            sc = scene_from_arrays(vol512, default_transfer_fn(dev).cpu()
+                                   .numpy(), default_ray_step(vol512.shape),
+                                   device=dev)
+            ref["b"] = diff_v3.render_image_v3(
+                sc, _dist_view(None, DIST_VIEW, dev), 2.0).cpu()
+            del sc
+        torch.cuda.empty_cache()
+        print(f"[dist] single-card references in "
+              f"{time.perf_counter() - t0:.1f} s; spawning {DIST_RANKS} "
+              f"ranks on gloo sharing the card")
+        t1 = time.perf_counter()
+        spawn(_dist_rank, DIST_RANKS, tmp)
+        print(f"[dist] the ranks ran in {time.perf_counter() - t1:.1f} s")
+        with open(os.path.join(tmp, "found.json")) as f:
+            every = json.load(f)
+        for key, name in (("a0", DIST_POSES[0][0]), ("a1", DIST_POSES[1][0]),
+                          ("b", "512^3/1024^2 benchmark pose, ERT off")):
+            got = torch.load(os.path.join(tmp, key + ".pt"))
+            err = float((got - ref[key]).abs().max())
+            print(f"[dist] ({key[0]}) {name}: composed image against the "
+                  f"single-card render_image_v3 max|diff| = {err:.3g} (tol "
+                  f"{ATOL_RUNG5:g}), alpha max {float(got[..., 3].max()):.4f}")
+            assert err <= ATOL_RUNG5 and float(got[..., 3].max()) > 0.5
+    mib = 2.0 ** 20
+    for label, _, _ in DIST_POSES:
+        tops = np.array([f["a"][label]["tops_bwd"] for f in every])
+        assert (tops.max(0) > 0).all(), f"[dist] (a) {label}: no gradient"
+    for r, found in enumerate(every):
+        for label, a in found["a"].items():
+            print(f"[dist] (a) rank {r} {label}: launches march_fwd "
+                  f"{a['launches'][0]}, march_bwd {a['launches'][1]}; slab "
+                  f"kernels equal to the plain versions to the bit, "
+                  f"march_bwd (d_density, d_premult_tf, dacc0) max|diff| "
+                  f"{a['errs_bwd']} of largest {a['tops_bwd']}; "
+                  f"max_memory_allocated {a['peak'] / mib:.1f} MiB, slab "
+                  f"{a['slab_bytes'] / mib:.1f} MiB, whole volume "
+                  f"{a['whole_bytes'] / mib:.1f} MiB")
+        b = found["b"]
+        print(f"[dist] (b) rank {r} 512^3: max_memory_allocated "
+              f"{b['peak'] / mib:.1f} MiB, slab {b['slab_bytes'] / mib:.1f} "
+              f"MiB, whole volume {b['whole_bytes'] / mib:.1f} MiB")
+        assert b["peak"] < b["whole_bytes"], "a rank held the whole volume"
+    pair = every[0]["pair"]
+    print(f"[dist] (c) row-split one-launch step on 2 ranks against one: "
+          f"loss rel {pair['err_loss']:.3g}, gradients rel {pair['errs']}")
+    print(f"[dist] (d) render_float_sharded on 2 ranks equal to the whole "
+          f"frame to the bit: {sorted(pair['frames'])}")
+    coll = every[0]["coll"]
+    print(f"[dist] (e) collectives at 1024^2 over {DIST_RANKS} ranks on "
+          f"gloo sharing the card: the scan (all_gather of a plane) "
+          f"{coll['scan']:.3f} ms, the segments' all_reduce "
+          f"{coll['all_reduce']:.3f} ms")
+    entries = {}
+    for name in ("march_fwd", "march_bwd"):
+        rows = []
+        for r, found in enumerate(every):
+            a = found["a"][DIST_POSES[0][0]]
+            key = "fwd" if name == "march_fwd" else "bwd"
+            rows.append(a)
+            print(f"[dist] (e) rank {r} slab {name}: {a['ms_' + key]:.4f} ms "
+                  f"for {a['samples']} samples; plain "
+                  f"{a['plain_' + key + '_ms']:.2f} ms; bound "
+                  f"{a['bound_' + key]['bound_ms']:.4f} ms by "
+                  f"{a['bound_' + key]['bound_by']}")
+        if slab_off:
+            print(f"[dist] (e) slab-off {name} on the same pose, the whole "
+                  f"volume: {slab_off[name]:.4f} ms")
+        a = rows[0]
+        key = "fwd" if name == "march_fwd" else "bwd"
+        entries[name] = {
+            "launches": a["launches"][0 if key == "fwd" else 1],
+            "max_abs_err": 0.0 if key == "fwd" else max(a["errs_bwd"]),
+            "ms": a["ms_" + key], "plain_ms": a["plain_" + key + "_ms"],
+            **a["bound_" + key], "library_ms": None,
+            "ranks_ms": [r["ms_" + key] for r in rows]}
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -2799,6 +3172,8 @@ def main() -> int:
     run(phase_checkpoint)
     run(phase_orbit)
     run(phase_suite)
+    slab = run(phase_dist, dev, {"march_fwd": fwd["ms"],
+                                 "march_bwd": step["march_bwd"]["ms"]})
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -2810,11 +3185,13 @@ def main() -> int:
         {"name": "march_fwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_fwd.cu",
          "replaces": f"{pallas}:1128", **fwd, **ladder["march_fwd"],
-         "phong": phong["march_fwd"], "esl": esl["esl"]["march_fwd"]},
+         "phong": phong["march_fwd"], "esl": esl["esl"]["march_fwd"],
+         "slab": slab["march_fwd"]},
         {"name": "march_bwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_bwd.cu",
          "replaces": f"{pallas}:1435", **step["march_bwd"],
-         "phong": phong["march_bwd"], "esl": esl["esl"]["march_bwd"]},
+         "phong": phong["march_bwd"], "esl": esl["esl"]["march_bwd"],
+         "slab": slab["march_bwd"]},
         {"name": "l2_step", "route": "cuda",
          "source": "volrt_torch/csrc/l2_step.cu",
          "replaces": f"{pallas}:2397", **step["l2_step"],

@@ -186,25 +186,35 @@ def test_train_step_and_losses(problem):
 def test_fit_refuses_what_is_not_ported(problem, tmp_path):
     """(f) Arguments of ``volrt``'s fit that wait for a later port; phong
     with ``fused=True``, ``esl`` and a ``.npz`` checkpoint run since the
-    kernels and ``train/checkpoint.py`` have them, and a checkpoint path
-    of another kind (``volrt``'s orbax directory) is refused."""
+    kernels and ``train/checkpoint.py`` have them, ``mesh`` and
+    ``volume_sharded`` since ``dist/`` (here on a mesh of one rank, with
+    no process group; ``tests/test_torch_dist.py`` runs them on worlds of
+    two and four ranks); a mesh of another type raises ``TypeError``,
+    ``volume_sharded`` without a mesh ``ValueError``, and a checkpoint
+    path of another kind (``volrt``'s orbax directory) is refused."""
+    from volrt_torch.dist.mesh import make_mesh
+
     scene = trender.scene_from_arrays(*_init(problem, "both"), STEP,
                                       device=CPU)
     pair = [(problem["tview"], torch.from_numpy(problem["target"]))]
     ckpt = str(tmp_path / "state.npz")
-    for kw in (dict(mesh=object()), dict(volume_sharded=True),
+    one = make_mesh(CPU)
+    for kw in (dict(mesh=one), dict(mesh=one, volume_sharded=True),
                dict(grad_chunks=4), dict(esl=True),
                dict(checkpoint_path=ckpt),
                dict(shading="phong", fused=True)):
-        if (kw.get("shading") == "phong" or kw.get("esl")
-                or "checkpoint_path" in kw):
+        if "grad_chunks" not in kw:
             # Ported since: the one-launch step's phong mode, ESL (here
-            # the oracle's leading leap) and checkpoints.
+            # the oracle's leading leap), checkpoints and dist/.
             _, losses = tfit_mod.fit(scene, pair, steps=1, **kw)
             assert len(losses) == 1 and np.isfinite(losses[0])
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfit_mod.fit(scene, pair, steps=1, **kw)
+    with pytest.raises(TypeError, match="Mesh"):
+        tfit_mod.fit(scene, pair, steps=1, mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        tfit_mod.fit(scene, pair, steps=1, volume_sharded=True)
     assert os.path.exists(ckpt)
     with pytest.raises(ValueError, match="npz"):
         tfit_mod.fit(scene, pair, steps=1,

@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -515,3 +517,89 @@ def bench_diff_step(volume_size: int = 256, viewport: int = 1024,
         "device": torch.cuda.get_device_name(device),
         "precision": "f32",
     }
+
+
+def _sharded_times(mesh, volume_size: int, viewport: int, iters: int,
+                   renderer: str) -> dict:
+    """:func:`bench_sharded_render`'s measurement on one rank of ``mesh``:
+    the frame alone on this rank (a mesh of one) and over the mesh, each
+    the median host time over ``iters`` frames that end in a barrier of
+    the mesh and a synchronise."""
+    from volrt_torch.dist.mesh import Mesh
+    from volrt_torch.dist.render import render_float_sharded
+
+    dev = mesh.device
+    volume = Volume.from_numpy(synthetic_volume(volume_size), dev)
+    cam = Camera(dims=(viewport, viewport))
+    rc = make_raycaster_for(BenchConfig("sharded", volume_size, viewport),
+                            volume, cam, dev)
+    out = {}
+    for label, m in (("1", Mesh(None, 0, 1, dev)), ("n", mesh)):
+        times = []
+        for i in range(iters + 1):
+            mesh.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            render_float_sharded(rc, m, renderer=renderer)
+            torch.cuda.synchronize(dev)
+            m.barrier()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[label] = float(np.median(times))
+    cards = mesh.all_gather(torch.tensor([dev.index or 0], device=dev))
+    n = mesh.size
+    return {
+        "devices": n,
+        "cards": len(set(cards.flatten().tolist())),
+        "ms_1dev": out["1"],
+        "ms_ndev": out["n"],
+        "scaling_efficiency": out["1"] / (out["n"] * n),
+        "device": torch.cuda.get_device_name(dev),
+    }
+
+
+def _sharded_rank(rank: int, size: int, volume_size: int, viewport: int,
+                  iters: int, renderer: str, device: str, out: str) -> None:
+    from volrt_torch.dist.mesh import make_mesh
+
+    m = _sharded_times(make_mesh(device), volume_size, viewport, iters,
+                       renderer)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(m, f)
+
+
+def bench_sharded_render(volume_size: int = 64, viewport: int = 512,
+                         iters: int = 10, renderer: str = "pallas-v3",
+                         ranks: int = 2, backend: str = "gloo",
+                         device: torch.device | str | None = None) -> dict:
+    """The sharded render over a mesh of ranks against one rank
+    (``volrt/bench/harness.py:720``): ``render_float_sharded`` (image rows
+    split over the ranks) on ``renderer``, each frame's median host time
+    ending in a barrier and a synchronise, alone on one rank and over the
+    mesh; ``scaling_efficiency = ms_1dev / (ms_ndev * devices)``.
+
+    Runs on the process group that is up (``torchrun``), or spawns
+    ``ranks`` local ranks on ``backend`` (``"gloo"`` lets them share one
+    card). ``cards`` counts the cards the ranks ran on: where it is less
+    than ``devices`` the ranks shared a card, and the efficiency measures
+    how the card takes their turns, not scaling. Times CUDA devices only.
+    """
+    import tempfile
+
+    import torch.distributed as dist
+
+    from volrt_torch.dist.mesh import make_mesh, spawn
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("bench_sharded_render times CUDA devices")
+    if dist.is_initialized():
+        return _sharded_times(make_mesh(device), volume_size, viewport,
+                              iters, renderer)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sharded.json")
+        spawn(_sharded_rank, ranks, volume_size, viewport, iters, renderer,
+              str(dev), out, backend=backend)
+        with open(out) as f:
+            return json.load(f)

@@ -117,29 +117,38 @@ _CLASS_OF = {op: c for c, ops in OPCODE_CLASSES.items() for op in ops}
 # A template argument in a mangled name: a voxel type, a bool, the
 # kernels' shading mode (march_common.cuh:Shade, by its value: 0 none, 1
 # the diffuse tap, 2 phong, so that the two modes that were a bool keep
-# their names) or their ESL mode (march_common.cuh:Esl), and what the
-# report calls it. ESL on reads "esl" and ESL off is left out, so that an
-# ESL-off variant keeps the name it had before the mode, and its SASS is
+# their names), their ESL mode (march_common.cuh:Esl) or their slab mode
+# (march_common.cuh:Slab), and what the report calls it. ESL on reads
+# "esl" and the slab mode "slab"; off, each is left out, so that a variant
+# with either off keeps the name it had before the mode, and its SASS is
 # compared with a tree from before it.
 _ESL_ARG = r"L(?:N5volrt|NS\d*_)3EslE[01]E"
+_SLAB_ARG = r"L(?:N5volrt|NS\d*_)4SlabE[01]E"
+_MODE_ARGS = {_ESL_ARG: "esl", _SLAB_ARG: "slab"}
 _TEMPLATE_ARG = (r"[hf]|Lb[01]E|L(?:N5volrt5ShadeE|S\d*_)[0-2]E|"
-                 + _ESL_ARG)
+                 + _ESL_ARG + "|" + _SLAB_ARG)
 _TEMPLATE_ARGS = {"h": "u8", "f": "f32"}
+
+
+def _arg_name(arg: str) -> str | None:
+    """What the report calls one template argument, None for a mode that
+    is off."""
+    for pattern, name in _MODE_ARGS.items():
+        if re.fullmatch(pattern, arg):
+            return name if arg[-2] == "1" else None
+    return _TEMPLATE_ARGS.get(arg) or arg[-2]
 
 
 def variant_name(mangled: str) -> str | None:
     """``march_ladder_kernel<u8,0,0,1>`` for a mangled kernel name of
     :data:`KERNELS` (template arguments in order: voxel type or shading
-    mode, the ESL mode where on, then the bools), None for any other
-    function."""
+    mode, the ESL and slab modes where on, then the bools), None for any
+    other function."""
     for kernel in KERNELS:
         m = re.search(kernel + f"(?:I((?:{_TEMPLATE_ARG})*)E)?", mangled)
         if m:
             args = re.findall(_TEMPLATE_ARG, m.group(1) or "")
-            names = [("esl" if a[-2] == "1" else None)
-                     if re.fullmatch(_ESL_ARG, a)
-                     else _TEMPLATE_ARGS.get(a) or a[-2] for a in args]
-            names = [n for n in names if n is not None]
+            names = [n for n in map(_arg_name, args) if n is not None]
             return kernel + (f"<{','.join(names)}>" if names else "")
     return None
 

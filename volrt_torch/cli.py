@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -211,9 +212,36 @@ def cmd_render(args) -> int:
     return 0
 
 
+def _fit_rank(rank: int, size: int, args) -> None:
+    """One spawned rank of ``fit --dist ... --ranks N``."""
+    cmd_fit(args)
+
+
+def _fit_mesh(args, device: torch.device):
+    """The mesh of ``fit --dist rays|volume``: the process group that is up
+    (``torchrun``'s, read from its environment, or a spawned rank's), else a
+    mesh of one rank."""
+    import torch.distributed as dist
+
+    from volrt_torch.dist.mesh import init_distributed, make_mesh
+
+    if not dist.is_initialized() and "RANK" in os.environ:
+        init_distributed(args.backend)
+    # A bare "cuda" is the rank's card (make_mesh: cuda:LOCAL_RANK).
+    return make_mesh(None if device == torch.device("cuda") else device)
+
+
 def cmd_fit(args) -> int:
     """Inverse rendering demo: recover a density volume, a TF or both from
-    four rendered views of the volume (``volrt/cli.py:305``)."""
+    four rendered views of the volume (``volrt/cli.py:305``).
+
+    ``--dist rays|volume`` trains over a mesh (``train/fit.py``): under
+    ``torchrun`` one rank a process; otherwise ``--ranks N`` local ranks
+    spawned here on ``--backend`` (``gloo`` by default, which also lets
+    several ranks share one card). Rank 0 logs and writes the
+    checkpoint."""
+    import torch.distributed as dist
+
     from volrt_torch.core.tf import default_transfer_fn
     from volrt_torch.core.types import default_ray_step
     from volrt_torch.core.view import Camera
@@ -221,8 +249,18 @@ def cmd_fit(args) -> int:
         DiffScene, render_diff_image, scene_from_volume)
     from volrt_torch.train.fit import fit
 
-    log = _logger(args.log)
+    if (args.dist != "none" and args.ranks > 1 and not dist.is_initialized()
+            and "RANK" not in os.environ):
+        from volrt_torch.dist.mesh import spawn
+
+        spawn(_fit_rank, args.ranks, args, backend=args.backend)
+        return 0
     device = torch.device(args.device)
+    mesh = None if args.dist == "none" else _fit_mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
+    log = _logger(args.log if lead else None)
     data = _load_volume(args)
     step = args.ray_step or default_ray_step(data.shape)
     tf_base = default_transfer_fn(device)
@@ -239,8 +277,11 @@ def cmd_fit(args) -> int:
             targets.append((view, render_diff_image(
                 gt, view, light_kd=args.light_kd if shading else 0.0,
                 shaded=shading == "diffuse", phong=shading == "phong")))
-    print(f"rendered {len(targets)} target views in "
-          f"{time.perf_counter() - t0:.2f} s", file=sys.stderr)
+    if lead:
+        print(f"rendered {len(targets)} target views in "
+              f"{time.perf_counter() - t0:.2f} s", file=sys.stderr)
+    if mesh is not None:
+        log.log("dist=%s over %d ranks", args.dist, mesh.size)
 
     # Init per training target: density fits start from a constant (zero
     # density has a vanishing TF-lerp gradient); TF fits keep the true
@@ -256,17 +297,18 @@ def cmd_fit(args) -> int:
         scene, targets, steps=args.steps, lr=args.lr,
         train_density=train in ("density", "both"),
         train_tf=train in ("tf", "both"),
-        log_every=max(1, args.steps // 10),
-        logger=log if args.log else None,
+        log_every=max(1, args.steps // 10) if lead else 0,
+        logger=log if (args.log and lead) else None,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
         fused=args.fused, shading=shading, light_kd=args.light_kd,
-        esl=args.esl)
+        esl=args.esl, mesh=mesh, volume_sharded=args.dist == "volume")
     if losses:
         log.log_time("final loss %.6f", losses[-1])
-        print(f"final loss {losses[-1]:.6f} after {len(losses)} steps in "
-              f"{time.perf_counter() - t0:.2f} s on {device}",
-              file=sys.stderr)
+        if lead:
+            print(f"final loss {losses[-1]:.6f} after {len(losses)} steps "
+                  f"in {time.perf_counter() - t0:.2f} s on {device}",
+                  file=sys.stderr)
     else:
         log.log("nothing to do: checkpoint already at %d steps", args.steps)
     return 0
@@ -280,9 +322,9 @@ def cmd_bench(args) -> int:
     from volrt_torch.bench.harness import (
         default_suite, run_diff_suite, run_suite)
 
-    if args.sharded:
-        raise NotImplementedError(
-            "bench --sharded is not ported yet (ROADMAP.md, queue 1: dist/)")
+    if args.sharded and torch.device(args.device).type != "cuda":
+        raise ValueError("bench --sharded times CUDA devices (its ranks run "
+                         "render_float_sharded on the card)")
     log = _logger(args.log)
     prof = run_suite(
         configs=default_suite(small=args.small, files=args.files),
@@ -292,6 +334,21 @@ def cmd_bench(args) -> int:
         diff_cfgs = [(64, 256), (128, 512)] if args.small else None
         run_diff_suite(configs=diff_cfgs, frames=max(2, args.frames // 2),
                        profiler=prof, logger=log, device=args.device)
+    if args.sharded:
+        from volrt_torch.bench.harness import bench_sharded_render
+
+        m = bench_sharded_render(
+            volume_size=64 if args.small else 128,
+            viewport=256 if args.small else 512,
+            iters=max(2, args.frames // 2), ranks=args.ranks,
+            device=args.device)
+        shared = (f" (the {m['devices']} ranks share {m['cards']} card(s): "
+                  f"the efficiency is how the card takes their turns, not "
+                  f"scaling)" if m["cards"] < m["devices"] else "")
+        (log.log if args.log else print)(
+            f"sharded render over {m['devices']} ranks: {m['ms_ndev']:.2f} "
+            f"ms (1 rank {m['ms_1dev']:.2f} ms), scaling efficiency "
+            f"{m['scaling_efficiency']:.3f}{shared}")
     tables = [prof.print_avg(), prof.print_max(), prof.print_samples(),
               prof.print_roofline()]
     for table in tables:
@@ -381,6 +438,18 @@ def parser() -> argparse.ArgumentParser:
                    "kernel's sample skipping with --fused, the leading "
                    "leap without; the TF gets no gradient from skipped "
                    "samples)")
+    p.add_argument("--dist", choices=["none", "rays", "volume"],
+                   default="none",
+                   help="train over a mesh of ranks: rays = ray-row data "
+                   "parallelism (volume replicated, gradients summed); "
+                   "volume = Z-slab volume sharding (a slab a rank). Under "
+                   "torchrun one rank a process, else --ranks local ranks")
+    p.add_argument("--ranks", type=int, default=1,
+                   help="with --dist and no torchrun: local ranks to spawn "
+                   "(several may share one card on gloo)")
+    p.add_argument("--backend", choices=["gloo", "nccl"], default="gloo",
+                   help="torch.distributed backend of --dist (nccl: one "
+                   "card a rank)")
     p.add_argument("--log", default=None,
                    help="write the session to this file too (volrt's "
                    "default is volrt.log; none unless given)")
@@ -404,7 +473,10 @@ def parser() -> argparse.ArgumentParser:
                    help="append the training steps' rows (the two-kernel "
                    "and the one-launch L2 step)")
     p.add_argument("--sharded", action="store_true",
-                   help="the multi-device scaling row (not ported yet)")
+                   help="the sharded render over --ranks ranks against one "
+                   "(under torchrun, its ranks)")
+    p.add_argument("--ranks", type=int, default=2,
+                   help="local ranks that --sharded spawns on gloo")
     p.add_argument("-o", "--output", default=None, help="CSV report path")
     p.add_argument("--log", default=None,
                    help="write the session to this file too")

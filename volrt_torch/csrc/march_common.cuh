@@ -232,6 +232,62 @@ __device__ __forceinline__ Cell<I> cell_at(const Grid<I>& g, float px,
   return t;
 }
 
+// The slab mode of the v3 forward and backward (volume-sharded rendering,
+// volrt/renderers/pallas/diff_v3.py:838-839, 863-864): the volume the
+// kernel holds is one Z-slab of a deeper one, rows z_off .. z_off + depth - 1
+// of a volume full_d deep (z_off = slab start less its halo; the halo rows
+// are the neighbours' copies). A sample's cell is the whole volume's: z on
+// its lattice, both z taps clamped to [0, full_d - 1], then moved to the
+// slab's rows and clamped to them. x and y are as cell_at has them. Each
+// slab-off instance leaves the mode out and keeps its code.
+enum class Slab { kOff, kOn };
+
+struct SlabGrid {
+  float hz;     // full_d / 2
+  int full_d;   // depth of the whole volume
+  int z_off;    // the whole volume's row of the slab's row 0
+};
+
+// The slab mode's kernel argument: the per-ray seed, the opacity in front
+// of the slab, and (the backward's third output) its cotangent, both [N];
+// the whole volume's depth. z_off comes in scal[5], volrt's slot for it.
+struct SlabArgs {
+  const float* acc0;
+  float* dacc0;
+  int full_d;
+};
+
+inline SlabArgs make_slab_args(const void* acc0, void* dacc0, int full_d) {
+  return SlabArgs{static_cast<const float*>(acc0), static_cast<float*>(dacc0),
+                  full_d};
+}
+
+__device__ __forceinline__ SlabGrid load_slab(const MarchArgs& a,
+                                              const SlabArgs& s) {
+  return SlabGrid{0.5f * s.full_d, s.full_d, __float2int_rn(a.scal[5])};
+}
+
+template <typename I>
+__device__ __forceinline__ Cell<I> cell_at_slab(const Grid<I>& g,
+                                                const SlabGrid& sg, float px,
+                                                float py, float pz) {
+  Cell<I> t;
+  I ox, oy;
+  cell_axis<I>(px, g.hx, g.w, 1, ox, t.sx, t.fx);
+  cell_axis<I>(py, g.hy, g.h, g.w, oy, t.sy, t.fy);
+  const float tz = sub(mul(add(pz, 1.f), sg.hz), 0.5f);
+  const float m = floor_biased(tz);
+  t.fz = sub(tz, sub(m, FLOOR_BIAS));
+  const int i = floor_int(m);
+  const int lo = min(max(min(max(i, 0), sg.full_d - 1) - sg.z_off, 0),
+                     g.depth - 1);
+  const int hi = min(max(min(max(i + 1, 0), sg.full_d - 1) - sg.z_off, 0),
+                     g.depth - 1);
+  t.sz = (hi - lo) * static_cast<int>(g.wh);
+  t.base = ox + oy + static_cast<I>(lo) * g.wh;
+  return t;
+}
+
 // One axis of a phong gradient tap: the sample's voxel coordinate t
 // clipped to [0, n - 1], shifted by `by` (+1 or -1) and clipped again, as
 // v3 takes it (diff_v3.py:1226-1262); its first tap's offset, the step to
@@ -1046,6 +1102,128 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                                 q, ch, adds);
     if (!NO_ERT && ch.acc_a > li.thr) live = false;
   }
+}
+
+// The slab mode's sample, march and replay (march_fwd.cu, march_bwd.cu):
+// classify's trilinear density path and its diffuse tap on the cells of
+// cell_at_slab, take_sample's ESL test on the whole volume's cell
+// (diff_v3.py:601-604), and march_forward's and march_replay's loops with
+// the seed. They stand apart from the functions above, which the slab-off
+// kernels keep as they were, so that those kernels' code stays what it
+// was (the one-launch step's shaded variants are sensitive to the least
+// change of what is inlined into them).
+template <Shade S, typename I>
+__device__ __forceinline__ void classify_slab(const Grid<I>& g,
+                                              const SlabGrid& sg,
+                                              const float* vol,
+                                              const float4* lut,
+                                              const Light& li, float px,
+                                              float py, float pz,
+                                              Sample<I>& q) {
+  static_assert(S != Shade::kPhong, "the slab mode has no phong");
+  q.t = cell_at_slab(g, sg, px, py, pz);
+  q.s = trilinear(vol, q.t);
+  tf_rgba(lut, q);
+  q.gate = false;
+  if (S == Shade::kDiffuse && q.c[3] > SHADE_ALPHA_GATE &&
+      li.kd > SHADE_KD_GATE) {
+    q.gate = true;
+    float qx, qy, qz;
+    light_tap(li, px, py, pz, qx, qy, qz);
+    q.t2 = cell_at_slab(g, sg, qx, qy, qz);
+    const float diffuse = mul(sub(trilinear(vol, q.t2), q.s), li.kd);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) q.c[ch] = add(q.c[ch], diffuse);
+  }
+}
+
+// take_sample in slab mode: sample i of k0 + i*step, false past kfar.
+template <Shade S, Esl E>
+__device__ __forceinline__ bool take_sample_slab(const MarchArgs& a,
+                                                 const Grid<>& g,
+                                                 const SlabGrid& sg,
+                                                 const float4* lut,
+                                                 const Ray& ray,
+                                                 const Light& li,
+                                                 const EslArgs& esl, float i,
+                                                 Sample<>& q) {
+  const float k = add(ray.ks, mul(i, a.step));
+  if (!(k <= ray.ke)) return false;
+  const float px = add(ray.ox, mul(ray.dx, k));
+  const float py = add(ray.oy, mul(ray.dy, k));
+  const float pz = add(ray.oz, mul(ray.dz, k));
+  if constexpr (E == Esl::kOn) {
+    Grid<> whole = g;
+    whole.hz = sg.hz;
+    whole.depth = sg.full_d;
+    q.skip = esl_empty_cell(esl, whole, px, py, pz);
+    if (q.skip) {
+      q.c[0] = q.c[1] = q.c[2] = q.c[3] = 0.f;
+      q.gate = false;
+      return true;
+    }
+  }
+  classify_slab<S>(g, sg, a.vol, lut, li, px, py, pz, q);
+  return true;
+}
+
+// march_forward in slab mode: acc comes in as (0, 0, 0, acc0), the
+// opacity in front of the slab, and the samples composite behind it; a
+// ray whose seed is over the ERT threshold takes none (diff_v3.py:
+// 1410-1413).
+template <Shade S, Esl E, bool NO_ERT>
+__device__ __forceinline__ void march_forward_slab(const MarchArgs& a,
+                                                   const float4* lut,
+                                                   const EslArgs& esl,
+                                                   const SlabGrid& sg,
+                                                   const Ray& ray,
+                                                   const Light& li,
+                                                   float acc[4]) {
+  if (!NO_ERT && acc[3] > li.thr) return;
+  const Grid<> g = make_grid(a);
+  const float n = static_cast<float>(a.max_steps);
+  Sample<> q;
+#pragma unroll 1
+  for (float i = 0.f; i < n; i = add(i, 1.f)) {
+    if (!take_sample_slab<S, E>(a, g, sg, lut, ray, li, esl, i, q)) break;
+    if (E == Esl::kOn && q.skip) continue;
+    composite(acc, q.c);
+    if (!NO_ERT && acc[3] > li.thr) break;
+  }
+}
+
+// march_replay in slab mode: the chain starts from the seed acc0
+// (diff_v3.py:2292-2295), G must come in without the seed's share g.a
+// acc0, a ray whose seed is over the ERT threshold replays nothing, and
+// the prefix P of the ray's contributions as it stood at its last replayed
+// sample is returned (a lane whose ray has ended goes on through
+// replay_sample with the warp, adding nothing but growing its chain).
+template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+__device__ __forceinline__ float march_replay_slab(
+    const MarchArgs& a, const float4* lut, const EslArgs& esl,
+    const SlabGrid& sg, float (*wdtf)[4], float* d_vol, const Ray& ray,
+    const Light& li, const float g4[4], float G, bool live, float acc0) {
+  const Grid<> g = make_grid(a);
+  const float n = static_cast<float>(a.max_steps);
+  Sample<> q{};
+  Chain ch;
+  ch.acc_a = acc0;
+  float P = 0.f;
+  if (!NO_ERT && acc0 > li.thr) live = false;
+  for (float i = 0.f; i < n; i = add(i, 1.f)) {
+    if (live) live = take_sample_slab<S, E>(a, g, sg, lut, ray, li, esl, i, q);
+    if (!__any_sync(FULL_WARP, live)) break;
+    bool adds = live;
+    if constexpr (E == Esl::kOn) {
+      adds = live && !q.skip;
+      if (!__any_sync(FULL_WARP, adds)) continue;
+    }
+    replay_sample<S, NEED_DTF, NEED_DVOL, true>(lut, wdtf, d_vol, li, g4, G,
+                                                q, ch, adds);
+    if (adds) P = ch.P;
+    if (!NO_ERT && ch.acc_a > li.thr) live = false;
+  }
+  return P;
 }
 
 // The same on round 1's accumulating lattice (march_round1.cu), unshaded

@@ -1,8 +1,9 @@
 // Forward march of the rung-5 render on Hopper: one thread per ray.
 //
 // Replaces volrt/renderers/pallas/diff_v3.py:_fwd_kernel in its unshaded,
-// diffuse and phong modes, each with ESL and without, over an f32 volume
-// (slab mode, saved samples and bf16 storage are not ported yet). The TPU
+// diffuse and phong modes, each with ESL and without, and in its slab mode
+// (unshaded and diffuse, with ESL and without), over an f32 volume (saved
+// samples and bf16 storage are not ported yet). The TPU
 // kernel's ESL drops planned groups of samples; here each sample is tested
 // (Esl::kOn, march_common.cuh:esl_empty_cell). The TPU kernel gathers with
 // one-hot matrix products over planned window bricks because Mosaic has no
@@ -41,6 +42,15 @@
 // registers (PERF.md section 6). Its normalisations take 1 / sqrt(x) in two
 // rounded operations (rsqrt_rn), as the plain version does on either
 // device, so its images too equal the plain version's to the bit.
+//
+// The slab mode (Slab::kOn, volume-sharded rendering: dist/volume_sharded.py)
+// marches one Z-slab of a deeper volume: the cells are the whole volume's,
+// moved to the slab's rows (march_common.cuh:cell_at_slab), and every ray's
+// accumulator starts at (0, 0, 0, acc0[r]), the opacity in front of the
+// slab, which the output keeps, on a dead ray too. Which samples a slab
+// takes is the caller's: each ray's k0 and kfar bound the lattice indices
+// of the slab (renderers/diff_v3.py:slab_rays), so the kernel's loop
+// (march_common.cuh:march_forward_slab) is the slab-off loop with a seed.
 
 #include "march_common.cuh"
 
@@ -48,10 +58,11 @@ namespace {
 
 using namespace volrt;
 
-template <Shade S, Esl E, bool NO_ERT>
+template <Shade S, Esl E, Slab SL, bool NO_ERT>
 __global__ void __launch_bounds__(TILE * TILE) march_fwd_kernel(MarchArgs a,
                                                                 float* out,
-                                                                EslArgs esl) {
+                                                                EslArgs esl,
+                                                                SlabArgs sl) {
   __shared__ float4 lut[LUT_ROWS];
   stage_padded_lut(a, lut);
   if constexpr (E == Esl::kOn) {
@@ -63,32 +74,38 @@ __global__ void __launch_bounds__(TILE * TILE) march_fwd_kernel(MarchArgs a,
   const int r = ray_index(a);
   if (r < 0) return;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (SL == Slab::kOn) acc[3] = sl.acc0[r];
   if (a.alive[r]) {
-    march_forward<S, E, NO_ERT>(a, lut, esl, load_ray(a, r), load_light(a),
-                                acc);
+    if constexpr (SL == Slab::kOn) {
+      march_forward_slab<S, E, NO_ERT>(a, lut, esl, load_slab(a, sl),
+                                       load_ray(a, r), load_light(a), acc);
+    } else {
+      march_forward<S, E, NO_ERT>(a, lut, esl, load_ray(a, r), load_light(a),
+                                  acc);
+    }
   }
   reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-template <Shade S, Esl E, bool NO_ERT>
+template <Shade S, Esl E, Slab SL, bool NO_ERT>
 void launch(const MarchArgs& a, float* out, const EslArgs& esl,
-            cudaStream_t stream) {
-  march_fwd_kernel<S, E, NO_ERT>
-      <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out, esl);
+            const SlabArgs& sl, cudaStream_t stream) {
+  march_fwd_kernel<S, E, SL, NO_ERT>
+      <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out, esl, sl);
 }
 
-template <Shade S, Esl E>
+template <Shade S, Esl E, Slab SL>
 void launch_ert(const MarchArgs& a, float* out, const EslArgs& esl,
-                bool no_ert, cudaStream_t s) {
-  no_ert ? launch<S, E, true>(a, out, esl, s)
-         : launch<S, E, false>(a, out, esl, s);
+                const SlabArgs& sl, bool no_ert, cudaStream_t s) {
+  no_ert ? launch<S, E, SL, true>(a, out, esl, sl, s)
+         : launch<S, E, SL, false>(a, out, esl, sl, s);
 }
 
-template <Shade S>
+template <Shade S, Slab SL>
 void launch_esl(const MarchArgs& a, float* out, const EslArgs& esl,
-                bool no_ert, cudaStream_t s) {
-  esl.words ? launch_ert<S, Esl::kOn>(a, out, esl, no_ert, s)
-            : launch_ert<S, Esl::kOff>(a, out, esl, no_ert, s);
+                const SlabArgs& sl, bool no_ert, cudaStream_t s) {
+  esl.words ? launch_ert<S, Esl::kOn, SL>(a, out, esl, sl, no_ert, s)
+            : launch_ert<S, Esl::kOff, SL>(a, out, esl, sl, no_ert, s);
 }
 
 }  // namespace
@@ -96,25 +113,33 @@ void launch_esl(const MarchArgs& a, float* out, const EslArgs& esl,
 // Launches the march on `stream` and returns cudaGetLastError() as an int.
 // `shade` is 0 (none), 1 (the diffuse tap) or 2 (phong). `esl_words` is
 // the packed ESL grid (u32[32 * 32]) and `esl_block` its block edge in
-// voxels, or null and 0 to march every sample. Shapes, types and
+// voxels, or null and 0 to march every sample. `acc0` (f32[N]) is the slab
+// mode's seed and `full_d` the whole volume's depth, z_off in scal[5]; a
+// null `acc0` marches the volume whole. The slab mode has no phong (as in
+// volrt, diff_v3.py:1448): the wrapper refuses it. Shapes, types and
 // contiguity are checked by the Python wrapper.
 extern "C" int volrt_march_fwd(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
     const void* tf, const void* scal, void* out, int n, int width,
     float step, int max_steps, int shade, int no_ert, const void* esl_words,
-    int esl_block, void* stream) {
+    int esl_block, const void* acc0, int full_d, void* stream) {
   const MarchArgs a = make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                       tf, scal, n, width, step, max_steps);
   const EslArgs esl = make_esl_args(esl_words, esl_block);
+  const SlabArgs sl = make_slab_args(acc0, nullptr, full_d);
   float* dst = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (shade == 2) {
-    launch_esl<Shade::kPhong>(a, dst, esl, no_ert, s);
+  if (acc0) {
+    if (shade == 2) return static_cast<int>(cudaErrorInvalidValue);
+    shade ? launch_esl<Shade::kDiffuse, Slab::kOn>(a, dst, esl, sl, no_ert, s)
+          : launch_esl<Shade::kNone, Slab::kOn>(a, dst, esl, sl, no_ert, s);
+  } else if (shade == 2) {
+    launch_esl<Shade::kPhong, Slab::kOff>(a, dst, esl, sl, no_ert, s);
   } else if (shade) {
-    launch_esl<Shade::kDiffuse>(a, dst, esl, no_ert, s);
+    launch_esl<Shade::kDiffuse, Slab::kOff>(a, dst, esl, sl, no_ert, s);
   } else {
-    launch_esl<Shade::kNone>(a, dst, esl, no_ert, s);
+    launch_esl<Shade::kNone, Slab::kOff>(a, dst, esl, sl, no_ert, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,8 +58,12 @@ class DiffScene(nn.Module):
     def __init__(self, density: torch.Tensor, tf_base: torch.Tensor,
                  ray_step: float):
         super().__init__()
-        self.density = nn.Parameter(density.to(torch.float32).contiguous())
-        self.tf_base = nn.Parameter(tf_base.to(torch.float32).contiguous())
+        # Copies: training updates the leaves in place, and must not write
+        # into the arrays or tensors the scene was made from.
+        self.density = nn.Parameter(
+            density.detach().to(torch.float32, copy=True).contiguous())
+        self.tf_base = nn.Parameter(
+            tf_base.detach().to(torch.float32, copy=True).contiguous())
         self.ray_step = float(ray_step)
 
     def premult_tf(self) -> torch.Tensor:

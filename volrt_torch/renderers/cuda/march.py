@@ -5,10 +5,11 @@ Hand-written CUDA kernels, one thread per ray. Three replace kernels of
 each with ESL and without, f32):
 
 - :func:`march_fwd` (``csrc/march_fwd.cu``): ``_fwd_kernel``, the forward
-  march;
+  march, also in its slab mode (``slab=``: one Z-slab of a deeper volume,
+  seeded with the opacity in front of it);
 - :func:`march_bwd` (``csrc/march_bwd.cu``): ``_bwd_kernel``, the analytic
   backward, a replay march that scatters ``d_density`` and
-  ``d_premult_tf``;
+  ``d_premult_tf`` (and in slab mode gives the seed's cotangent);
 - :func:`l2_step` (``csrc/l2_step.cu``): ``_fused_kernel``, the forward,
   the mean-square loss's cotangent and the backward in one launch.
 
@@ -103,12 +104,15 @@ _TRI_ARGTYPES = _RAY_ARGTYPES + [_P, _I, _I, _F, _I, _I, _I, _I, _P]
 _BLOCKED_ARGTYPES = _FWD_ARGTYPES[:-1] + [_I, _P]
 # The v3 kernels' ESL grid after their other arguments: words, block.
 _ESL_ARGTYPES = [_P, _I]
-# ..., out, n, width, step, max_steps, shade, no_ert, esl, stream
-_V3_FWD_ARGTYPES = _FWD_ARGTYPES[:-1] + _ESL_ARGTYPES + [_P]
+# ..., out, n, width, step, max_steps, shade, no_ert, esl, acc0, full_d,
+# stream
+_V3_FWD_ARGTYPES = _FWD_ARGTYPES[:-1] + _ESL_ARGTYPES + [_P, _I, _P]
 # ..., image in, image or cotangent, d_vol, d_tf, n, width, step,
 # max_steps, shade, no_ert, need_dtf, need_dvol, esl, stream
 _GRAD_ARGTYPES = _RAY_ARGTYPES + [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
                                   _I] + _ESL_ARGTYPES + [_P]
+# march_bwd's: ..., esl, acc0, dacc0, full_d, stream
+_BWD_ARGTYPES = _GRAD_ARGTYPES[:-1] + [_P, _P, _I, _P]
 
 
 def max_steps(ray_step: float) -> int:
@@ -158,18 +162,30 @@ def check_volume_shape(shape, any_size: bool) -> None:
 def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
            volume_dtype: torch.dtype = torch.float32, shade: bool = False,
            phong: bool = False, esl=None, any_size: bool = False,
-           **images) -> None:
+           slab=None, **images) -> None:
     """Refuse what the kernels do not take. ``density`` is the volume, of
     ``volume_dtype``: under 2^31 voxels (32-bit voxel offsets), unless
     ``any_size`` (a kernel with a 64-bit instance, which takes any volume
     whose edges lie under 2^22 voxels and whose ``H * W`` slice under 2^31).
     ``shade`` and ``phong`` are the shading modes asked for, of which a
     kernel takes one at most. ``esl`` is ``None`` or the v3 kernels' ESL
-    grid ``(words, block)``. ``images`` are further ``f32[N, 4]`` tensors
-    in raster order (an image, a cotangent, a target), by name."""
+    grid ``(words, block)``. ``slab`` is ``None`` or the slab mode's
+    ``(acc0, full_d)`` (:func:`march_fwd`), which takes no phong; the
+    offset guard reads the slab's own shape. ``images`` are further
+    ``f32[N, 4]`` tensors in raster order (an image, a cotangent, a
+    target), by name."""
     if shade and phong:
         raise ValueError("phong composes with no diffuse tap (shade)")
     n = o.shape[0] if o.dim() == 2 else -1
+    if slab is not None:
+        if phong:
+            raise NotImplementedError(
+                "the slab mode has no phong, as in volrt (diff_v3.py:1448, "
+                "2920): render phong volume-sharded with backend='xla'")
+        acc0, full_d = slab
+        if not (isinstance(full_d, int) and full_d >= 1):
+            raise ValueError(f"full_d must be an int >= 1, got {full_d!r}")
+        images["acc0"] = acc0
     want = {
         "o": (o, torch.float32, (n, 3)),
         "d": (d, torch.float32, (n, 3)),
@@ -181,7 +197,7 @@ def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
         "scal": (scal, torch.float32, (8,)),
     }
     for name, t in images.items():
-        want[name] = (t, torch.float32, (n, 4))
+        want[name] = (t, torch.float32, (n,) if name == "acc0" else (n, 4))
     if esl is not None:
         words, block = esl
         want["esl words"] = (words, torch.int32, (ESL_WORDS,))
@@ -225,6 +241,53 @@ def _esl_pointers(esl) -> tuple:
     """The kernels' ``esl_words`` and ``esl_block`` for ``esl``: null and 0
     without ESL."""
     return (None, 0) if esl is None else (esl[0].data_ptr(), esl[1])
+
+
+def slab_cell(shape: tuple[int, int, int], slab: tuple[float, int],
+              pos: torch.Tensor) -> tuple:
+    """The trilinear cell ``(i0, i1, frac)`` of a sample at ``pos (..., 3)``
+    in a Z-slab of ``shape (L, H, W)`` that holds rows ``z_off .. z_off + L
+    - 1`` of a volume ``full_d`` deep (``slab = (z_off, full_d)``): the whole
+    volume's cell (:func:`sampling.trilinear_cell`), its z taps then moved
+    to the slab's rows and clamped to them, as
+    ``csrc/march_common.cuh:cell_at_slab`` takes it."""
+    z_off, full_d = slab
+    depth, h, w = shape
+    _, (i0, i1, frac) = sampling.trilinear_cell((full_d, h, w), pos)
+    z_off = int(z_off)
+    i0 = torch.cat([i0[..., :2], (i0[..., 2:] - z_off).clamp(0, depth - 1)],
+                   -1)
+    i1 = torch.cat([i1[..., :2], (i1[..., 2:] - z_off).clamp(0, depth - 1)],
+                   -1)
+    return i0, i1, frac
+
+
+def _cells(shape, slab):
+    """``pos -> cell`` of a volume of ``shape``, or of a slab of it
+    (:func:`slab_cell`) where ``slab`` is ``(z_off, full_d)``."""
+    if slab is None:
+        return lambda pos: sampling.trilinear_cell(shape, pos)[1]
+    return lambda pos: slab_cell(shape, slab, pos)
+
+
+def _classify_slab(density, premult_tf, pt, light_pos, kd, cells):
+    """``classify_and_shade`` of a density (trilinear, the lerped TF, the
+    diffuse tap where ``light_pos`` is given) with the cells of ``cells``:
+    the slab mode's per-sample code, in the same operations."""
+    s = sampling.cell_sample(density, cells(pt))
+    color = sampling.tf_lookup_linear(premult_tf, s)
+    if light_pos is None:
+        return color
+    s2 = sampling.cell_sample(density, cells(light_tap(pt, light_pos)))
+    return add_diffuse(color, s2 - s, kd)
+
+
+def _slab_z(scal: torch.Tensor, slab):
+    """``(z_off, full_d)`` of the slab mode's ``slab = (acc0, full_d)``,
+    z_off read from ``scal[5]``, or None."""
+    if slab is None:
+        return None
+    return int(round(float(scal[5]))), slab[1]
 
 
 class EslSkip:
@@ -272,7 +335,7 @@ def _launch(name: str, argtypes: list, device: torch.device, *args) -> None:
 
 def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
               ray_step: float, shade: bool, no_ert: bool, width: int,
-              phong: bool = False, esl=None) -> torch.Tensor:
+              phong: bool = False, esl=None, slab=None) -> torch.Tensor:
     """March N rays through ``density`` and composite them -> ``f32[N, 4]``.
 
     Args:
@@ -294,26 +357,40 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
       esl: ``None``, or ``(words, block)``: skip the samples whose trilinear
         cell lies in empty ESL blocks (:class:`EslSkip`); ``words`` is the
         packed grid ``int32[1024]`` (``core/esl.py:pack_words``) on the
-        rays' device, ``block`` its block edge in voxels.
+        rays' device, ``block`` its block edge in voxels. In slab mode the
+        grid is the whole volume's, and so is each sample's ESL cell.
+      slab: ``None``, or ``(acc0, full_d)``, the slab mode
+        (``volrt``'s ``_fwd_kernel(slab=True)``): ``density`` is rows
+        ``z_off .. z_off + L - 1`` of a volume ``full_d`` deep, ``z_off``
+        (the slab's start less its halo, an integer) in ``scal[5]``; each
+        sample's cell is the whole volume's, moved to the slab's rows
+        (:func:`slab_cell`); ``acc0`` ``f32[N]`` seeds each ray's opacity
+        (the opacity in front of the slab): the output's alpha keeps it,
+        on a dead ray too, and a ray whose seed is over the ERT threshold
+        takes no sample. ``k0`` and ``kfar`` bound the slab's samples
+        (``renderers/diff_v3.py:slab_rays``). No phong.
 
     CPU tensors take :func:`march_fwd_plain`. CUDA tensors launch the
     kernel, building it at first use, and raise if it cannot launch.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           shade=shade, phong=phong, esl=esl)
+           shade=shade, phong=phong, esl=esl, slab=slab)
     if o.device.type == "cpu":
         return march_fwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            phong=phong, esl=esl)
+            phong=phong, esl=esl, slab=slab)
     n = o.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     if n == 0:
         return out
+    acc0, full_d = (None, 0) if slab is None else (slab[0].data_ptr(),
+                                                  slab[1])
     _launch("volrt_march_fwd", _V3_FWD_ARGTYPES, o.device,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             out.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            _shade_mode(shade, phong), int(no_ert), *_esl_pointers(esl))
+            _shade_mode(shade, phong), int(no_ert), *_esl_pointers(esl),
+            acc0, full_d)
     march_fwd.launches += 1
     return out
 
@@ -324,22 +401,25 @@ march_fwd.launches = 0
 def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
                     ray_step: float, shade: bool, no_ert: bool,
                     width: int, phong: bool = False,
-                    esl=None) -> torch.Tensor:
+                    esl=None, slab=None) -> torch.Tensor:
     """The plain torch version of :func:`march_fwd`, same arguments.
 
-    All rays of a chunk step in lockstep for ``max_steps(ray_step)`` steps,
-    with masks in place of the kernel's per-ray ``break``; a sample that
-    ESL skips is masked as one past the ray's end is. ``width`` only
-    shapes the kernel's blocks and is unused here. Differentiable with
-    respect to ``density`` and ``premult_tf`` (the tests hold the plain
-    backward to its autograd).
+    All rays of a chunk step in lockstep for ``max_steps(ray_step)`` steps
+    (in slab mode for as many as the slab's longest ray takes), with masks
+    in place of the kernel's per-ray ``break``; a sample that ESL skips is
+    masked as one past the ray's end is. ``width`` only shapes the
+    kernel's blocks and is unused here. Differentiable with respect to
+    ``density`` and ``premult_tf`` (the tests hold the plain backward to
+    its autograd), and in slab mode to the seed.
     """
     del width
-    skip = None if esl is None else EslSkip(esl, density.shape)
+    zs = _slab_z(scal, slab)
+    shape = density.shape if zs is None else (zs[1], *density.shape[1:])
+    skip = None if esl is None else EslSkip(esl, shape)
     out = torch.empty((o.shape[0], 4), dtype=torch.float32, device=o.device)
-    steps = torch.arange(max_steps(ray_step), dtype=torch.float32,
-                         device=o.device) * ray_step
+    steps = _plain_steps(k0, kfar, alive, ray_step, zs is not None)
     thr, kd, light_pos = scal[0], scal[1], scal[2:5]
+    cells = _cells(density.shape, zs)
     for lo in range(0, o.shape[0], PLAIN_CHUNK):
         sl = slice(lo, lo + PLAIN_CHUNK)
         oc, dc, kc, kf = o[sl], d[sl], k0[sl], kfar[sl]
@@ -347,15 +427,24 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
         live = alive[sl].clone()
         acc = torch.zeros((oc.shape[0], 4), dtype=torch.float32,
                           device=o.device)
+        if slab is not None:
+            acc = torch.cat([acc[:, :3], slab[0][sl, None]], -1)
+            if not no_ert:
+                live &= ~(acc[:, 3] > thr)
         for step in steps:
             k = kc + step
             active = live & (k <= kf)
             pt = oc + dc * k[:, None]
             if skip is not None:
                 active = active & ~skip(pt)
-            color = classify_and_shade(
-                density, premult_tf, pt,
-                light_pos=light_pos if shade else None, light_kd=kd)
+            if zs is None:
+                color = classify_and_shade(
+                    density, premult_tf, pt,
+                    light_pos=light_pos if shade else None, light_kd=kd)
+            else:
+                color = _classify_slab(density, premult_tf, pt,
+                                       light_pos if shade else None, kd,
+                                       cells)
             if phong:
                 color = phong_v3(density, color, pt, eye, light_pos, kd)[0]
             acc = torch.where(active[:, None], composite(acc, color), acc)
@@ -363,6 +452,20 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
                 live &= ~(active & (acc[:, 3] > thr))
         out[sl] = acc
     return out
+
+
+def _plain_steps(k0, kfar, alive, ray_step: float, short: bool
+                 ) -> torch.Tensor:
+    """The lockstep loop's ray parameters past ``k0``: ``max_steps``
+    of them, or with ``short`` only as many as the longest live ray can
+    take (``(kfar - k0) / step`` and two more for rounding): a slab's rays
+    cross a part of the volume."""
+    n = max_steps(ray_step)
+    if short:
+        span = torch.where(alive, kfar - k0, 0.0)
+        n = min(n, int(span.max().item() / ray_step) + 2) if span.numel() \
+            else 0
+    return torch.arange(n, dtype=torch.float32, device=k0.device) * ray_step
 
 
 def _rsqrt(x: torch.Tensor) -> torch.Tensor:
@@ -653,42 +756,53 @@ def march_blocked_plain(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
 def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
               ray_step: float, shade: bool, no_ert: bool, width: int,
               need_dtf: bool = True, need_dvol: bool = True,
-              phong: bool = False,
-              esl=None) -> tuple[torch.Tensor, torch.Tensor]:
+              phong: bool = False, esl=None, slab=None) -> tuple:
     """The backward of :func:`march_fwd`
-    -> ``(d_density f32[D, H, W], d_premult_tf f32[TF_SIZE, 4])``.
+    -> ``(d_density f32[D, H, W], d_premult_tf f32[TF_SIZE, 4])``, and in
+    slab mode also ``dacc0 f32[N]``, the seed's cotangent.
 
     The first eight arguments and the keywords are the forward's (``esl``
-    too: the replay skips the forward's samples); ``out``
+    too: the replay skips the forward's samples; ``slab`` the same
+    ``(acc0, full_d)``); ``out``
     is the image it returned and ``g`` the cotangent of that image, both
     ``f32[N, 4]``. A ray that is not alive, or whose cotangent is zero,
     sends no gradient. ``need_dtf=False`` / ``need_dvol=False`` skip that
-    leaf's scatter and return zeros for it.
+    leaf's scatter and return zeros for it. In slab mode the replay starts
+    from the seed, the suffix total leaves the seed's share ``g.a acc0``
+    out, and ``dacc0 = g.a - P / max(1 - acc0, 1e-6)`` for every ray, ``P``
+    the replay's prefix of contributions (``volrt``'s ``_bwd_kernel(slab=
+    True)``, ``diff_v3.py:1503-1506, 2358-2366``).
 
     CPU tensors take :func:`march_bwd_plain`. CUDA tensors launch the
     kernel or raise. Both gradients are zero-filled here and accumulated
     into with atomics, so two runs on the card differ by rounding.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           shade=shade, phong=phong, esl=esl, out=out, g=g)
+           shade=shade, phong=phong, esl=esl, slab=slab, out=out, g=g)
     if o.device.type == "cpu":
         return march_bwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong, esl=esl)
+            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong, esl=esl,
+            slab=slab)
     d_density = torch.zeros_like(density)
     d_tf = torch.zeros_like(premult_tf)
     n = o.shape[0]
-    if n == 0 or not (need_dtf or need_dvol):
-        return d_density, d_tf
-    _launch("volrt_march_bwd", _GRAD_ARGTYPES, o.device,
+    dacc0 = None if slab is None else torch.empty_like(slab[0])
+    grads = (d_density, d_tf) + (() if slab is None else (dacc0,))
+    if n == 0 or (slab is None and not (need_dtf or need_dvol)):
+        return grads
+    acc0, full_d = (None, 0) if slab is None else (slab[0].data_ptr(),
+                                                  slab[1])
+    _launch("volrt_march_bwd", _BWD_ARGTYPES, o.device,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             out.data_ptr(), g.data_ptr(), d_density.data_ptr(),
             d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
             _shade_mode(shade, phong), int(no_ert), int(need_dtf),
-            int(need_dvol), *_esl_pointers(esl))
+            int(need_dvol), *_esl_pointers(esl), acc0,
+            None if dacc0 is None else dacc0.data_ptr(), full_d)
     march_bwd.launches += 1
-    return d_density, d_tf
+    return grads
 
 
 march_bwd.launches = 0
@@ -743,25 +857,46 @@ class PlainReplay:
         self.chan = torch.arange(4, device=density.device)
 
     def start(self, g: torch.Tensor, out: torch.Tensor,
-              d: torch.Tensor | None = None) -> None:
+              d: torch.Tensor | None = None,
+              acc0: torch.Tensor | None = None) -> None:
         """Begin a chunk of rays with cotangent ``g`` of the image ``out``
-        (and, in phong mode, directions ``d``)."""
+        (and, in phong mode, directions ``d``; in slab mode the seed
+        ``acc0``, whose share ``g.a acc0`` of ``out`` the suffix total
+        leaves out)."""
         self.g = g
         self.eye = eye_dir(d) if self.phong else None
         self.big_g = (g * out).sum(-1)
         self.acc_a = torch.zeros_like(self.big_g)
         self.prefix = torch.zeros_like(self.big_g)
+        if acc0 is not None:
+            self.big_g = self.big_g - g[:, 3] * acc0
+            self.acc_a = acc0.clone()
 
-    def sample(self, pt: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    def seed_cotangent(self, acc0: torch.Tensor) -> torch.Tensor:
+        """The slab mode's ``dacc0 = g.a - P / max(1 - acc0, 1e-6)`` of
+        the chunk's rays, after their last sample."""
+        return self.g[:, 3] - self.prefix / (1.0 - acc0).clamp(min=1e-6)
+
+    def sample(self, pt: torch.Tensor, active: torch.Tensor,
+               cells=None) -> torch.Tensor:
         """Replay the sample at ``pt (N, 3)`` for the rays that are
-        ``active`` and return the opacity composited so far."""
+        ``active`` and return the opacity composited so far. ``cells``
+        (``pos -> cell``) gives a slab's cells (:func:`slab_cell`) in
+        place of the density's own."""
         density, premult_tf, gc = self.density, self.premult_tf, self.g
         flat_dv, flat_dtf = self.d_density.view(-1), self.d_tf.view(-1)
         kd = self.kd
-        s = sampling.sample_trilinear_f(density, pt)
-        color = classify_and_shade(
-            density, premult_tf, pt,
-            light_pos=self.light_pos if self.shade else None, light_kd=kd)
+        if cells is None:
+            s = sampling.sample_trilinear_f(density, pt)
+            color = classify_and_shade(
+                density, premult_tf, pt,
+                light_pos=self.light_pos if self.shade else None,
+                light_kd=kd)
+        else:
+            s = sampling.cell_sample(density, cells(pt))
+            color = _classify_slab(
+                density, premult_tf, pt,
+                self.light_pos if self.shade else None, kd, cells)
         if self.phong:
             color, terms = phong_v3(density, color, pt, self.eye,
                                     self.light_pos, kd)
@@ -804,11 +939,11 @@ class PlainReplay:
                 ds2 = torch.where(gate, kd * dcol[:, :3].sum(-1), 0.0)
                 ds = ds - ds2
                 light_dir = normalize(self.light_pos - pt)
-                idx, wgt = sampling.trilinear_taps(
-                    density.shape, pt + light_dir * SHADE_LIGHT_OFFSET)
+                idx, wgt = self._taps(pt + light_dir * SHADE_LIGHT_OFFSET,
+                                      cells)
                 flat_dv.index_add_(0, idx.reshape(-1),
                                    (wgt * ds2[:, None]).reshape(-1))
-            idx, wgt = sampling.trilinear_taps(density.shape, pt)
+            idx, wgt = self._taps(pt, cells)
             flat_dv.index_add_(0, idx.reshape(-1),
                                (wgt * ds[:, None]).reshape(-1))
             if self.phong:
@@ -821,6 +956,13 @@ class PlainReplay:
         self.acc_a = self.acc_a + color[:, 3] * t_in
         return self.acc_a
 
+    def _taps(self, pos: torch.Tensor, cells) -> tuple:
+        """The eight taps of the sample at ``pos``: the density's own
+        cell's, or ``cells``'."""
+        if cells is None:
+            return sampling.trilinear_taps(self.density.shape, pos)
+        return sampling.cell_taps(self.density.shape, cells(pos))
+
     def gradients(self) -> tuple[torch.Tensor, torch.Tensor]:
         """``(d_density, d_premult_tf)``, both f32."""
         return self.d_density, self.d_tf.to(torch.float32)
@@ -830,37 +972,49 @@ def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
                     *, ray_step: float, shade: bool, no_ert: bool,
                     width: int, need_dtf: bool = True,
                     need_dvol: bool = True, phong: bool = False,
-                    esl=None) -> tuple[torch.Tensor, torch.Tensor]:
+                    esl=None, slab=None) -> tuple:
     """The plain torch version of :func:`march_bwd`, same arguments.
 
     The analytic backward of ``volrt/renderers/pallas/diff_v3.py:
     1907-1957``, one lockstep step at a time (:class:`PlainReplay`), on the
     forward's lattice ``k0 + i*ray_step``, where a sample that ESL skips
-    is replayed as inactive: its colour is 0 and it adds nothing.
+    is replayed as inactive: its colour is 0 and it adds nothing. In slab
+    mode the replay starts from the seed and ``dacc0`` comes third.
     """
     del width
-    skip = None if esl is None else EslSkip(esl, density.shape)
+    zs = _slab_z(scal, slab)
+    shape = density.shape if zs is None else (zs[1], *density.shape[1:])
+    skip = None if esl is None else EslSkip(esl, shape)
+    cells = None if zs is None else _cells(density.shape, zs)
     replay = PlainReplay(density, premult_tf, scal, shade=shade,
                          need_dtf=need_dtf, need_dvol=need_dvol,
                          in_range=True, phong=phong)
-    steps = torch.arange(max_steps(ray_step), dtype=torch.float32,
-                         device=o.device) * ray_step
+    steps = _plain_steps(k0, kfar, alive, ray_step, zs is not None)
     thr = scal[0]
+    dacc0 = []
     for c0 in range(0, o.shape[0], PLAIN_CHUNK):
         sl = slice(c0, c0 + PLAIN_CHUNK)
         oc, dc, kc, kf = o[sl], d[sl], k0[sl], kfar[sl]
         live = alive[sl].clone()
-        replay.start(g[sl], out[sl], dc)
+        seed = None if slab is None else slab[0][sl]
+        replay.start(g[sl], out[sl], dc, seed)
+        if seed is not None and not no_ert:
+            live &= ~(seed > thr)
         for step in steps:
             k = kc + step
             active = live & (k <= kf)
             pt = oc + dc * k[:, None]
             if skip is not None:
                 active = active & ~skip(pt)
-            acc_a = replay.sample(pt, active)
+            acc_a = replay.sample(pt, active, cells)
             if not no_ert:
                 live &= ~(active & (acc_a > thr))
-    return replay.gradients()
+        if seed is not None:
+            dacc0.append(replay.seed_cotangent(seed))
+    grads = replay.gradients()
+    if slab is None:
+        return grads
+    return grads + (torch.cat(dacc0) if dacc0 else slab[0].clone(),)
 
 
 def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
@@ -931,28 +1085,36 @@ class MarchFunction(torch.autograd.Function):
     backward (the counterpart of ``render_tiles_v3``'s custom_vjp).
 
     ``MarchFunction.apply(density, premult_tf, o, d, k0, kfar, alive, scal,
-    ray_step, shade, no_ert, width, phong, esl)`` returns the image
-    ``f32[N, 4]``.
-    Gradients flow to ``density`` and ``premult_tf`` only; a leaf that does
-    not require one skips its scatter (``need_dtf`` / ``need_dvol``).
+    ray_step, shade, no_ert, width[, phong, esl[, acc0, full_d]])`` returns
+    the image ``f32[N, 4]``; ``acc0`` and ``full_d`` are the slab mode's
+    (:func:`march_fwd`'s ``slab``).
+    Gradients flow to ``density``, ``premult_tf`` and ``acc0`` only; a leaf
+    that does not require one skips its scatter (``need_dtf`` /
+    ``need_dvol``).
     """
 
     @staticmethod
     def forward(ctx, density, premult_tf, o, d, k0, kfar, alive, scal,
-                ray_step, shade, no_ert, width, phong=False, esl=None):
+                ray_step, shade, no_ert, width, phong=False, esl=None,
+                acc0=None, full_d=None):
+        slab = None if acc0 is None else (acc0, full_d)
         ctx.kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert,
                       width=width, phong=phong, esl=esl)
+        ctx.full_d = full_d
         out = march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal,
-                        **ctx.kw)
+                        slab=slab, **ctx.kw)
         ctx.save_for_backward(o, d, k0, kfar, alive, density, premult_tf,
-                              scal, out)
+                              scal, out, acc0)
         return out
 
     @staticmethod
     def backward(ctx, g):
         need_dvol, need_dtf = ctx.needs_input_grad[:2]
-        d_density, d_tf = march_bwd(
-            *ctx.saved_tensors, g.contiguous(), need_dtf=need_dtf,
-            need_dvol=need_dvol, **ctx.kw)
-        return (d_density if need_dvol else None,
-                d_tf if need_dtf else None) + (None,) * 12
+        *saved, acc0 = ctx.saved_tensors
+        slab = None if acc0 is None else (acc0, ctx.full_d)
+        grads = march_bwd(*saved, g.contiguous(), need_dtf=need_dtf,
+                          need_dvol=need_dvol, slab=slab, **ctx.kw)
+        dacc0 = grads[2] if slab is not None else None
+        return (grads[0] if need_dvol else None,
+                grads[1] if need_dtf else None) + (None,) * 12 + (
+                    dacc0, None)

@@ -1,7 +1,8 @@
 """The differentiable rung-5 render on the card's kernels: the counterpart
 of the scene-level API of ``volrt/renderers/pallas/diff_v3.py``
 (``render_view_v3``, ``render_image_v3``, ``render_image_v3_with_ovf``,
-``l2_loss_grads_v3_onepass``).
+``l2_loss_grads_v3_onepass``, and ``render_slab_v3``, the volume-sharded
+mode's march of one Z-slab).
 
 The ray setup is the forward render's (``fwd_v3.ray_args``). The march
 runs under autograd through :class:`MarchFunction` (forward kernel, then
@@ -13,7 +14,9 @@ from __future__ import annotations
 
 import torch
 
+from volrt_torch.constants import SHADE_KD_GATE
 from volrt_torch.core import esl as esl_mod
+from volrt_torch.core import rays as rays_mod
 from volrt_torch.core import tf as tf_mod
 from volrt_torch.core.types import View
 from volrt_torch.diff.render import DiffScene, scene_empty_grid
@@ -149,3 +152,110 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
             -1, keepdim=True)
         d_base = torch.cat([d_rgb, d_a], dim=-1)
     return loss, {"density": d_density, "tf_base": d_base}
+
+
+def slab_rays(view: View, z_start: int, slab_d: int, full_d: int,
+              ray_step: float, device: torch.device
+              ) -> tuple[torch.Tensor, ...]:
+    """The rays of one Z-slab, rows ``z_start .. z_start + slab_d - 1`` of a
+    volume ``full_d`` deep -> ``(o, d, k0, kfar, alive)`` for the march
+    kernels, in raster order on ``device``.
+
+    Samples stay on each ray's lattice ``knear + j*ray_step`` of the whole
+    volume (``volrt``'s ``render_slab_v3``, ``diff_v3.py:3341-3353``), and
+    every index ``j`` is marched by exactly one slab: the slab takes ``j``
+    in ``[J_in, J_out)``, ``J = ceil(max(k - knear, 0) / ray_step)`` of the
+    ray's parameters ``k`` at the slab's two z planes, so that one plane
+    gives the ``J_out`` of one slab and the ``J_in`` of the next, computed
+    alike; the ray's exit ``kfar`` bounds it too, and alone bounds the slab
+    that holds the volume's far face in the ray's direction, whose samples
+    run up to ``k <= kfar`` as the whole march's do (a sample on the far
+    face included). ``volrt`` keeps the samples ``k <= k_out`` in one slab
+    and starts the next at ``ceil``, so a sample that lies on a plane is
+    taken by both (``ROADMAP.md``, queue 3). The range goes to the kernels
+    as ``k0 = knear + J_in*ray_step`` and ``kfar = min(kfar, k0 + (J_out -
+    J_in - 1)*ray_step)``, the last sample's parameter in the kernels' own
+    rounding, so the kernels' test ``k <= kfar`` stops at the count and
+    compares no two floats at a plane."""
+    origins, directions = rays_mod.get_rays(view)
+    o = origins.reshape(-1, 3).contiguous()
+    d = directions.reshape(-1, 3).contiguous()
+    knear, kfar, hit = rays_mod.intersect_aabb(o, d)
+    f32 = dict(dtype=torch.float32, device=device)
+    # Divisors as tensors: torch divides a CUDA tensor by a Python number
+    # as a product with its reciprocal (core/sampling.py).
+    step = torch.full((), ray_step, **f32)
+    depth = torch.full((), float(full_d), **f32)
+    planes = [-1.0 + (2.0 * torch.full((), float(z), **f32)) / depth
+              for z in (z_start, z_start + slab_d)]
+    dz = torch.where(d[:, 2] == 0.0, 1e-5, d[:, 2])
+    ka, kb = ((p - o[:, 2]) / dz for p in planes)
+    k_in = torch.maximum(torch.minimum(ka, kb), knear)
+    k_out = torch.maximum(ka, kb)
+    j_in, j_out = (torch.ceil((k - knear).clamp(min=0.0) / step)
+                   for k in (k_in, k_out))
+    count = j_out - j_in
+    k0 = knear + j_in * step
+    # The slab that holds the far face: z = +1 for a ray going up z, z = -1
+    # going down (a zero dz counts as 1e-5, as above).
+    far = torch.zeros_like(hit)
+    if z_start + slab_d == full_d:
+        far = far | (dz > 0.0)
+    if z_start == 0:
+        far = far | (dz < 0.0)
+    kend = torch.where(far, kfar,
+                       torch.minimum(kfar, k0 + (count - 1.0) * step))
+    alive = hit & (knear <= kfar) & (far | (count > 0.0)) & (k0 <= kend)
+    return o, d, k0.contiguous(), kend.contiguous(), alive
+
+
+def render_slab_v3(slab_density: torch.Tensor, premult_tf: torch.Tensor,
+                   ray_step: float, view: View, z_start: int, full_d: int,
+                   ray_threshold: float = 0.95,
+                   acc0: torch.Tensor | None = None, window=None,
+                   fast: bool = False, esl_grid=None, halo: int = 1,
+                   shaded: bool = False, light_kd: float = 0.0
+                   ) -> tuple[torch.Tensor, float]:
+    """March one Z-slab's samples of the whole volume's lattice through the
+    march kernels in their slab mode -> ``(f32[H, W, 4], overflow 0)``.
+
+    ``slab_density (sd + 2*halo, H, W)`` holds rows ``z_start - halo ..
+    z_start + sd + halo - 1`` of a volume ``full_d`` deep (edge rows
+    clamp-padded: ``dist/volume_sharded.py:shard_slabs``). ``acc0 (H, W)``,
+    or zeros, seeds each ray's opacity, the opacity in front of the slab;
+    the returned alpha includes it. The slab's samples are
+    :func:`slab_rays`': each lattice index of the whole volume in exactly
+    one slab. ``shaded`` takes the diffuse tap with ``light_kd`` and the
+    view's light, whose reach the halo must cover
+    (``volume_sharded.shading_halo``). ``esl_grid = (empty bool[32, 32,
+    32], block)``, the whole volume's ESL grid, skips the samples whose
+    whole-volume cell lies in empty blocks. Differentiable with respect to
+    ``slab_density``, ``premult_tf`` and ``acc0`` (:class:`MarchFunction`:
+    the backward kernel gives the seed's cotangent). ``window`` has no role
+    (the kernels plan none); ``fast`` raises ``NotImplementedError``. The
+    counterpart of ``volrt``'s ``render_slab_v3`` (``diff_v3.py:3292``),
+    but for the partition of the samples (:func:`slab_rays`)."""
+    del window
+    check_modes(fast, shaded)
+    sdl, h, w = slab_density.shape
+    dev = slab_density.device
+    o, d, k0, kend, alive = slab_rays(view, z_start, sdl - 2 * halo, full_d,
+                                      ray_step, dev)
+    wv, hv = view.dims
+    if acc0 is None:
+        acc0 = torch.zeros(hv * wv, dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    kd = light_kd if shaded else 0.0
+    scal = torch.cat([torch.full((1,), ray_threshold, **f32),
+                      torch.full((1,), kd, **f32),
+                      view.light_pos.to(torch.float32),
+                      torch.full((1,), float(z_start - halo), **f32),
+                      torch.zeros(2, **f32)])
+    esl = None
+    if esl_grid is not None:
+        esl = (esl_mod.pack_words(esl_grid[0]), esl_grid[1])
+    colors = MarchFunction.apply(
+        slab_density, premult_tf.contiguous(), o, d, k0, kend, alive, scal,
+        ray_step, kd > SHADE_KD_GATE, ray_threshold >= 1.0, wv, False, esl,
+        acc0.reshape(-1).contiguous(), full_d)
+    return colors.reshape(hv, wv, 4), 0.0

@@ -47,11 +47,23 @@ def _params(scene: DiffScene) -> tuple[torch.Tensor, torch.Tensor]:
     return scene.density, scene.tf_base
 
 
-def save(path: str, state: TrainState) -> None:
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def save(path: str, state: TrainState, gather=None,
+         write: bool = True) -> None:
     """Write ``state`` to the ``.npz`` file ``path``, through a temporary
-    file and ``os.replace``, as ``volrt`` writes it."""
+    file and ``os.replace``, as ``volrt`` writes it.
+
+    Volume-sharded training (``fit(volume_sharded=True)``) holds one slab
+    of the density a rank: ``gather`` maps a slab-shaped tensor (the
+    density, its Adam moments) to the whole volume's host array, a
+    collective that every rank calls, and only the rank with ``write``
+    writes the file."""
     check_path(path)
     params = _params(state.scene)
+    whole = gather or _host  # the density and its moments
     leaves = []
     for leaf in ADAM_LEAVES:
         if leaf == "count":
@@ -60,10 +72,14 @@ def save(path: str, state: TrainState) -> None:
         key, i = leaf
         p = params[i]
         moment = state.optimizer.state.get(p, {}).get(key)
-        leaves.append(np.zeros(tuple(p.shape), np.float32) if moment is None
-                      else moment.detach().cpu().numpy())
+        host = whole if i == 0 else _host
+        leaves.append(host(torch.zeros_like(p) if moment is None
+                           else moment))
+    density = whole(state.scene.density)
+    if not write:
+        return
     arrays = {
-        "density": state.scene.density.detach().cpu().numpy(),
+        "density": density,
         "tf_base": state.scene.tf_base.detach().cpu().numpy(),
         "step": np.asarray(state.step, np.int32),
         "meta": np.frombuffer(json.dumps({
@@ -78,11 +94,13 @@ def save(path: str, state: TrainState) -> None:
     os.replace(tmp + ".npz", path)
 
 
-def restore(path: str, state: TrainState) -> TrainState:
+def restore(path: str, state: TrainState, rows: slice = slice(None)
+            ) -> TrainState:
     """Read the ``.npz`` file ``path`` into ``state``: the leaves are
     copied into its scene in place (their shapes must match) and the
     scene takes the file's ``ray_step``; the optimizer's state and the step
-    are the file's. Returns ``state``."""
+    are the file's. ``rows`` cuts the density and its moments to a slab's
+    rows (volume-sharded training). Returns ``state``."""
     check_path(path)
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"]).decode())
@@ -91,11 +109,12 @@ def restore(path: str, state: TrainState) -> TrainState:
                 f"{path}: {meta['n_opt_leaves']} optimizer leaves, not "
                 f"optax.adam's {len(ADAM_LEAVES)}")
         opt = [z[f"opt_{i}"] for i in range(len(ADAM_LEAVES))]
+        opt[1], opt[3] = opt[1][rows], opt[3][rows]
         scene = state.scene
         params = _params(scene)
         with torch.no_grad():
             for p, name in zip(params, ("density", "tf_base")):
-                arr = z[name]
+                arr = z[name][rows] if name == "density" else z[name]
                 if tuple(arr.shape) != tuple(p.shape):
                     raise ValueError(f"{path}: {name} is {arr.shape}, the "
                                      f"scene's {tuple(p.shape)}")
