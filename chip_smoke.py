@@ -191,7 +191,26 @@ Phases, each synchronised with the card, none catching its own failure:
     the bit; (e) the slab kernels' times, one rank at a time, beside the
     slab-off kernels' of phases 4 and 7, their bounds, and the scan's and
     the segments' ``all_reduce``'s ms. Rows 1 and 2 of the ``kernels``
-    line gain a ``slab`` entry.
+    line gain a ``slab`` entry;
+22. the fast mode (``volrt``'s ``fast=True``: the density stored as bf16,
+    each (z, y) tap weight product rounded to bf16) of the three v3
+    kernels, their bf16 instances. At 32^3 / 64^2 against their plain
+    versions on the same bf16 density, in every mode of phases 3, 6, 15
+    and 16 (unshaded, diffuse, phong; ERT off and 0.95; ESL off and on,
+    the grid from the f32 density) on the synthetic scene (orthographic,
+    perspective, phase 9's grid poses), a sparse blob, the noise density
+    and the ragged 61 x 47 viewport, the backwards in their three
+    ``need_*`` variants, the bf16 launch counters read each time:
+    unshaded images equal to the bit, the others at their phases'
+    classes; the slab mode (seeded, unshaded and diffuse, ESL off and on)
+    with its seed's cotangent; the density's gradient f32, holding bits a
+    bf16 rounding drops. Then at full width, the counters reset before
+    and read after each: rung 5's fast frame, the fast one-launch and
+    two-kernel steps; on the step's inputs at 256^3 / 1024^2 (held
+    against the plain versions, images to the bit) and at 512^3 / 1024^2,
+    each kernel's f32 and bf16 instances timed in turns beside their
+    bounds, registers and SASS instructions a sample. Rows 1-3 of the
+    ``kernels`` line gain a ``bf16`` entry.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -216,6 +235,7 @@ _MODULES_AT_START = set(sys.modules)
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -891,14 +911,16 @@ def _cli_fit(argv: list) -> list:
 
 
 def phase_trainer() -> None:
-    l2_step.launches = 0
+    l2_step.launches = l2_step.launches_bf16 = 0
     t0 = time.perf_counter()
     losses = _cli_fit(["--fused", "--train", "both", "--synthetic", "256",
                        "-s", "1024", "1024"])
     print(f"[fit] fused, 256^3/1024^2, train both: losses {losses} in "
           f"{time.perf_counter() - t0:.1f} s with targets, "
-          f"{l2_step.launches} l2_step launches")
+          f"{l2_step.launches} l2_step launches, {l2_step.launches_bf16} of "
+          f"its bf16 instance (the fast mode, as volrt's fused fit)")
     assert l2_step.launches == 8, "the fused fit is not one launch per step"
+    assert l2_step.launches_bf16 == 8, "the fused fit is not in fast mode"
 
     for fn in (march_fwd, march_bwd, l2_step):
         fn.launches = 0
@@ -2995,8 +3017,9 @@ def _dist_pair(pair) -> dict:
                                        ray_threshold=2.0)
     _sync()
     assert l2_step.launches == 1, l2_step.launches
+    # The sharded step's default is the fast mode, as in volrt.
     one, g1 = diff_v3.l2_loss_grads_v3_onepass(scene, view, target,
-                                               ray_threshold=2.0)
+                                               ray_threshold=2.0, fast=True)
     err_loss = abs(float(loss) - float(one)) / float(one)
     assert err_loss <= RTOL_GRAD, f"[dist] (c) loss {loss} against {one}"
     errs = {}
@@ -3136,6 +3159,418 @@ def phase_dist(dev: torch.device, slab_off: dict | None = None) -> dict:
     return entries
 
 
+# The fast mode's variants on the benchmark pose (unshaded, ERT off),
+# beside the f32 ones they are timed against.
+FAST_VARIANTS = {
+    "march_fwd": ("march_fwd_kernel<0,bf16,1>", "march_fwd_kernel<0,1>"),
+    "march_bwd": ("march_bwd_kernel<0,bf16,1,1,1>",
+                  "march_bwd_kernel<0,1,1,1>"),
+    "l2_step": ("l2_step_kernel<0,bf16,1,1,1>", "l2_step_kernel<0,1,1,1>"),
+}
+FAST_WRAPPERS = (march_fwd, march_bwd, l2_step)
+
+
+def _bf16_launches() -> list:
+    return [fn.launches_bf16 for fn in FAST_WRAPPERS]
+
+
+def _fast_case(tag: str, args, kw, tgt, shade: str, worst: dict) -> None:
+    """One case of :func:`_fast_small`: the three kernels' bf16 instances
+    (the backwards in their three need_* variants) against their plain
+    versions on the same bf16 density. Unshaded images equal to the bit,
+    diffuse within ATOL_DIFFUSE, phong's alpha to the bit and its colour
+    within ATOL_PHONG_RGB; the gradients at the classes of phases 6 and
+    15."""
+    assert args[5].dtype == torch.bfloat16
+    rtol = {"unshaded": RTOL_GRAD, "diffuse": RTOL_GRAD_DIFFUSE,
+            "phong": RTOL_GRAD_PHONG}[shade]
+    before = _bf16_launches()
+    out = march_fwd(*args, **kw)
+    g = (out - tgt) * (args[7][6] * args[4][:, None])
+    bwd = [march_bwd(*args, out, g, **kw, **need) for _, need in NEEDS]
+    l2 = [l2_step(*args, tgt, **kw, **need) for _, need in NEEDS]
+    _sync()
+    got = [n - b for n, b in zip(_bf16_launches(), before)]
+    assert got == [1, 3, 3], f"{tag} bf16 launches {got}"
+    # The plain step's image is the plain forward's.
+    want = l2_step_plain(*args, tgt, **kw)
+    _sync()
+    for what, img in (("march_fwd", out), ("l2_step", l2[0][0])):
+        ref = want[0]
+        assert torch.isfinite(img).all(), f"{tag} {what}"
+        assert img[:, 3].max().item() > 0.3, f"{tag} {what} empty"
+        if shade == "unshaded":
+            assert torch.equal(img, ref), f"{tag} {what} image not equal"
+            err = 0.0
+        elif shade == "phong":
+            assert torch.equal(img[:, 3], ref[:, 3]), f"{tag} {what} alpha"
+            err = (img[:, :3] - ref[:, :3]).abs().max().item()
+            assert err <= ATOL_PHONG_RGB, f"{tag} {what} rgb {err}"
+        else:
+            err = (img - ref).abs().max().item()
+            assert err <= ATOL_DIFFUSE, f"{tag} {what} image {err}"
+        key = (what, shade, "image")
+        worst[key] = max(worst.get(key, 0.0), err)
+    for kernel, grads in (("march_bwd", bwd), ("l2_step", [x[1:] for x in l2])):
+        for grad in grads:
+            assert grad[0].dtype == torch.float32, f"{tag} {kernel} d_density"
+        for leaf, err in _hold_needs(f"{tag} {kernel}", grads, want[1],
+                                     want[2], rtol).items():
+            key = (kernel, shade, leaf)
+            worst[key] = max(worst.get(key, 0.0), err)
+
+
+def _fast_small(dev: torch.device) -> None:
+    """The bf16 instances of the three v3 kernels against their plain
+    versions at 32^3 / 64^2 (:func:`_fast_case`), in every mode of phases
+    3, 6, 15 and 16: unshaded, diffuse kd 0.6 and phong kd 0.6, each ERT
+    off and at 0.95, ESL off and on (the grid from the f32 density), every
+    combination on the synthetic scene's orthographic view; then each
+    shade once, the ERT and ESL settings taken in turn, on the adversaries:
+    the synthetic scene in perspective, a sparse blob, the noise density
+    and the ragged 61 x 47 viewport; phase 9's grid poses, the shades in
+    turn (ERT off, ESL on the poses half a step in); then the slab mode (phase 21's, seeded;
+    unshaded and diffuse, ESL off and on) with the seed's cotangent, and
+    the gradient's bits below bf16's."""
+    n = 32
+    rng = np.random.default_rng(22)
+    worst = {}
+    shades = (("unshaded", 0.0, False), ("diffuse", 0.6, False),
+              ("phong", 0.6, True))
+    scenes = (("synthetic", scene_from_volume(
+        synthetic_volume(n), default_transfer_fn(dev), 0.06, device=dev)),
+              ("blob", scene_from_volume(_blob_volume(n),
+                                         default_transfer_fn(dev), 0.06,
+                                         device=dev)),
+              ("noise", _noise_scene(n, 0.06, dev)))
+    # (ERT threshold, ESL) in turn on the adversaries.
+    turns = itertools.cycle(((2.0, False), (0.95, True), (0.95, False),
+                             (2.0, True)))
+    t0 = time.perf_counter()
+    for name, scene in scenes:
+        density = scene.density.detach().to(torch.bfloat16)
+        tf = scene.premult_tf().detach()
+        grid = diff_v3.scene_esl(scene)
+        views = [("ortho 64^2", (64, 64), False)]
+        if name == "synthetic":
+            views.append(("persp 64^2", (64, 64), True))
+        if name == "noise":
+            views.append(("ragged 61x47", (61, 47), False))
+        for label, dims, persp in views:
+            cam = Camera(dims=dims, perspective=persp)
+            cam.toggle_perspective(update_mode=True)
+            cam.set_camera_position((30.0, 20.0, 0.0))
+            view = cam.view(dev)
+            tgt = torch.tensor(rng.uniform(0, 1, (dims[0] * dims[1], 4)),
+                               dtype=torch.float32, device=dev)
+            scale = 2.0 / tgt.numel()
+            main = name == "synthetic" and not persp
+            for shade, kd, phong in shades:
+                for thr, use_esl in (itertools.product((2.0, 0.95),
+                                                       (False, True))
+                                     if main else [next(turns)]):
+                    esl = grid if use_esl else None
+                    args, kw = fwd_v3.ray_args(
+                        view, density, tf, 0.06, thr, kd, loss_scale=scale,
+                        phong=phong, esl=esl)
+                    tag = (f"[fast] 32^3 {name}, {label}, {shade}, "
+                           f"{'ERT off' if thr >= 1 else 'ERT 0.95'}"
+                           f"{', esl' if esl else ''}:")
+                    _fast_case(tag, args, kw, tgt, shade, worst)
+        if name != "synthetic":
+            continue
+        t1 = time.perf_counter()
+        # Phase 9's grid pose: samples on the voxel lattice, rays grazing
+        # the faces, where the fast cell's clip sits.
+        tgt = torch.tensor(rng.uniform(0, 1, (64 * 64, 4)),
+                           dtype=torch.float32, device=dev)
+        # The shades in turn: each on two of the six poses, one with ESL.
+        shade_turns = itertools.cycle(shades)
+        for axis in (0, 1, 2):
+            for half in (False, True):
+                esl = grid if half else None
+                for shade, kd, phong in [next(shade_turns)]:
+                    scal = torch.cat([
+                        torch.tensor([2.0, kd], device=dev),
+                        view.light_pos.to(torch.float32),
+                        torch.tensor([0.0, 2.0 / tgt.numel(), 0.0],
+                                     device=dev)]).to(torch.float32)
+                    args = (*_grid_rays(n, axis, half, dev), density, tf,
+                            scal)
+                    kw = dict(ray_step=2.0 / n, shade=kd > 0 and not phong,
+                              phong=phong, no_ert=True, width=64, esl=esl)
+                    _fast_case(f"[fast] 32^3 grid pose axis {axis}"
+                               f"{', half a step in' if half else ''}, "
+                               f"{shade}{', esl' if esl else ''}:", args, kw,
+                               tgt, shade, worst)
+        t2 = time.perf_counter()
+        # The slab mode: the second of two slabs, rows 16-31 with a halo
+        # row each side (the last clamp-padded).
+        slab = vs.shard_slabs(scene.density.detach(), 2, 1)[1]
+        slab = slab.to(torch.bfloat16).contiguous()
+        cam = Camera(dims=(64, 64))
+        cam.set_camera_position((25.0, 10.0, 0.0))
+        view = cam.view(dev)
+        o, d, k0, kend, alive = diff_v3.slab_rays(view, 16, 16, n, 0.06, dev)
+        acc0 = torch.tensor(rng.uniform(0, 0.7, 64 * 64), dtype=torch.float32,
+                            device=dev)
+        for shade, kd in (("unshaded", 0.0), ("diffuse", 0.6)):
+            for esl in (None, grid):
+                scal = torch.cat([torch.tensor([0.95, kd], device=dev),
+                                  view.light_pos.to(torch.float32),
+                                  torch.tensor([15.0, 0.0, 0.0], device=dev)]
+                                 ).to(torch.float32)
+                args = (o, d, k0, kend, alive, slab, tf, scal)
+                kw = dict(ray_step=0.06, shade=kd > 0, no_ert=False, width=64,
+                          slab=(acc0, n), esl=esl)
+                tag = (f"[fast] slab 2 of 2, {shade}"
+                       f"{', esl' if esl else ''}:")
+                before = _bf16_launches()
+                out = march_fwd(*args, **kw)
+                g = torch.tensor(rng.standard_normal((64 * 64, 4)),
+                                 dtype=torch.float32, device=dev)
+                grads = march_bwd(*args, out, g, **kw)
+                _sync()
+                assert [x - y for x, y in zip(_bf16_launches(), before)] == [
+                    1, 1, 0], tag
+                p_out = march_fwd_plain(*args, **kw)
+                p_grads = march_bwd_plain(*args, out, g, **kw)
+                _sync()
+                err = _hold_image(out, p_out, shaded=kd > 0)
+                rtol = RTOL_GRAD if kd == 0 else RTOL_GRAD_DIFFUSE
+                for what, a, b in zip(("d_density", "d_premult_tf", "dacc0"),
+                                      grads, p_grads):
+                    _hold(tag, what, a, b, rtol, quiet=True)
+                worst[("march_fwd slab", shade, "image")] = max(
+                    worst.get(("march_fwd slab", shade, "image"), 0.0), err)
+        # The density's gradient (f32) keeps what a bf16 rounding drops.
+        tgt = torch.tensor(rng.uniform(0, 1, (64 * 64, 4)),
+                           dtype=torch.float32, device=dev)
+        args, kw = fwd_v3.ray_args(view, density, tf, 0.06, 2.0, 0.0,
+                                   loss_scale=2.0 / tgt.numel())
+        d_vol = l2_step(*args, tgt, **kw)[1]
+        lost = (d_vol - sampling.round_bf16(d_vol)).abs().max().item()
+        top = d_vol.abs().max().item()
+        print(f"[fast] 32^3 l2_step bf16: d_density {d_vol.dtype}, "
+              f"max|d - bf16(d)| = {lost:.3g} of max|d| {top:.3g}")
+        assert d_vol.dtype == torch.float32 and lost > 1e-3 * top
+        t3 = time.perf_counter()
+    print(f"[fast] 32^3 seconds: synthetic {t1 - t0:.1f}, grid poses "
+          f"{t2 - t1:.1f}, slab and bits {t3 - t2:.1f}, the adversaries "
+          f"{time.perf_counter() - t3:.1f}")
+    for (what, shade, leaf), err in sorted(worst.items()):
+        held = ("equal" if shade == "unshaded" and leaf == "image" else
+                f"{err:.3g}")
+        print(f"[fast] 32^3 {what} {leaf}, {shade}: max|kernel-plain| = "
+              f"{held} over the scenes, poses and modes"
+              + (" (a share of the largest entry, over the need variants)"
+                 if leaf != "image" else ""))
+
+
+
+def _turns(fns: dict, iters: int) -> dict:
+    """Device times of each of ``fns`` (name -> call), in turns: every
+    call timed ``iters`` times, twice, in the order given and then
+    reversed -> ``{name: all times}``."""
+    out = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            out[name] += time_cuda(fns[name], iters)
+    return out
+
+
+def _fast_times(scene, view, target, dev) -> tuple:
+    """The three kernels on the step's inputs (unshaded, ERT off), f32 and
+    bf16 in turns -> ``(times {name: {"f32", "bf16"}}, f32 args, bf16
+    args, kw, tgt)``."""
+    tgt = target.reshape(-1, 4)
+    args, kw = fwd_v3.ray_args(view, scene.density.detach(),
+                               scene.premult_tf().detach(), scene.ray_step,
+                               2.0, 0.0, loss_scale=2.0 / tgt.numel())
+    fargs = (*args[:5], args[5].to(torch.bfloat16), *args[6:])
+    out, fout = march_fwd(*args, **kw), march_fwd(*fargs, **kw)
+    g, fg = out * args[7][6], fout * args[7][6]
+    fns = {}
+    for label, a, o, gg in (("f32", args, out, g), ("bf16", fargs, fout, fg)):
+        fns["march_fwd", label] = lambda a=a: march_fwd(*a, **kw)
+        fns["march_bwd", label] = lambda a=a, o=o, gg=gg: march_bwd(
+            *a, o, gg, **kw)
+        fns["l2_step", label] = lambda a=a: l2_step(*a, tgt, **kw)
+    t = _turns(fns, 10)
+    times = {}
+    for (name, label), v in t.items():
+        times.setdefault(name, {})[label] = v
+    return times, args, fargs, kw, tgt
+
+
+def _fast_main(dev: torch.device, build: dict) -> dict:
+    """The fast mode at full width -> the three kernels' ``bf16`` entries.
+    The main paths in the fast mode, the counters reset before each and
+    read after: rung 5's frame (``bench_fwd_step(fast=True)``), the
+    one-launch and the two-kernel step (``bench_diff_step(fast=True)``).
+    Then on the step's inputs, 256^3 / 1024^2 on the benchmark pose and
+    512^3 / 1024^2: each kernel's f32 and bf16 instances timed in turns,
+    the bf16 ones held against their plain versions at 256^3 (images to
+    the bit), beside their bound (two bytes a voxel), registers, spills
+    and SASS instructions a sample of the march loop."""
+    tag = "[fast] 256^3/1024^2"
+    t_start = time.perf_counter()
+    for fn in WRAPPERS:
+        fn.launches = 0
+    for fn in FAST_WRAPPERS:
+        fn.launches_bf16 = 0
+    frame = bench_fwd_step(256, 1024, iters=20, device=dev, fast=True)
+    _sync()
+    fwd_launches = march_fwd.launches_bf16
+    print(f"{tag} rung 5's frame (bench_fwd_step(fast=True), precision "
+          f"{frame['precision']}): median {frame['ms']:.4f} ms, "
+          f"{frame['ray_steps_per_s']:.6g} rays*steps/s; march_fwd bf16 "
+          f"launches {fwd_launches} of {march_fwd.launches}")
+    assert frame["precision"] == "bf16"
+    assert fwd_launches == march_fwd.launches == 21, fwd_launches
+    steps = {}
+    for route, onepass in (("one-launch", True), ("two-kernel", False)):
+        for fn in WRAPPERS:
+            fn.launches = 0
+        for fn in FAST_WRAPPERS:
+            fn.launches_bf16 = 0
+        m = bench_diff_step(256, 1024, iters=10, fused=True, onepass=onepass,
+                            device=dev, fast=True)
+        _sync()
+        steps[route] = (m, _bf16_launches(),
+                        [fn.launches for fn in WRAPPERS])
+        print(f"{tag} fast {route} step (precision {m['precision']}): "
+              f"median {m['ms']:.4f} ms, p90 {m['ms_p90']:.4f} ms, "
+              f"{m['ray_steps_per_s']:.6g} rays*steps/s, loss "
+              f"{m['loss']:.8g}; bf16 launches (march_fwd, march_bwd, "
+              f"l2_step) {steps[route][1]}, all launches {steps[route][2]}")
+    assert steps["one-launch"][1] == [0, 0, 11]
+    assert steps["two-kernel"][1] == [11, 11, 0]
+    assert steps["one-launch"][2] == [0, 0, 11, 0, 0, 0, 0, 0, 0]
+    assert steps["two-kernel"][2] == [11, 11, 0, 0, 0, 0, 0, 0, 0]
+    one, two = steps["one-launch"][0], steps["two-kernel"][0]
+    assert abs(one["loss"] - two["loss"]) <= 1e-6 * two["loss"]
+
+    t_main = time.perf_counter()
+    scene, view, target = diff_bench_scene(256, 1024, device=dev)
+    with torch.no_grad():
+        times, args, fargs, kw, tgt = _fast_times(scene, view, target, dev)
+        t_times = time.perf_counter()
+        out, d_vol, d_tf = l2_step(*fargs, tgt, **kw)
+        g = out * args[7][6]
+        b_vol, b_tf = march_bwd(*fargs, out, g, **kw)
+        f_out = march_fwd(*fargs, **kw)
+        _sync()
+        # l2_step_plain is these two calls and the cotangent between them:
+        # its plain time is theirs.
+        p_out, fwd_plain_ms = _once(lambda: march_fwd_plain(*fargs, **kw))
+        p_g = (p_out - tgt) * (fargs[7][6] * fargs[4][:, None])
+        (p_vol, p_tf), bwd_plain_ms = _once(
+            lambda: march_bwd_plain(*fargs, p_out, p_g, **kw))
+        l2_plain_ms = fwd_plain_ms + bwd_plain_ms
+        t_plain = time.perf_counter()
+        err_fwd = _hold_image(f_out, p_out, shaded=False)
+        err_img = _hold_image(out, p_out, shaded=False)
+        print(f"{tag} bf16 march_fwd and l2_step images vs plain: equal "
+              f"({err_fwd:.3g}, {err_img:.3g})")
+        err_l2 = max(
+            _hold(tag, "bf16 l2_step d_density vs plain", d_vol, p_vol,
+                  RTOL_GRAD),
+            _hold(tag, "bf16 l2_step d_premult_tf vs plain", d_tf, p_tf,
+                  RTOL_DTF_WIDE))
+        err_bwd = max(
+            _hold(tag, "bf16 march_bwd d_density vs plain", b_vol, p_vol,
+                  RTOL_GRAD),
+            _hold(tag, "bf16 march_bwd d_premult_tf vs plain", b_tf, p_tf,
+                  RTOL_DTF_WIDE))
+    bounds = {
+        label: {"march_fwd": _bound(a, kw, FLOPS_FWD, images=1, grads=False),
+                "march_bwd": _bound(a, kw, FLOPS_BWD, images=2, grads=True),
+                "l2_step": _bound(a, kw, FLOPS_FWD + FLOPS_BWD, images=2,
+                                  grads=True)}
+        for label, a in (("f32", args), ("bf16", fargs))}
+    del scene, args, fargs, out, d_vol, b_vol, p_vol
+    big, view_b, target_b = diff_bench_scene(512, 1024, device=dev)
+    with torch.no_grad():
+        times_b, args_b, fargs_b, kw_b, _ = _fast_times(big, view_b,
+                                                        target_b, dev)
+        bounds_b = {
+            label: {"march_fwd": _bound(a, kw_b, FLOPS_FWD, images=1,
+                                        grads=False),
+                    "march_bwd": _bound(a, kw_b, FLOPS_BWD, images=2,
+                                        grads=True),
+                    "l2_step": _bound(a, kw_b, FLOPS_FWD + FLOPS_BWD,
+                                      images=2, grads=True)}
+            for label, a in (("f32", args_b), ("bf16", fargs_b))}
+    del big, args_b, fargs_b
+    torch.cuda.empty_cache()
+    print(f"[fast] full width seconds: the frame and the steps "
+          f"{t_main - t_start:.1f}, 256^3 scene and turns "
+          f"{t_times - t_main:.1f}, the plain versions "
+          f"{t_plain - t_times:.1f}, 512^3 scene and turns "
+          f"{time.perf_counter() - t_plain:.1f}")
+    plain = {"march_fwd": fwd_plain_ms, "march_bwd": bwd_plain_ms,
+             "l2_step": l2_plain_ms}
+    errs = {"march_fwd": err_fwd, "march_bwd": err_bwd, "l2_step": err_l2}
+    launches = {"march_fwd": fwd_launches,
+                "march_bwd": steps["two-kernel"][1][1],
+                "l2_step": steps["one-launch"][1][2]}
+    frames = {"march_fwd": ("frame_ms", frame["ms"]),
+              "march_bwd": ("step_ms", two["ms"]),
+              "l2_step": ("step_ms", one["ms"])}
+    entries = {}
+    for name, (variant, f32_variant) in FAST_VARIANTS.items():
+        v = _phong_variant(build, variant)
+        loops = {}
+        for label, var in (("bf16", variant), ("f32", f32_variant)):
+            sass = build["sass"].get(var.split("<")[0], {}).get(
+                "variants", {}).get(var, {})
+            loops[label] = sass.get("loop", {}).get("total")
+        ms = {k: float(np.median(t)) for k, t in times[name].items()}
+        ms_b = {k: float(np.median(t)) for k, t in times_b[name].items()}
+        for size, m, b in (("256^3", ms, bounds), ("512^3", ms_b, bounds_b)):
+            print(f"[fast] {size}/1024^2 {name}: f32 {m['f32']:.4f} ms "
+                  f"(bound {b['f32'][name]['bound_ms']:.4f} by "
+                  f"{b['f32'][name]['bound_by']}), bf16 {m['bf16']:.4f} ms "
+                  f"(bound {b['bf16'][name]['bound_ms']:.4f} by "
+                  f"{b['bf16'][name]['bound_by']}), bf16 / f32 "
+                  f"{m['bf16'] / m['f32']:.3f}; medians over 2 x 2 turns of "
+                  f"10 calls")
+        rep = build["ptxas"][variant.split("<")[0]]
+        spills = [f"{var} {sp}" for var, sp in zip(rep["variants"],
+                                                   rep["spill_bytes"])
+                  if "bf16" in var and sp]
+        print(f"[fast] {name}: {v['variant']} {v['registers']} registers, "
+              f"{v['spill_bytes']} bytes spilled, {loops['bf16']} SASS "
+              f"instructions in the march loop (f32 {f32_variant}: "
+              f"{loops['f32']}); plain {plain[name]:.2f} ms (one call, "
+              f"256^3; l2_step's: march_fwd_plain's and march_bwd_plain's, "
+              f"which it calls); bf16 variants that spill: "
+              f"{spills or 'none'}; "
+              f"{sum('bf16' in var for var in rep['variants'])} bf16 "
+              f"variants of {len(rep['variants'])}")
+        entries[name] = {
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms["bf16"], "plain_ms": plain[name],
+            **bounds["bf16"][name], "library_ms": None, **v,
+            "loop_instructions": loops["bf16"], "f32_ms": ms["f32"],
+            "f32_bound_ms": bounds["f32"][name]["bound_ms"],
+            "ms_512": ms_b["bf16"], "f32_ms_512": ms_b["f32"],
+            "bound_ms_512": bounds_b["bf16"][name]["bound_ms"],
+            "f32_bound_ms_512": bounds_b["f32"][name]["bound_ms"],
+            frames[name][0]: frames[name][1]}
+    return entries
+
+
+def phase_fast(dev: torch.device, build: dict) -> dict:
+    """The fast mode (bf16 density, volrt's fast=True) of the three v3
+    kernels: at 32^3 / 64^2 against the plain versions
+    (:func:`_fast_small`), then at full width (:func:`_fast_main`) -> the
+    three kernels' ``bf16`` entries."""
+    _fast_small(dev)
+    return _fast_main(dev, build)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -3174,6 +3609,7 @@ def main() -> int:
     run(phase_suite)
     slab = run(phase_dist, dev, {"march_fwd": fwd["ms"],
                                  "march_bwd": step["march_bwd"]["ms"]})
+    fast = run(phase_fast, dev, build)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -3186,16 +3622,17 @@ def main() -> int:
          "source": "volrt_torch/csrc/march_fwd.cu",
          "replaces": f"{pallas}:1128", **fwd, **ladder["march_fwd"],
          "phong": phong["march_fwd"], "esl": esl["esl"]["march_fwd"],
-         "slab": slab["march_fwd"]},
+         "slab": slab["march_fwd"], "bf16": fast["march_fwd"]},
         {"name": "march_bwd", "route": "cuda",
          "source": "volrt_torch/csrc/march_bwd.cu",
          "replaces": f"{pallas}:1435", **step["march_bwd"],
          "phong": phong["march_bwd"], "esl": esl["esl"]["march_bwd"],
-         "slab": slab["march_bwd"]},
+         "slab": slab["march_bwd"], "bf16": fast["march_bwd"]},
         {"name": "l2_step", "route": "cuda",
          "source": "volrt_torch/csrc/l2_step.cu",
          "replaces": f"{pallas}:2397", **step["l2_step"],
-         "phong": phong["l2_step"], "esl": esl["esl"]["l2_step"]},
+         "phong": phong["l2_step"], "esl": esl["esl"]["l2_step"],
+         "bf16": fast["l2_step"]},
         {"name": "march_tri", "route": "cuda",
          "source": "volrt_torch/csrc/march_ladder.cu",
          "replaces": "volrt/renderers/pallas/trilinear.py:56",

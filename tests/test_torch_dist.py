@@ -7,7 +7,9 @@ imports no JAX) runs every check of the port once, a two-rank group of it
 too, and writes what it found to files; each case here reads its file. The
 world runs while this process computes ``volrt``'s references, on the
 conftest's eight virtual CPU devices and ``volrt``'s XLA backend (its
-Pallas path, in interpret mode, is ``tests/test_torch_slab.py``'s).
+Pallas slab path, in interpret mode, is ``tests/test_torch_slab.py``'s),
+and for the fast mode (``volrt``'s fused fit and one-launch step) its
+Pallas kernels in interpret mode.
 
 Tolerances. Images: 1e-5 against ``volrt``: XLA's CPU code rounds the
 trilinear lerps otherwise than torch, which parts the port's oracle from
@@ -42,6 +44,7 @@ from volrt.core.view import Camera as JCamera
 from volrt.diff import render as jrender
 from volrt.dist import volume_sharded as jvs
 from volrt.dist.mesh import make_mesh as jmake_mesh
+from volrt.renderers.pallas import diff_v3 as jdiff_v3
 from volrt.train.fit import fit as jfit
 from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.diff import render as trender
@@ -55,6 +58,14 @@ N = 16
 ATOL_IMG = 1e-5
 ATOL_GRAD = 5e-6
 RTOL_SELF = 1e-6
+# The fast step's TF gradient against volrt's: the two packages set up the
+# rays in other operations, and a position that moves by an ulp can carry
+# a (z, y) weight product across a bf16 rounding midpoint, which moves that
+# sample by 2^-9 of a tap and its TF bin weights by 128 times as much.
+# Measured: 5.1e-6 (TF entry 4, alpha; the loss equal to the bit, the
+# density gradient 1.3e-8); the port's own fast d_tf moves by 4.4e-6 and
+# 8.5e-6 when the pose turns by +-1e-5 degrees (its f32 d_tf by 2.7e-7).
+ATOL_FAST_DTF = 1e-5
 # The sharded cases whose gradients are held to volrt's (the first of
 # each rank count; the port's other backend shares the reference).
 GRAD_CASES = ("2-xla", "4-xla")
@@ -63,6 +74,7 @@ GRAD_CASES = ("2-xla", "4-xla")
 # held to volrt's in tests/test_torch_slab.py).
 SELF_CASES = ("4-pallas-esl", "4-pallas-diffuse")
 SHARDED = {c[0]: c for c in world_mod.SHARDED}
+STEP_FAST = next(c for c in world_mod.STEPS if c[-1])
 
 
 def _data() -> dict:
@@ -127,30 +139,40 @@ def _volrt_sharded(data) -> dict:
 
 def _volrt_step(data) -> dict:
     """``volrt``'s XLA autodiff of the mean-square loss of the first step
-    case (the others are held to the port's single-rank step, which
-    ``tests/test_torch_diff.py`` holds to ``volrt``)."""
-    _, _, dims, _, _ = world_mod.STEPS[0]
-    js, jv = _jscene(data, "synthetic"), _jview(world_mod.POSE, dims)
-    target = jnp.asarray(world_mod.target_of(dims))
+    case, and its one-launch step in the fast mode (Pallas, interpret
+    mode) for ``2-fast`` (the others are held to the port's single-rank
+    step, which ``tests/test_torch_diff.py`` holds to ``volrt``)."""
+    refs = {}
+    for case in (world_mod.STEPS[0], STEP_FAST):
+        name, _, dims, _, _, fast = case
+        js, jv = _jscene(data, "synthetic"), _jview(world_mod.POSE, dims)
+        target = jnp.asarray(world_mod.target_of(dims))
+        if fast:
+            value, g = jdiff_v3.l2_loss_grads_v3_onepass(js, jv, target,
+                                                         fast=True)
+        else:
+            def loss(s):
+                return jnp.mean(
+                    (jrender.render_diff_image(s, jv, 0.95) - target) ** 2)
 
-    def loss(s):
-        return jnp.mean((jrender.render_diff_image(s, jv, 0.95) - target)
-                        ** 2)
-
-    value, g = jax.value_and_grad(loss)(js)
-    return dict(loss=float(value), d_density=np.asarray(g.density),
-                d_tf=np.asarray(g.tf_base))
+            value, g = jax.value_and_grad(loss)(js)
+        refs[name] = dict(loss=float(value), d_density=np.asarray(g.density),
+                          d_tf=np.asarray(g.tf_base))
+    return refs
 
 
-def _volrt_fit(data) -> np.ndarray:
+def _volrt_fit(data, fused=False) -> np.ndarray:
     """``volrt``'s data-parallel fit on a two-device mesh: its losses are
-    its unsharded fit's, which every one of the port's mesh fits must
-    give."""
+    its unsharded fit's, which every one of the port's oracle and
+    volume-sharded mesh fits must give. ``fused=True``: its unsharded
+    fused fit (the fast mode, Pallas in interpret mode), which the port's
+    fused fit over a mesh must give."""
     target = world_mod.fit_target(data)
+    mesh = dict(fused=True) if fused else dict(
+        mesh=jmake_mesh(jax.devices()[:2]))
     _, losses = jfit(_jscene(data, "fit"),
                      [(_jview(world_mod.POSE), jnp.asarray(target))],
-                     steps=world_mod.FIT_STEPS, lr=world_mod.FIT_LR,
-                     mesh=jmake_mesh(jax.devices()[:2]))
+                     steps=world_mod.FIT_STEPS, lr=world_mod.FIT_LR, **mesh)
     return np.asarray(losses)
 
 
@@ -166,7 +188,8 @@ def world():
             args=(world_mod.run, 4, "gloo", init, (data, tmp)), nprocs=4,
             join=False, start_method="spawn")
         refs = dict(sharded=_volrt_sharded(data), step=_volrt_step(data),
-                    fit=_volrt_fit(data), data=data)
+                    fit=_volrt_fit(data),
+                    fit_fused=_volrt_fit(data, fused=True), data=data)
         while not ctx.join():
             pass
         found = {f[:-4]: dict(np.load(os.path.join(tmp, f)))
@@ -283,22 +306,25 @@ def test_render_float_sharded_equals_the_whole_frame(world, case):
 @pytest.mark.parametrize("case", [c[0] for c in world_mod.STEPS])
 def test_l2_loss_grads_v3_sharded(world, case):
     """The row-split one-launch step against the port's single-rank step
-    (1e-6) and, but for ESL, ``volrt``'s XLA autodiff of the same loss
-    (the loss rtol 1e-5, gradients within 5e-6; ``volrt``'s own sharded
-    step runs its Pallas kernels, whose interpret mode this file leaves to
-    ``test_torch_slab.py``)."""
+    (1e-6), f32 and in the fast mode (``2-fast``, the default). The first
+    case is also held to ``volrt``'s XLA autodiff of the same loss, and
+    ``2-fast`` to ``volrt``'s one-launch step in the fast mode (Pallas in
+    interpret mode): the loss rtol 1e-5, gradients within 5e-6, the fast
+    step's TF gradient within 1e-5 (``ATOL_FAST_DTF``; ``volrt``'s own
+    sharded step runs the same kernels on each row band)."""
     found, refs, _ = world
     got = found["step-" + case]
     assert float(got["loss"]) == pytest.approx(float(got["loss1"]),
                                                rel=RTOL_SELF)
     _close_rel(got["d_density"], got["d_density1"], RTOL_SELF, "d_density")
     _close_rel(got["d_tf"], got["d_tf1"], RTOL_SELF, "d_tf")
-    if case != world_mod.STEPS[0][0]:
+    if case not in refs["step"]:
         return
-    want = refs["step"]
+    want = refs["step"][case]
     assert float(got["loss"]) == pytest.approx(want["loss"], rel=1e-5)
     _close(got["d_density"], want["d_density"], ATOL_GRAD, "d_density")
-    _close(got["d_tf"], want["d_tf"], ATOL_GRAD, "d_tf")
+    _close(got["d_tf"], want["d_tf"],
+           ATOL_FAST_DTF if case == STEP_FAST[0] else ATOL_GRAD, "d_tf")
 
 
 @pytest.mark.parametrize("case", ["rays-2", "rays-4-fused", "volume-2",
@@ -307,15 +333,25 @@ def test_fit_over_a_mesh(world, case):
     """Three steps of ``fit(mesh=)`` (the oracle's bands, then the
     one-launch step's) and ``fit(volume_sharded=True)`` against
     ``volrt``'s losses: its data-parallel fit on a two-device mesh for the
-    former, its unsharded fit for the latter (``volrt``'s volume-sharded
-    fit runs its Pallas kernels); rtol 1e-4 (``test_torch_fit.py``'s
-    class). Every rank ends with the same whole density, and the
-    checkpoint (written by rank 0, the density gathered) loads."""
+    oracle's bands, its unsharded fit for the volume-sharded fits
+    (``volrt``'s runs its Pallas kernels); rtol 1e-4
+    (``test_torch_fit.py``'s class). The one-launch step's bands train in
+    the fast mode, as ``volrt``'s fused fit does, and are held to
+    ``volrt``'s fused fit (unsharded, Pallas in interpret mode) and to
+    the port's fused fit on one rank. Every rank ends with the same whole
+    density, and the checkpoint (written by rank 0, the density gathered)
+    loads."""
     from volrt_torch.train import checkpoint as ckpt
 
     found, refs, where = world
     got = found["fit-" + case]
-    np.testing.assert_allclose(got["losses"], refs["fit"], rtol=1e-4)
+    if case == "rays-4-fused":
+        np.testing.assert_allclose(got["losses"], refs["fit_fused"],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(got["losses"],
+                                   found["fit-1-fused"]["losses"], rtol=1e-4)
+    else:
+        np.testing.assert_allclose(got["losses"], refs["fit"], rtol=1e-4)
     assert float(got["spread"]) == 0.0
     state = ckpt.load(os.path.join(where, f"fit-{case}.ckpt.npz"),
                       device=CPU)

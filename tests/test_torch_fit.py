@@ -11,8 +11,10 @@ round differently. The tests therefore start from a scene whose gradients
 are real on both leaves (a constant density under a non-flat TF), take 5
 steps at ``lr = 0.02``, hold the losses to rtol 1e-4 (measured: 5e-6), and
 hold the trained parameters to 1e-3 only on entries whose first gradient
-exceeds 1e-7 in magnitude. Against ``volrt``'s fused route, which stores
-the volume in bf16, the losses are held to 2e-2.
+exceeds 1e-7 in magnitude. The fused routes of both packages train in
+``volrt``'s fast mode (the volume stored as bf16), so the port's fused fit
+is held to ``volrt``'s fused fit (measured: losses within 4e-6, 8e-7
+under the diffuse tap), at the same tolerances.
 """
 import inspect
 import os
@@ -79,7 +81,8 @@ def _torch_fit(problem, train, **kw):
     scene = trender.scene_from_arrays(density, tf_base, STEP, device=CPU)
     target = torch.from_numpy(problem["target"])
     _, first = tdiff_v3.l2_loss_grads_v3_onepass(
-        scene, problem["tview"], target, **kw.get("first_kw", {}))
+        scene, problem["tview"], target, fast=kw.get("fused", False),
+        **kw.get("first_kw", {}))
     kw.pop("first_kw", None)
     out, losses = tfit_mod.fit(scene, [(problem["tview"], target)],
                                steps=STEPS, lr=LR, **_flags(train), **kw)
@@ -91,17 +94,25 @@ def _torch_fit(problem, train, **kw):
 
 @pytest.fixture(scope="module")
 def jax_runs(problem):
-    """``volrt``'s unfused fits, one per ``train`` mode, shared by the
-    port's fused and unfused cases."""
-    return {train: _jax_fit(problem, train)
-            for train in ("density", "tf", "both")}
+    """``volrt``'s fits, one per ``train`` mode and route: its XLA f32 fit
+    (``fused=False``) and its fused fit (``fused=True``: its kernels in
+    their fast mode), each computed when a test first asks for it."""
+    runs = {}
+
+    def get(train, fused):
+        if (train, fused) not in runs:
+            runs[train, fused] = _jax_fit(problem, train, fused=fused)
+        return runs[train, fused]
+    return get
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["autograd", "fused"])
 @pytest.mark.parametrize("train", ["density", "tf", "both"])
 def test_fit_matches_jax_fit(problem, jax_runs, train, fused):
-    """(e) Five steps of ``fit`` against ``volrt``'s XLA f32 fit."""
-    want_d, want_t, want_losses = jax_runs[train]
+    """(e) Five steps of ``fit`` against ``volrt``'s: the autograd route
+    against its XLA f32 fit, the fused route (the fast mode) against its
+    fused fit."""
+    want_d, want_t, want_losses = jax_runs(train, fused)
     got_d, got_t, losses, first = _torch_fit(problem, train, fused=fused)
     assert len(losses) == STEPS and np.isfinite(losses).all()
     assert losses[-1] < losses[0]
@@ -126,12 +137,13 @@ def test_fit_matches_jax_fit(problem, jax_runs, train, fused):
 
 def test_fused_diffuse_fit_matches_jax_fused_fit(problem):
     """(e) The one-launch route under the diffuse tap against ``volrt``'s
-    fused route (its kernels, bf16 storage): 2e-2 on the losses."""
+    fused route, both in the fast mode (bf16 storage): 1e-4 on the losses
+    (measured: 8e-7)."""
     kw = dict(fused=True, shading="diffuse", light_kd=0.6)
     _, _, want_losses = _jax_fit(problem, "both", **kw)
     _, _, losses, _ = _torch_fit(
         problem, "both", first_kw=dict(shaded=True, light_kd=0.6), **kw)
-    np.testing.assert_allclose(losses, want_losses, rtol=2e-2)
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-4)
     assert losses[-1] < losses[0]
 
 
@@ -369,10 +381,11 @@ def test_esl_refresh_escapes_the_trap(fused):
     """``esl_refresh_every=2``: steps 0 and 2 march in full, which hands
     the closed TF entries their gradient; the TF opens and the loss falls
     below the trapped plateau. The first step is the full march's: its
-    loss is the ESL-off step's."""
+    loss is the ESL-off step's (in the fast mode on the fused route)."""
     scene, view, target = _trap()
     with torch.no_grad():
-        first = tdiff_v3.l2_loss_grads_v3_onepass(scene, view, target)[0]
+        first = tdiff_v3.l2_loss_grads_v3_onepass(scene, view, target,
+                                                  fast=fused)[0]
     _, losses = tfit_mod.fit(scene, [(view, target)], steps=4, lr=0.05,
                              train_density=False, fused=fused, esl=True,
                              esl_refresh_every=2)

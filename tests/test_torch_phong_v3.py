@@ -336,8 +336,8 @@ def test_the_phong_variants_are_named_by_mode():
 
 def test_fit_phong_fused_lowers_the_loss():
     """``fit(shading="phong", fused=True)`` takes the one-launch step in
-    phong mode (its first loss is the v3 phong loss of the start) and the
-    loss falls."""
+    phong mode (its first loss is the v3 phong loss of the start, in the
+    fast mode that the fused fit trains in) and the loss falls."""
     _, (gt_scene, view, _) = _pair(dims=(16, 16))
     with torch.no_grad():
         target = tdiff_v3.render_image_v3(gt_scene, view, light_kd=KD,
@@ -350,7 +350,8 @@ def test_fit_phong_fused_lowers_the_loss():
 
     with torch.no_grad():
         first = tdiff_v3.l2_loss_grads_v3_onepass(
-            start(), view, target, light_kd=KD, phong=True)[0].item()
+            start(), view, target, light_kd=KD, phong=True,
+            fast=True)[0].item()
     scene = start()
     out, losses = tfit_mod.fit(scene, [(view, target)], steps=4, lr=0.02,
                                shading="phong", fused=True)

@@ -52,12 +52,15 @@ ROWS = [
     ("pallas-v3", "trilinear", 2, (16, 16)),
     ("pallas-v3", "trilinear", 4, (24, 18)),
 ]
-# l2_loss_grads_v3_sharded: (name, ranks, viewport, shading, esl).
+# l2_loss_grads_v3_sharded: (name, ranks, viewport, shading, esl, fast);
+# the first is held to volrt's f32 autodiff too, the fast one to volrt's
+# fast one-launch step.
 STEPS = [
-    ("2", 2, (16, 16), None, False),
-    ("4-uneven", 4, (24, 18), None, False),
-    ("2-diffuse", 2, (16, 16), "diffuse", False),
-    ("4-esl", 4, (16, 16), None, True),
+    ("2", 2, (16, 16), None, False, False),
+    ("4-uneven", 4, (24, 18), None, False, False),
+    ("2-diffuse", 2, (16, 16), "diffuse", False, False),
+    ("4-esl", 4, (16, 16), None, True, False),
+    ("2-fast", 2, (16, 16), None, False, True),
 ]
 FIT_STEPS = 3
 FIT_LR = 0.02
@@ -164,7 +167,7 @@ def _rows(mesh, meshes, data, out):
 
 
 def _steps(mesh, meshes, data, out):
-    for name, n, dims, shading, esl in STEPS:
+    for name, n, dims, shading, esl, fast in STEPS:
         m = meshes[n]
         if m is None:
             continue
@@ -172,9 +175,11 @@ def _steps(mesh, meshes, data, out):
         view = view_of(POSE, dims)
         target = torch.from_numpy(target_of(dims))
         loss, g = l2_loss_grads_v3_sharded(scene, view, target, m,
-                                           shading=shading, esl=esl)
+                                           shading=shading, esl=esl,
+                                           fast=fast)
         one, g1 = diff_v3.l2_loss_grads_v3_onepass(
-            scene, view, target, esl=esl, shaded=shading == "diffuse")
+            scene, view, target, esl=esl, shaded=shading == "diffuse",
+            fast=fast)
         if m.rank == 0:
             _save(out, "step-" + name, loss=loss, d_density=g["density"],
                   d_tf=g["tf_base"], loss1=one, d_density1=g1["density"],
@@ -208,6 +213,11 @@ def _fits(mesh, meshes, data, out):
         if m.rank == 0:
             _save(out, "fit-" + name, losses=np.asarray(losses),
                   density=dens[0], spread=(dens - dens[0]).abs().max())
+    if mesh.rank == 0:
+        # The fused fit on one rank, a second reference of the fast mode.
+        _, losses = fit(_scene(data, "fit"), [(view, target)],
+                        steps=FIT_STEPS, lr=FIT_LR, fused=True)
+        _save(out, "fit-1-fused", losses=np.asarray(losses))
     mesh.barrier()
 
 

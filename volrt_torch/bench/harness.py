@@ -279,6 +279,7 @@ def run_diff_suite(
     logger=None,
     fused: bool = True,
     device: torch.device | str | None = None,
+    fast: bool = False,
 ) -> prof_mod.Profiler:
     """The differentiable forward+backward sweep (no reference analog):
     one row per ``(volume_size, viewport)`` config, each frame a whole
@@ -288,7 +289,10 @@ def run_diff_suite(
     (``fused-v3``: ``march_fwd`` and ``march_bwd`` under autograd) and the
     one-launch ``l2_step`` (``fused-onepass``), whose cell gets a
     ``roofline_x`` note; ``fused=False`` autograd through the plain torch
-    march (``plain-diff``)."""
+    march (``plain-diff``). ``fast=True`` runs the fused routes in
+    ``volrt``'s fast mode (bf16 density: the kernels' bf16 instances),
+    which is what ``volrt``'s suite times (``volrt/bench/harness.py:
+    406-416``); the default, f32, keeps the port's recorded figures."""
     device = resolve_device(device)
     log = (logger or get_logger()).log
     prof = profiler or prof_mod.Profiler()
@@ -307,9 +311,11 @@ def run_diff_suite(
 
         if fused:
             variants = [
-                ("fused-v3", autograd_step(fused_mod.l2_loss_fused)),
+                ("fused-v3", autograd_step(
+                    lambda s, v, t: fused_mod.l2_loss_fused(s, v, t,
+                                                            fast=fast))),
                 ("fused-onepass", lambda: diff_v3.l2_loss_grads_v3_onepass(
-                    scene, view, target))]
+                    scene, view, target, fast=fast))]
         else:
             variants = [("plain-diff", autograd_step(
                 lambda s, v, t: torch.mean((render_diff_image(s, v) - t)
@@ -329,7 +335,8 @@ def run_diff_suite(
             avg_ms = prof.stats[cfg]["fused-onepass"].avg_ms
             numel = scene.density.numel()
             bound_ms = prof_mod.nominal_bound_ms(
-                viewport * viewport, int(2.0 / scene.ray_step), numel * 4,
+                viewport * viewport, int(2.0 / scene.ray_step),
+                numel * (2 if fast else 4),  # bf16 voxels when fast
                 prof_mod.FLOPS_FWD + prof_mod.FLOPS_BWD,
                 grad_bytes=numel * 4)
             if avg_ms > 0.0:
@@ -373,7 +380,7 @@ def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
                    iters: int = 100,
                    device: torch.device | str | None = None,
                    renderer: int = 5, shading: str | None = None,
-                   esl: bool = False) -> dict:
+                   esl: bool = False, fast: bool = False) -> dict:
     """Time one forward render on the card, of rung 5 or, with
     ``renderer``, of another rung of the ladder on the same pose (rung 2 in
     nearest mode, the others trilinear). ``shading`` is ``None``
@@ -383,7 +390,11 @@ def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
     skips empty space (rung 5: the kernel's ESL mode; rungs 2-4: the
     leading leap), on the grid that the render state holds; with
     ``shading="phong"`` it is BASELINE config 4's forward
-    (``volrt/bench/harness.py:636-650``).
+    (``volrt/bench/harness.py:636-650``). ``fast=True`` (rung 5 only)
+    renders ``volrt``'s fast mode, the bf16 density through the kernel's
+    bf16 instance, as ``volrt``'s ``bench_fwd_step`` times its forward
+    (``harness.py:692``); the default, f32, keeps the port's recorded
+    figures. ``precision`` in the result says which.
 
     Times the rung's ``render_float`` whole (ray setup, the volume's
     conversion to what the kernel reads, and the march) with CUDA events,
@@ -400,13 +411,16 @@ def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
         raise ValueError("bench_fwd_step times a CUDA device")
     if shading not in (None, "diffuse", "phong"):
         raise ValueError(f"unknown shading: {shading!r}")
+    if fast and renderer != 5:
+        raise ValueError("fast is a mode of rung 5's kernel only")
     rc = bench_pose(volume_size, viewport, device,
                     "nearest" if renderer == 2 else "trilinear")
     if shading:
         rc = rc.replace(light_kd=0.6, shading=shading)
     rc = rc.replace(esl=esl)
     render_float = get_renderer(renderer).render_float
-    times = time_cuda(lambda: render_float(rc), iters)
+    kw = dict(fast=True) if fast else {}
+    times = time_cuda(lambda: render_float(rc, **kw), iters)
     ms = float(np.median(times))
     n_rays = viewport * viewport
     n_steps = int(2.0 / rc.ray_step)
@@ -417,7 +431,7 @@ def bench_fwd_step(volume_size: int = 256, viewport: int = 1024,
         "rays_per_s": n_rays / (ms * 1e-3),
         "ray_steps_per_s": n_rays * n_steps / (ms * 1e-3),
         "device": torch.cuda.get_device_name(device),
-        "precision": "f32",
+        "precision": "bf16" if fast else "f32",
     }
 
 
@@ -463,7 +477,8 @@ def crop_bench_scene(viewport: int,
 def bench_diff_step(volume_size: int = 256, viewport: int = 1024,
                     ray_step: float | None = None, iters: int = 20,
                     fused: bool = True, onepass: bool = False,
-                    device: torch.device | str | None = None) -> dict:
+                    device: torch.device | str | None = None,
+                    fast: bool = False) -> dict:
     """Time one differentiable forward+backward step (loss and gradients
     of both leaves) on the card: the repo's headline metric, rays*steps/s
     for forward plus backward.
@@ -481,10 +496,18 @@ def bench_diff_step(volume_size: int = 256, viewport: int = 1024,
     ``ray_steps_per_s = n_rays * int(2 / ray_step) / t``. There is no
     ``mfu`` and no ``model_flops``: ``volrt``'s count one-hot matrix-unit
     FLOPs of the TPU kernels, which these kernels do not do.
+
+    ``fast=True`` steps in ``volrt``'s fast mode (the kernels' bf16
+    instances on the density's bf16 copy), as ``volrt``'s
+    ``bench_diff_step`` does (``harness.py:566, 595``); the default, f32,
+    keeps the port's recorded figures. The plain march (``fused=False``)
+    has no fast mode. ``precision`` in the result says which.
     """
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("bench_diff_step times a CUDA device")
+    if fast and not fused:
+        raise ValueError("fast is a mode of the kernels (fused=True)")
     scene, view, target = diff_bench_scene(volume_size, viewport, ray_step,
                                            device)
     leaves = [scene.density, scene.tf_base]
@@ -492,12 +515,13 @@ def bench_diff_step(volume_size: int = 256, viewport: int = 1024,
     if fused and onepass:
         def step():
             return diff_v3.l2_loss_grads_v3_onepass(
-                scene, view, target, ray_threshold=2.0)
+                scene, view, target, ray_threshold=2.0, fast=fast)
     else:
         render = diff_v3.render_image_v3 if fused else render_diff_image
+        kw = dict(fast=True) if fast else {}
 
         def step():
-            img = render(scene, view, ray_threshold=2.0)
+            img = render(scene, view, ray_threshold=2.0, **kw)
             loss = torch.mean((img - target) ** 2)
             return loss, torch.autograd.grad(loss, leaves)
 
@@ -515,7 +539,7 @@ def bench_diff_step(volume_size: int = 256, viewport: int = 1024,
         "ray_steps_per_s": n_rays * n_steps / (ms * 1e-3),
         "loss": float(last[-1]),
         "device": torch.cuda.get_device_name(device),
-        "precision": "f32",
+        "precision": "bf16" if fast else "f32",
     }
 
 
@@ -555,6 +579,7 @@ def _sharded_times(mesh, volume_size: int, viewport: int, iters: int,
         "ms_ndev": out["n"],
         "scaling_efficiency": out["1"] / (out["n"] * n),
         "device": torch.cuda.get_device_name(dev),
+        "precision": "f32",
     }
 
 
@@ -584,6 +609,8 @@ def bench_sharded_render(volume_size: int = 64, viewport: int = 512,
     card). ``cards`` counts the cards the ranks ran on: where it is less
     than ``devices`` the ranks shared a card, and the efficiency measures
     how the card takes their turns, not scaling. Times CUDA devices only.
+    Always f32 (``precision``): ``render_float_sharded`` has no fast mode,
+    in ``volrt`` either (``volrt/dist/render.py:138``).
     """
     import tempfile
 

@@ -37,6 +37,10 @@ imports ``volrt_torch`` from that root, builds its kernels and times, at
 - where the root has them (``wide=``), the 64-bit voxel offsets'
   instances on the same volumes: ``march_blocked wide`` on the ladder's
   pose, ``diff_blocked_fwd``/``_bwd`` ``wide`` on scene ``a``;
+- where the root has the fast mode (the v3 kernels' bf16 instances), on
+  scene ``a``'s density as bf16: ``march_fwd``, ``march_bwd`` and
+  ``l2_step`` (``bf16``) unshaded, in phong mode, in ESL mode and in
+  both, and the one-launch step with ``fast=True``;
 - the round-1 routes beside them: ``diff_blocked_fwd`` and
   ``diff_blocked_bwd`` (whole, ``need_dtf=False``, ``need_dvol=False``) on
   both scenes, and the ``render_image_fused(blocked=True)`` step on scene
@@ -118,15 +122,18 @@ _CLASS_OF = {op: c for c, ops in OPCODE_CLASSES.items() for op in ops}
 # kernels' shading mode (march_common.cuh:Shade, by its value: 0 none, 1
 # the diffuse tap, 2 phong, so that the two modes that were a bool keep
 # their names), their ESL mode (march_common.cuh:Esl) or their slab mode
-# (march_common.cuh:Slab), and what the report calls it. ESL on reads
-# "esl" and the slab mode "slab"; off, each is left out, so that a variant
-# with either off keeps the name it had before the mode, and its SASS is
-# compared with a tree from before it.
+# (march_common.cuh:Slab), the v3 kernels' voxel type
+# (march_common.cuh:Voxel), and what the report calls it. ESL on reads
+# "esl", the slab mode "slab" and the bf16 voxels "bf16"; off (f32 for
+# the voxels), each is left out, so that a variant with either off keeps
+# the name it had before the mode, and its SASS is compared with a tree
+# from before it.
 _ESL_ARG = r"L(?:N5volrt|NS\d*_)3EslE[01]E"
 _SLAB_ARG = r"L(?:N5volrt|NS\d*_)4SlabE[01]E"
-_MODE_ARGS = {_ESL_ARG: "esl", _SLAB_ARG: "slab"}
+_VOXEL_ARG = r"L(?:N5volrt|NS\d*_)5VoxelE[01]E"
+_MODE_ARGS = {_ESL_ARG: "esl", _SLAB_ARG: "slab", _VOXEL_ARG: "bf16"}
 _TEMPLATE_ARG = (r"[hf]|Lb[01]E|L(?:N5volrt5ShadeE|S\d*_)[0-2]E|"
-                 + _ESL_ARG + "|" + _SLAB_ARG)
+                 + "|".join(_MODE_ARGS))
 _TEMPLATE_ARGS = {"h": "u8", "f": "f32"}
 
 
@@ -142,8 +149,8 @@ def _arg_name(arg: str) -> str | None:
 def variant_name(mangled: str) -> str | None:
     """``march_ladder_kernel<u8,0,0,1>`` for a mangled kernel name of
     :data:`KERNELS` (template arguments in order: voxel type or shading
-    mode, the ESL and slab modes where on, then the bools), None for any
-    other function."""
+    mode, the ESL and slab modes and the bf16 voxels where on, then the
+    bools), None for any other function."""
     for kernel in KERNELS:
         m = re.search(kernel + f"(?:I((?:{_TEMPLATE_ARG})*)E)?", mangled)
         if m:
@@ -424,6 +431,7 @@ def child(root: str, sass_file: str | None = None,
     has_phong = "phong" in inspect.signature(march_fwd).parameters
     has_esl = "esl" in inspect.signature(march_fwd).parameters
     has_wide = "wide" in inspect.signature(diff_blocked_fwd).parameters
+    has_fast = hasattr(march_fwd, "launches_bf16")
     _build.load()
     lib = _build.library_path()
     sass = cuobjdump_sass(str(lib))
@@ -511,6 +519,7 @@ def child(root: str, sass_file: str | None = None,
                 # phong, and the grid alone.
                 t["scene_esl"] = med(lambda: diff_v3.scene_esl(scene))
                 esl = diff_v3.scene_esl(scene)
+                esl_args = {}
                 for mode, kd, phong in (("", 0.0, False),
                                         (" phong", 0.6, True)):
                     s_args, s_kw = fwd_v3.ray_args(
@@ -518,6 +527,7 @@ def child(root: str, sass_file: str | None = None,
                         scene.ray_step, 2.0, kd,
                         loss_scale=2.0 / (1024 * 1024 * 4), phong=phong,
                         esl=esl)
+                    esl_args[mode + " esl"] = (s_args, s_kw)
                     s_out = march_fwd(*s_args, **s_kw)
                     s_g = s_out * s_args[7][6]
                     t["march_fwd" + mode + " esl"] = med(
@@ -545,11 +555,35 @@ def child(root: str, sass_file: str | None = None,
                                      args, dict(kw, wide=True), med,
                                      forwards_only)
                 t.update({k + " wide": v for k, v in wide.items()})
+            if name == "a" and has_fast:
+                # The bf16 instances on the density's bf16 copy, unshaded,
+                # phong and ESL (the grid of the f32 density) as above.
+                modes = {"": (args, kw)}
+                if has_phong:
+                    modes[" phong"] = (p_args, p_kw)
+                if has_esl:
+                    modes.update(esl_args)
+                for mode, (m_args, m_kw) in modes.items():
+                    f_args = (*m_args[:5], m_args[5].to(torch.bfloat16),
+                              *m_args[6:])
+                    f_out = march_fwd(*f_args, **m_kw)
+                    f_g = f_out * m_args[7][6]
+                    t["march_fwd" + mode + " bf16"] = med(
+                        lambda: march_fwd(*f_args, **m_kw))
+                    if not forwards_only:
+                        t["l2_step" + mode + " bf16"] = med(
+                            lambda: l2_step(*f_args, tgt, **m_kw))
+                        t["march_bwd" + mode + " bf16"] = med(
+                            lambda: march_bwd(*f_args, f_out, f_g, **m_kw))
         leaves[name] = t
         if forwards_only:
             continue
         t["step onepass"] = med(lambda: diff_v3.l2_loss_grads_v3_onepass(
             scene, view, target, ray_threshold=2.0)[0])
+        if name == "a" and has_fast:
+            t["step onepass fast"] = med(
+                lambda: diff_v3.l2_loss_grads_v3_onepass(
+                    scene, view, target, ray_threshold=2.0, fast=True)[0])
         params = [scene.density, scene.tf_base]
 
         def two_kernel():
@@ -649,6 +683,11 @@ VARIANT_ROWS = (
     ("a", "march_fwd phong", "march_fwd_kernel<2,1>", "a"),
     ("a", "march_fwd esl", "march_fwd_kernel<0,esl,1>", "a"),
     ("a", "march_fwd phong esl", "march_fwd_kernel<2,esl,1>", "a"),
+    ("a", "march_fwd bf16", "march_fwd_kernel<0,bf16,1>", "a"),
+    ("a", "march_fwd phong bf16", "march_fwd_kernel<2,bf16,1>", "a"),
+    ("a", "march_fwd esl bf16", "march_fwd_kernel<0,esl,bf16,1>", "a"),
+    ("a", "march_fwd phong esl bf16", "march_fwd_kernel<2,esl,bf16,1>",
+     "a"),
     ("a", "march_bwd", "march_bwd_kernel<0,1,1,1>", None),
     ("a", "l2_step", "l2_step_kernel<0,1,1,1>", None),
     ("a", "march_bwd phong", "march_bwd_kernel<2,1,1,1>", None),
@@ -657,6 +696,16 @@ VARIANT_ROWS = (
     ("a", "l2_step esl", "l2_step_kernel<0,esl,1,1,1>", None),
     ("a", "march_bwd phong esl", "march_bwd_kernel<2,esl,1,1,1>", None),
     ("a", "l2_step phong esl", "l2_step_kernel<2,esl,1,1,1>", None),
+    ("a", "march_bwd bf16", "march_bwd_kernel<0,bf16,1,1,1>", None),
+    ("a", "l2_step bf16", "l2_step_kernel<0,bf16,1,1,1>", None),
+    ("a", "march_bwd phong bf16", "march_bwd_kernel<2,bf16,1,1,1>", None),
+    ("a", "l2_step phong bf16", "l2_step_kernel<2,bf16,1,1,1>", None),
+    ("a", "march_bwd esl bf16", "march_bwd_kernel<0,esl,bf16,1,1,1>", None),
+    ("a", "l2_step esl bf16", "l2_step_kernel<0,esl,bf16,1,1,1>", None),
+    ("a", "march_bwd phong esl bf16", "march_bwd_kernel<2,esl,bf16,1,1,1>",
+     None),
+    ("a", "l2_step phong esl bf16", "l2_step_kernel<2,esl,bf16,1,1,1>",
+     None),
     ("a", "march_bwd ERT 0.95", "march_bwd_kernel<0,0,1,1>", None),
     ("a", "l2_step ERT 0.95", "l2_step_kernel<0,0,1,1>", None),
     ("a", "diff_blocked_bwd", "round1_bwd_kernel<1,1,1>", None),

@@ -24,8 +24,11 @@ fits a PVM or RAW file (``-f``) or the synthetic volume; ``--checkpoint``
 (a ``.npz`` file that ``volrt`` reads too), ``--checkpoint-every`` and
 ``--resume`` save and resume; ``--esl`` trains with empty-space skipping.
 ``bench`` is ``volrt``'s suite (``default_suite``'s configs, every rung,
-eight poses; ``--diff`` adds the training steps; ``-o`` writes the tables
-as CSV); the one-line headline is ``python -m volrt_torch.bench``.
+eight poses; ``--diff`` adds the training steps, in ``volrt``'s fast mode
+with ``--fast``; ``-o`` writes the tables as CSV); the one-line headline
+is ``python -m volrt_torch.bench``. ``fit --fused`` trains in ``volrt``'s
+fast mode (the density stored as bf16 for the kernels), as ``volrt``'s
+does.
 ``--log FILE`` writes the session to ``FILE`` and echoes it to stdout
 (``volrt``'s default is ``volrt.log``; the port writes no file unless
 asked). Not ported: ``bench --sharded``, ``fit --dist`` (both with
@@ -333,7 +336,8 @@ def cmd_bench(args) -> int:
     if args.diff:
         diff_cfgs = [(64, 256), (128, 512)] if args.small else None
         run_diff_suite(configs=diff_cfgs, frames=max(2, args.frames // 2),
-                       profiler=prof, logger=log, device=args.device)
+                       profiler=prof, logger=log, device=args.device,
+                       fast=args.fast)
     if args.sharded:
         from volrt_torch.bench.harness import bench_sharded_render
 
@@ -432,7 +436,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint if it exists")
     p.add_argument("--fused", action="store_true",
-                   help="train through the one-launch L2 step kernel")
+                   help="train through the one-launch L2 step kernel, in "
+                   "volrt's fast mode (bf16 density, f32 gradients)")
     p.add_argument("--esl", action="store_true",
                    help="skip TF-empty space during training (the "
                    "kernel's sample skipping with --fused, the leading "
@@ -472,6 +477,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--diff", action="store_true",
                    help="append the training steps' rows (the two-kernel "
                    "and the one-launch L2 step)")
+    p.add_argument("--fast", action="store_true",
+                   help="run --diff's steps in volrt's fast mode (bf16 "
+                   "density), as volrt's suite does; f32 without")
     p.add_argument("--sharded", action="store_true",
                    help="the sharded render over --ranks ranks against one "
                    "(under torchrun, its ranks)")

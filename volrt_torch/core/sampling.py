@@ -106,6 +106,69 @@ def cell_sample(grid: torch.Tensor, cell: tuple) -> torch.Tensor:
     return _lerp(c0, c1, fz)
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even) and widened back
+    to f32, exactly: what ``jnp.astype(jnp.bfloat16)`` gives."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _fast_axis(u: torch.Tensor, n: torch.Tensor) -> tuple:
+    """One axis of :func:`fast_cell` at the clipped voxel coordinate ``u``
+    in ``[0, n - 1]``: the two taps and the second tap's hat weight."""
+    i0 = torch.floor(u)
+    lo = 1.0 - (u - i0)
+    i0 = i0.to(torch.int64)
+    return i0, torch.minimum(i0 + 1, (n - 1).to(torch.int64)), 1.0 - lo
+
+
+def fast_cell(shape: tuple[int, int, int], pos: torch.Tensor,
+              slab: tuple[int, int] | None = None) -> tuple:
+    """The cell ``(i0, i1, frac)`` of ``volrt``'s fast (bf16) sample at
+    ``pos (..., 3)`` in a grid of ``shape (D, H, W)``, as its v3 kernels
+    take it (``volrt/renderers/pallas/diff_v3.py:_geometry``,
+    ``_band_sample``): the voxel coordinate ``(pos+1)*0.5*n - 0.5``
+    clipped to ``[0, n - 1]``, its floor and the next voxel (clamped), and
+    the hat weights ``lo = 1 - frac`` rounded, ``hi = 1 - lo`` (exact),
+    ``frac`` holding ``hi``. ``slab = (z_off, full_d)``: ``shape`` is rows
+    ``z_off ..`` of a volume ``full_d`` deep, whose clipped z coordinate
+    less ``z_off`` is clipped again to the slab's rows."""
+    d, h, w = shape
+    full_d = d if slab is None else slab[1]
+    n = torch.tensor([w, h, full_d], dtype=torch.float32, device=pos.device)
+    u = torch.minimum(((pos + 1.0) * 0.5 * n - 0.5).clamp(min=0.0), n - 1.0)
+    if slab is not None:
+        uz = (u[..., 2] - float(slab[0])).clamp(0.0, float(d - 1))
+        u = torch.stack([u[..., 0], u[..., 1], uz], -1)
+        n = torch.tensor([w, h, d], dtype=torch.float32, device=pos.device)
+    i0, i1, frac = zip(*(_fast_axis(u[..., a], n[a]) for a in range(3)))
+    return (torch.stack(i0, -1), torch.stack(i1, -1),
+            torch.stack(frac, -1))
+
+
+def cell_sample_fast(grid: torch.Tensor, cell: tuple) -> torch.Tensor:
+    """``volrt``'s fast trilinear sample of a ``bf16[D, H, W]`` grid over a
+    cell (:func:`fast_cell`) -> ``f32``, as its v3 kernels compute it
+    (``diff_v3.py:_expand_taps``, ``_band_sample``): each (z, y) weight
+    product rounded to bf16, the four rows of taps summed z-major in f32
+    (bf16 x bf16 products are exact there), then ``sum_x hat_x * row_x``
+    in f32."""
+    _, h, w = grid.shape
+    (x0, y0, z0), (x1, y1, z1), (fx, fy, fz) = (c.unbind(-1) for c in cell)
+    flat = grid.reshape(-1)
+    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
+    w00, w01 = round_bf16(gz * gy), round_bf16(gz * fy)
+    w10, w11 = round_bf16(fz * gy), round_bf16(fz * fy)
+
+    def row(x):
+        def tap(z, y):
+            return flat[(z * h + y) * w + x].to(torch.float32)
+
+        return (((w00 * tap(z0, y0) + w01 * tap(z0, y1)) + w10 * tap(z1, y0))
+                + w11 * tap(z1, y1))
+
+    return gx * row(x0) + fx * row(x1)
+
+
 def cell_taps(shape: tuple[int, int, int], cell: tuple
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The eight taps of a cell ``(i0, i1, frac)`` (:func:`trilinear_cell`)
@@ -133,16 +196,21 @@ def trilinear_taps(shape: tuple[int, int, int], pos: torch.Tensor
     return cell_taps(shape, trilinear_cell(shape, pos)[1])
 
 
-def gradient_cells(shape: tuple[int, int, int], pos: torch.Tensor) -> list:
+def gradient_cells(shape: tuple[int, int, int], pos: torch.Tensor,
+                   fast: bool = False) -> list:
     """The six cells of the v3 kernels' central-difference gradient at
     ``pos (N, 3)`` (``volrt/renderers/pallas/diff_v3.py:1226-1262``), in
     the order x + 1, x - 1, y + 1, y - 1, z + 1, z - 1: each takes the
     sample's voxel coordinate on one axis, clipped to ``[0, N-1]``,
     shifted by one voxel and clipped again, and keeps the sample's own
     clamp-addressed cell on the other two. The gradient's components are
-    the differences of the pairs' samples, with no division by 2."""
+    the differences of the pairs' samples, with no division by 2.
+    ``fast``: the cells of the fast sample (:func:`fast_cell`'s, and its
+    hat weights on the shifted axis)."""
     d, h, w = shape
     t, (i0, i1, frac) = trilinear_cell(shape, pos)
+    if fast:
+        i0, i1, frac = fast_cell(shape, pos)
     top = torch.tensor([w - 1, h - 1, d - 1], dtype=torch.float32,
                        device=pos.device)
     tc = torch.minimum(t.clamp(min=0.0), top)
@@ -150,10 +218,13 @@ def gradient_cells(shape: tuple[int, int, int], pos: torch.Tensor) -> list:
     for axis in range(3):
         for by in (1.0, -1.0):
             u = torch.minimum((tc[:, axis] + by).clamp(min=0.0), top[axis])
-            j0 = torch.floor(u)
-            f = u - j0
-            j0 = j0.to(torch.int64)
-            j1 = torch.minimum(j0 + 1, top[axis].to(torch.int64))
+            if fast:
+                j0, j1, f = _fast_axis(u, top[axis] + 1.0)
+            else:
+                j0 = torch.floor(u)
+                f = u - j0
+                j0 = j0.to(torch.int64)
+                j1 = torch.minimum(j0 + 1, top[axis].to(torch.int64))
             lo, hi, fr = i0.clone(), i1.clone(), frac.clone()
             lo[:, axis], hi[:, axis], fr[:, axis] = j0, j1, f
             cells.append((lo, hi, fr))

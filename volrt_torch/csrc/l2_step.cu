@@ -3,7 +3,10 @@
 // cotangent of the mean-square loss, and replays the march backward.
 //
 // Replaces volrt/renderers/pallas/diff_v3.py:_fused_kernel in its unshaded,
-// diffuse and phong modes, each with ESL and without, over an f32 volume.
+// diffuse and phong modes, each with ESL and without, over an f32 volume
+// or, in its fast mode (Voxel::kBf16, volrt's fast=True, the mode its
+// trainer runs), a bf16 one: both marches sample as march_fwd.cu's fast
+// instance does, and the scatter into the f32 d_vol keeps f32 weights.
 // The TPU kernel keeps each tile's sample values in VMEM scratch between
 // its forward and backward passes, to spare their round trip through HBM;
 // here nothing per sample is kept at all, phong's gradient channels
@@ -34,7 +37,8 @@ namespace {
 
 using namespace volrt;
 
-template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, Esl E, Voxel X, bool NO_ERT, bool NEED_DTF,
+          bool NEED_DVOL>
 __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
     MarchArgs a, const float* tgt, float* out, GradArgs gr, EslArgs esl) {
   __shared__ float4 lut[LUT_ROWS];
@@ -47,6 +51,7 @@ __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
   }
   __syncthreads();
 
+  using V = typename VoxelOf<X>::T;
   const int r = ray_index(a);
   bool live = false;
   Ray ray{};
@@ -59,7 +64,7 @@ __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
     if (live) {
       ray = load_ray(a, r);
       li = load_light(a);
-      march_forward<S, E, NO_ERT>(a, lut, esl, ray, li, acc);
+      march_forward<S, E, NO_ERT, V>(a, lut, esl, ray, li, acc);
     }
     reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
     if (live && (NEED_DTF || NEED_DVOL)) {
@@ -78,7 +83,7 @@ __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
   }
   if (NEED_DTF || NEED_DVOL) {
     // The whole warp, lanes with no ray to replay too (march_replay).
-    march_replay<S, E, NO_ERT, NEED_DTF, NEED_DVOL>(
+    march_replay<S, E, NO_ERT, NEED_DTF, NEED_DVOL, V>(
         a, lut, esl, NEED_DTF ? warp_dtf(dtf) : dtf, gr.d_vol, ray, li, g4,
         G, live);
   }
@@ -88,41 +93,58 @@ __global__ void __launch_bounds__(TILE * TILE) l2_step_kernel(
   }
 }
 
-template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, Esl E, Voxel X, bool NO_ERT, bool NEED_DTF,
+          bool NEED_DVOL>
 void launch(const MarchArgs& a, const float* tgt, float* out,
             const GradArgs& gr, const EslArgs& esl, cudaStream_t stream) {
-  l2_step_kernel<S, E, NO_ERT, NEED_DTF, NEED_DVOL>
+  l2_step_kernel<S, E, X, NO_ERT, NEED_DTF, NEED_DVOL>
       <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, tgt, out, gr, esl);
 }
 
-template <Shade S, Esl E, bool NO_ERT>
+template <Shade S, Esl E, Voxel X, bool NO_ERT>
 void launch_need(const MarchArgs& a, const float* tgt, float* out,
                  const GradArgs& gr, const EslArgs& esl, bool dtf, bool dvol,
                  cudaStream_t s) {
   if (dtf) {
-    dvol ? launch<S, E, NO_ERT, true, true>(a, tgt, out, gr, esl, s)
-         : launch<S, E, NO_ERT, true, false>(a, tgt, out, gr, esl, s);
+    dvol ? launch<S, E, X, NO_ERT, true, true>(a, tgt, out, gr, esl, s)
+         : launch<S, E, X, NO_ERT, true, false>(a, tgt, out, gr, esl, s);
   } else {
-    dvol ? launch<S, E, NO_ERT, false, true>(a, tgt, out, gr, esl, s)
-         : launch<S, E, NO_ERT, false, false>(a, tgt, out, gr, esl, s);
+    dvol ? launch<S, E, X, NO_ERT, false, true>(a, tgt, out, gr, esl, s)
+         : launch<S, E, X, NO_ERT, false, false>(a, tgt, out, gr, esl, s);
   }
 }
 
-template <Shade S, Esl E>
+template <Shade S, Esl E, Voxel X>
 void launch_ert(const MarchArgs& a, const float* tgt, float* out,
                 const GradArgs& gr, const EslArgs& esl, bool no_ert, bool dtf,
                 bool dvol, cudaStream_t s) {
-  no_ert ? launch_need<S, E, true>(a, tgt, out, gr, esl, dtf, dvol, s)
-         : launch_need<S, E, false>(a, tgt, out, gr, esl, dtf, dvol, s);
+  no_ert ? launch_need<S, E, X, true>(a, tgt, out, gr, esl, dtf, dvol, s)
+         : launch_need<S, E, X, false>(a, tgt, out, gr, esl, dtf, dvol, s);
 }
 
-template <Shade S>
-void launch_mode(const MarchArgs& a, const float* tgt, float* out,
-                 const GradArgs& gr, const EslArgs& esl, bool no_ert,
-                 bool dtf, bool dvol, cudaStream_t s) {
+template <Shade S, Voxel X>
+void launch_esl(const MarchArgs& a, const float* tgt, float* out,
+                const GradArgs& gr, const EslArgs& esl, bool no_ert,
+                bool dtf, bool dvol, cudaStream_t s) {
   esl.words
-      ? launch_ert<S, Esl::kOn>(a, tgt, out, gr, esl, no_ert, dtf, dvol, s)
-      : launch_ert<S, Esl::kOff>(a, tgt, out, gr, esl, no_ert, dtf, dvol, s);
+      ? launch_ert<S, Esl::kOn, X>(a, tgt, out, gr, esl, no_ert, dtf, dvol, s)
+      : launch_ert<S, Esl::kOff, X>(a, tgt, out, gr, esl, no_ert, dtf, dvol,
+                                    s);
+}
+
+template <Voxel X>
+int launch_mode(const MarchArgs& a, const float* tgt, float* out,
+                const GradArgs& gr, const EslArgs& esl, int shade,
+                bool no_ert, bool dtf, bool dvol, cudaStream_t s) {
+  if (shade == 2) {
+    launch_esl<Shade::kPhong, X>(a, tgt, out, gr, esl, no_ert, dtf, dvol, s);
+  } else if (shade) {
+    launch_esl<Shade::kDiffuse, X>(a, tgt, out, gr, esl, no_ert, dtf, dvol,
+                                   s);
+  } else {
+    launch_esl<Shade::kNone, X>(a, tgt, out, gr, esl, no_ert, dtf, dvol, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -131,14 +153,16 @@ void launch_mode(const MarchArgs& a, const float* tgt, float* out,
 // the target image in raster order; `out` receives the rendered image;
 // `d_vol` and `d_tf` must come in zero-filled and are accumulated into.
 // `esl_words` and `esl_block` are the ESL grid (null and 0 without ESL).
-// Shapes, types and contiguity are checked by the Python wrapper.
+// `voxel` is the volume's type: 0 f32, 1 bf16 (the fast mode); d_vol is
+// f32 in either. Shapes, types and contiguity are checked by the Python
+// wrapper.
 extern "C" int volrt_l2_step(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
     const void* tf, const void* scal, const void* tgt, void* out,
     void* d_vol, void* d_tf, int n, int width, float step, int max_steps,
     int shade, int no_ert, int need_dtf, int need_dvol, const void* esl_words,
-    int esl_block, void* stream) {
+    int esl_block, int voxel, void* stream) {
   const MarchArgs a = make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                       tf, scal, n, width, step, max_steps);
   const GradArgs gr{static_cast<float*>(d_vol), static_cast<float*>(d_tf)};
@@ -147,12 +171,11 @@ extern "C" int volrt_l2_step(
   float* dst = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dtf = need_dtf != 0, dvol = need_dvol != 0;
-  if (shade == 2) {
-    launch_mode<Shade::kPhong>(a, ct, dst, gr, esl, no_ert, dtf, dvol, s);
-  } else if (shade) {
-    launch_mode<Shade::kDiffuse>(a, ct, dst, gr, esl, no_ert, dtf, dvol, s);
-  } else {
-    launch_mode<Shade::kNone>(a, ct, dst, gr, esl, no_ert, dtf, dvol, s);
+  if (voxel == 1) {
+    return launch_mode<Voxel::kBf16>(a, ct, dst, gr, esl, shade, no_ert != 0,
+                                     dtf, dvol, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (voxel != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mode<Voxel::kF32>(a, ct, dst, gr, esl, shade, no_ert != 0,
+                                  dtf, dvol, s);
 }

@@ -44,9 +44,18 @@
 // int-to-float conversion on the unshaded f32 path (they run on a pipe
 // that retires 16 results a clock an SM, against 128 for FP32), the eight
 // tap addresses as a base and three steps, the TF as padded float4 rows.
+//
+// The fast mode (volrt's fast=True on its v3 kernels, diff_v3.py): the
+// density stored as bf16 and each trilinear sample taken as volrt's fast
+// kernels take it, sum_x hat_x (sum_{z,y} bf16(hat_z hat_y) v), on the
+// voxel coordinate clipped to [0, n - 1] (cell_at_fast, the bf16 overload
+// of trilinear). The v3 kernels take it as an instance of their own
+// (Voxel::kBf16); the f32 instances keep the functions they had, through
+// templates whose f32 instantiation is the code it was.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace volrt {
@@ -66,6 +75,18 @@ constexpr float PHONG_KS = 0.2f;
 // volrt/renderers/pallas/diff_v3.py:1219-1262, 1349-1380). Each mode is an
 // instantiation of its own, so that one mode's code never enters another's.
 enum class Shade { kNone, kDiffuse, kPhong };
+
+// The v3 kernels' volume type: f32, or bf16 in the fast mode. VoxelOf
+// names the C++ type, IsBf16 tells the fast one apart.
+enum class Voxel { kF32, kBf16 };
+
+template <Voxel X> struct VoxelOf { using T = float; };
+template <> struct VoxelOf<Voxel::kBf16> { using T = __nv_bfloat16; };
+
+template <typename V> struct IsBf16 { static constexpr bool value = false; };
+template <> struct IsBf16<__nv_bfloat16> {
+  static constexpr bool value = true;
+};
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -94,6 +115,12 @@ struct MarchArgs {
   float step;
   int max_steps;
 };
+
+// The volume as the kernel's voxel type V reads it.
+template <typename V>
+__device__ __forceinline__ const V* voxels(const MarchArgs& a) {
+  return reinterpret_cast<const V*>(a.vol);
+}
 
 // Where the backward accumulates. Both are zero-filled by the caller.
 struct GradArgs {
@@ -232,6 +259,59 @@ __device__ __forceinline__ Cell<I> cell_at(const Grid<I>& g, float px,
   return t;
 }
 
+// One axis of the fast sample's cell (volrt's _geometry and hat weights,
+// diff_v3.py:809-841, 880-893): u is the voxel coordinate clipped to
+// [0, n - 1]; the first tap is its floor, the step to the second is the
+// stride, or 0 at n - 1 (whose weight is then 0); f is the second tap's
+// hat weight 1 - |floor + 1 - u| = 1 - RN(1 - frac), exact, so that
+// 1 - f gives the first tap's, RN(1 - frac), as volrt's hats do.
+__device__ __forceinline__ float clip_coord(float p, float half_n, int n) {
+  return fminf(fmaxf(sub(mul(add(p, 1.f), half_n), 0.5f), 0.f),
+               static_cast<float>(n - 1));
+}
+
+template <typename I>
+__device__ __forceinline__ void fast_axis(float u, int n, I stride, I& off,
+                                          int& step, float& f) {
+  const float m = floor_biased(u);
+  f = sub(1.f, sub(1.f, sub(u, sub(m, FLOOR_BIAS))));
+  const int i = floor_int(m);
+  off = static_cast<I>(i) * stride;
+  step = i < n - 1 ? static_cast<int>(stride) : 0;
+}
+
+// The fast cell at x and y, and at the z coordinate uz already clipped to
+// the grid's rows (the volume's, or a slab's: cell_at_slab_fast).
+template <typename I>
+__device__ __forceinline__ Cell<I> cell_at_fast_z(const Grid<I>& g,
+                                                  float px, float py,
+                                                  float uz) {
+  Cell<I> t;
+  I ox, oy, oz;
+  fast_axis<I>(clip_coord(px, g.hx, g.w), g.w, 1, ox, t.sx, t.fx);
+  fast_axis<I>(clip_coord(py, g.hy, g.h), g.h, g.w, oy, t.sy, t.fy);
+  fast_axis<I>(uz, g.depth, g.wh, oz, t.sz, t.fz);
+  t.base = ox + oy + oz;
+  return t;
+}
+
+template <typename I>
+__device__ __forceinline__ Cell<I> cell_at_fast(const Grid<I>& g, float px,
+                                                float py, float pz) {
+  return cell_at_fast_z(g, px, py, clip_coord(pz, g.hz, g.depth));
+}
+
+// The cell a sample of voxel type V takes: the fast one for bf16.
+template <typename V, typename I>
+__device__ __forceinline__ Cell<I> cell_of(const Grid<I>& g, float px,
+                                           float py, float pz) {
+  if constexpr (IsBf16<V>::value) {
+    return cell_at_fast(g, px, py, pz);
+  } else {
+    return cell_at(g, px, py, pz);
+  }
+}
+
 // The slab mode of the v3 forward and backward (volume-sharded rendering,
 // volrt/renderers/pallas/diff_v3.py:838-839, 863-864): the volume the
 // kernel holds is one Z-slab of a deeper one, rows z_off .. z_off + depth - 1
@@ -288,6 +368,20 @@ __device__ __forceinline__ Cell<I> cell_at_slab(const Grid<I>& g,
   return t;
 }
 
+// cell_at_slab in the fast mode: the whole volume's clipped z coordinate
+// less z_off, clipped to the slab's rows (volrt's _geometry with z_off).
+template <typename I>
+__device__ __forceinline__ Cell<I> cell_at_slab_fast(const Grid<I>& g,
+                                                     const SlabGrid& sg,
+                                                     float px, float py,
+                                                     float pz) {
+  const float uz = fminf(
+      fmaxf(sub(clip_coord(pz, sg.hz, sg.full_d),
+                static_cast<float>(sg.z_off)), 0.f),
+      static_cast<float>(g.depth - 1));
+  return cell_at_fast_z(g, px, py, uz);
+}
+
 // One axis of a phong gradient tap: the sample's voxel coordinate t
 // clipped to [0, n - 1], shifted by `by` (+1 or -1) and clipped again, as
 // v3 takes it (diff_v3.py:1226-1262); its first tap's offset, the step to
@@ -339,6 +433,43 @@ __device__ __forceinline__ void gradient_cells(const Grid<I>& g,
   }
 }
 
+// gradient_cells in the fast mode: the sample's own cell is the fast one
+// (cell_at_fast), and each shifted axis takes its hat weights.
+template <typename I>
+__device__ __forceinline__ void gradient_cells_fast(const Grid<I>& g,
+                                                    const Cell<I>& t,
+                                                    float px, float py,
+                                                    float pz,
+                                                    Cell<I> (&c)[6]) {
+  const float u[3] = {clip_coord(px, g.hx, g.w), clip_coord(py, g.hy, g.h),
+                      clip_coord(pz, g.hz, g.depth)};
+  const int n[3] = {g.w, g.h, g.depth};
+  const I stride[3] = {1, g.w, g.wh};
+  I o[3];
+  int s;
+  float f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) fast_axis<I>(u[a], n[a], stride[a], o[a], s, f);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float by = k == 0 ? 1.f : -1.f;
+    Cell<I>& cx = c[k];
+    Cell<I>& cy = c[2 + k];
+    Cell<I>& cz = c[4 + k];
+    cx = cy = cz = t;
+    I off;
+    const auto shift = [&](int a) {
+      return fminf(fmaxf(add(u[a], by), 0.f), static_cast<float>(n[a] - 1));
+    };
+    fast_axis<I>(shift(0), g.w, 1, off, cx.sx, cx.fx);
+    cx.base = off + o[1] + o[2];
+    fast_axis<I>(shift(1), g.h, g.w, off, cy.sy, cy.fy);
+    cy.base = o[0] + off + o[2];
+    fast_axis<I>(shift(2), g.depth, g.wh, off, cz.sz, cz.fz);
+    cz.base = o[0] + o[1] + off;
+  }
+}
+
 // One voxel as f32, a uint8 one widened by I2F, at an offset of an
 // unsigned type (Unsigned<I>::T).
 template <typename V, typename U>
@@ -361,6 +492,42 @@ __device__ __forceinline__ float trilinear(const V* vol, const Cell<I>& t) {
   const float c11 = add(mul(fetch(vol, b11), gx), mul(fetch(vol, b11 + t.sx), t.fx));
   return add(mul(add(mul(c00, gy), mul(c01, t.fy)), gz),
              mul(add(mul(c10, gy), mul(c11, t.fy)), t.fz));
+}
+
+// A bf16 voxel, widened to f32 exactly.
+template <typename U>
+__device__ __forceinline__ float fetch(const __nv_bfloat16* v, U i) {
+  return __bfloat162float(__ldg(v + i));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The fast sample of a cell (cell_at_fast) of a bf16 volume, as volrt's
+// fast kernels take it (diff_v3.py:_band_sample, _expand_taps): each
+// (z, y) weight product hat_z hat_y rounded to bf16; along each of the two
+// x taps, the four taps summed z-major (z0y0, z0y1, z1y0, z1y1), each
+// bf16 x bf16 product exact in f32, so that a fused multiply-add rounds
+// only its sum, as the f32 dot product does; then sum_x hat_x row_x.
+template <typename I>
+__device__ __forceinline__ float trilinear(const __nv_bfloat16* vol,
+                                           const Cell<I>& t) {
+  using U = typename Unsigned<I>::T;
+  const U b00 = t.base, b01 = b00 + t.sy;  // rows (z0,y0), (z0,y1)
+  const U b10 = b00 + t.sz, b11 = b10 + t.sy;  // (z1,y0), (z1,y1)
+  const float gx = sub(1.f, t.fx), gy = sub(1.f, t.fy), gz = sub(1.f, t.fz);
+  const float w00 = round_bf16(mul(gz, gy)), w01 = round_bf16(mul(gz, t.fy));
+  const float w10 = round_bf16(mul(t.fz, gy));
+  const float w11 = round_bf16(mul(t.fz, t.fy));
+  const auto row = [&](int x) {
+    return __fmaf_rn(
+        w11, fetch(vol, b11 + x),
+        __fmaf_rn(w10, fetch(vol, b10 + x),
+                  __fmaf_rn(w01, fetch(vol, b01 + x),
+                            mul(w00, fetch(vol, b00 + x)))));
+  };
+  return add(mul(gx, row(0)), mul(t.fx, row(t.sx)));
 }
 
 // x / 255 rounded to nearest, as __fdiv_rn(x, 255.f) rounds it, in three
@@ -500,7 +667,11 @@ __device__ __forceinline__ void shade_phong(const Grid<I>& g, const V* vol,
                                             float px, float py, float pz,
                                             Sample<I>& q) {
   PhongTerms<I>& f = q.ph;
-  gradient_cells(g, q.t, px, py, pz, f.tap);
+  if constexpr (IsBf16<V>::value) {
+    gradient_cells_fast(g, q.t, px, py, pz, f.tap);
+  } else {
+    gradient_cells(g, q.t, px, py, pz, f.tap);
+  }
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     f.g[a] = sub(trilinear(vol, f.tap[2 * a]), trilinear(vol, f.tap[2 * a + 1]));
@@ -559,7 +730,7 @@ __device__ __forceinline__ void classify(const Grid<I>& g, const V* vol,
     q.c[2] = row.z;
     q.c[3] = row.w;
   } else {
-    q.t = cell_at(g, px, py, pz);
+    q.t = cell_of<V>(g, px, py, pz);
     q.s = density_of<U>(trilinear(vol, q.t));
     tf_rgba(lut, q);
   }
@@ -579,7 +750,7 @@ __device__ __forceinline__ void classify(const Grid<I>& g, const V* vol,
       const float sl = nearest_voxel(vol, g, qx, qy, qz);
       delta = mul(sub(sl, q.s), static_cast<float>(1.0 / 255.0));
     } else {
-      q.t2 = cell_at(g, qx, qy, qz);
+      q.t2 = cell_of<V>(g, qx, qy, qz);
       delta = sub(density_of<U>(trilinear(vol, q.t2)), q.s);
     }
     const float diffuse = mul(delta, li.kd);
@@ -588,15 +759,16 @@ __device__ __forceinline__ void classify(const Grid<I>& g, const V* vol,
   }
 }
 
-// The classified sample of a density ray at ray parameter k.
-template <Shade S, typename I>
+// The classified sample of a density ray at ray parameter k, in a volume
+// of voxel type V (f32, or bf16 in the fast mode).
+template <Shade S, typename V = float, typename I>
 __device__ __forceinline__ void sample_at(const MarchArgs& a,
                                           const Grid<I>& g,
                                           const float4* lut, const Ray& ray,
                                           const Light& li, const Eye& e,
                                           float k, Sample<I>& q) {
-  classify<float, Units::kDensity, false, S>(
-      g, a.vol, lut, li, add(ray.ox, mul(ray.dx, k)),
+  classify<V, Units::kDensity, false, S>(
+      g, voxels<V>(a), lut, li, add(ray.ox, mul(ray.dx, k)),
       add(ray.oy, mul(ray.dy, k)), add(ray.oz, mul(ray.dz, k)), q, e);
 }
 
@@ -673,8 +845,8 @@ __device__ __forceinline__ bool esl_empty_cell(const EslArgs& e,
 // Sample i of the ray on the lattice k0 + i*step, i counted in f32 (exact
 // below 2^24, where max_steps lies): false once the ray has left the cube.
 // With ESL a sample whose cell is empty comes back with q.skip set and
-// colour 0, its taps never loaded.
-template <Shade S, Esl E, typename I>
+// colour 0, its taps never loaded. V is the voxel type (sample_at).
+template <Shade S, Esl E, typename V = float, typename I>
 __device__ __forceinline__ bool take_sample(const MarchArgs& a,
                                             const Grid<I>& g,
                                             const float4* lut, const Ray& ray,
@@ -693,7 +865,7 @@ __device__ __forceinline__ bool take_sample(const MarchArgs& a,
       return true;
     }
   }
-  sample_at<S>(a, g, lut, ray, li, e, k, q);
+  sample_at<S, V>(a, g, lut, ray, li, e, k, q);
   return true;
 }
 
@@ -706,8 +878,9 @@ __device__ __forceinline__ void composite(float acc[4], const float c[4]) {
 
 // The forward march of one live ray on the lattice k0 + i*step: acc must
 // come in as zeros. One sample an iteration, so that the loop's SASS counts
-// a sample. `esl` is the staged grid (unread without ESL).
-template <Shade S, Esl E, bool NO_ERT>
+// a sample. `esl` is the staged grid (unread without ESL); V the voxel
+// type.
+template <Shade S, Esl E, bool NO_ERT, typename V = float>
 __device__ __forceinline__ void march_forward(const MarchArgs& a,
                                               const float4* lut,
                                               const EslArgs& esl,
@@ -719,7 +892,7 @@ __device__ __forceinline__ void march_forward(const MarchArgs& a,
   Sample<> q;
 #pragma unroll 1
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
-    if (!take_sample<S, E>(a, g, lut, ray, li, e, esl, i, q)) break;
+    if (!take_sample<S, E, V>(a, g, lut, ray, li, e, esl, i, q)) break;
     if (E == Esl::kOn && q.skip) continue;
     composite(acc, q.c);
     if (!NO_ERT && acc[3] > li.thr) break;
@@ -1077,7 +1250,9 @@ __device__ __forceinline__ bool start_replay(const MarchArgs& a,
 // only while its own ray is live. With ESL a skipped sample takes part as
 // a lane that adds nothing (its colour 0 leaves the chain as it was), and
 // a step where no live lane of the warp has a sample is passed over whole.
-template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+// V is the voxel type; the scatter's weights are f32 in either.
+template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL,
+          typename V = float>
 __device__ __forceinline__ void march_replay(const MarchArgs& a,
                                              const float4* lut,
                                              const EslArgs& esl,
@@ -1091,7 +1266,7 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
   Sample<> q{};
   Chain ch;
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
-    if (live) live = take_sample<S, E>(a, g, lut, ray, li, e, esl, i, q);
+    if (live) live = take_sample<S, E, V>(a, g, lut, ray, li, e, esl, i, q);
     if (!__any_sync(FULL_WARP, live)) break;
     bool adds = live;
     if constexpr (E == Esl::kOn) {
@@ -1111,17 +1286,29 @@ __device__ __forceinline__ void march_replay(const MarchArgs& a,
 // the seed. They stand apart from the functions above, which the slab-off
 // kernels keep as they were, so that those kernels' code stays what it
 // was (the one-launch step's shaded variants are sensitive to the least
-// change of what is inlined into them).
-template <Shade S, typename I>
+// change of what is inlined into them). V is the voxel type: a bf16 slab
+// takes the fast cells (cell_at_slab_fast) and sample.
+template <typename V, typename I>
+__device__ __forceinline__ Cell<I> slab_cell_of(const Grid<I>& g,
+                                                const SlabGrid& sg, float px,
+                                                float py, float pz) {
+  if constexpr (IsBf16<V>::value) {
+    return cell_at_slab_fast(g, sg, px, py, pz);
+  } else {
+    return cell_at_slab(g, sg, px, py, pz);
+  }
+}
+
+template <Shade S, typename V, typename I>
 __device__ __forceinline__ void classify_slab(const Grid<I>& g,
                                               const SlabGrid& sg,
-                                              const float* vol,
+                                              const V* vol,
                                               const float4* lut,
                                               const Light& li, float px,
                                               float py, float pz,
                                               Sample<I>& q) {
   static_assert(S != Shade::kPhong, "the slab mode has no phong");
-  q.t = cell_at_slab(g, sg, px, py, pz);
+  q.t = slab_cell_of<V>(g, sg, px, py, pz);
   q.s = trilinear(vol, q.t);
   tf_rgba(lut, q);
   q.gate = false;
@@ -1130,7 +1317,7 @@ __device__ __forceinline__ void classify_slab(const Grid<I>& g,
     q.gate = true;
     float qx, qy, qz;
     light_tap(li, px, py, pz, qx, qy, qz);
-    q.t2 = cell_at_slab(g, sg, qx, qy, qz);
+    q.t2 = slab_cell_of<V>(g, sg, qx, qy, qz);
     const float diffuse = mul(sub(trilinear(vol, q.t2), q.s), li.kd);
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) q.c[ch] = add(q.c[ch], diffuse);
@@ -1138,7 +1325,7 @@ __device__ __forceinline__ void classify_slab(const Grid<I>& g,
 }
 
 // take_sample in slab mode: sample i of k0 + i*step, false past kfar.
-template <Shade S, Esl E>
+template <Shade S, Esl E, typename V = float>
 __device__ __forceinline__ bool take_sample_slab(const MarchArgs& a,
                                                  const Grid<>& g,
                                                  const SlabGrid& sg,
@@ -1163,7 +1350,7 @@ __device__ __forceinline__ bool take_sample_slab(const MarchArgs& a,
       return true;
     }
   }
-  classify_slab<S>(g, sg, a.vol, lut, li, px, py, pz, q);
+  classify_slab<S, V>(g, sg, voxels<V>(a), lut, li, px, py, pz, q);
   return true;
 }
 
@@ -1171,7 +1358,7 @@ __device__ __forceinline__ bool take_sample_slab(const MarchArgs& a,
 // opacity in front of the slab, and the samples composite behind it; a
 // ray whose seed is over the ERT threshold takes none (diff_v3.py:
 // 1410-1413).
-template <Shade S, Esl E, bool NO_ERT>
+template <Shade S, Esl E, bool NO_ERT, typename V = float>
 __device__ __forceinline__ void march_forward_slab(const MarchArgs& a,
                                                    const float4* lut,
                                                    const EslArgs& esl,
@@ -1185,7 +1372,7 @@ __device__ __forceinline__ void march_forward_slab(const MarchArgs& a,
   Sample<> q;
 #pragma unroll 1
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
-    if (!take_sample_slab<S, E>(a, g, sg, lut, ray, li, esl, i, q)) break;
+    if (!take_sample_slab<S, E, V>(a, g, sg, lut, ray, li, esl, i, q)) break;
     if (E == Esl::kOn && q.skip) continue;
     composite(acc, q.c);
     if (!NO_ERT && acc[3] > li.thr) break;
@@ -1198,7 +1385,8 @@ __device__ __forceinline__ void march_forward_slab(const MarchArgs& a,
 // the prefix P of the ray's contributions as it stood at its last replayed
 // sample is returned (a lane whose ray has ended goes on through
 // replay_sample with the warp, adding nothing but growing its chain).
-template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL>
+template <Shade S, Esl E, bool NO_ERT, bool NEED_DTF, bool NEED_DVOL,
+          typename V = float>
 __device__ __forceinline__ float march_replay_slab(
     const MarchArgs& a, const float4* lut, const EslArgs& esl,
     const SlabGrid& sg, float (*wdtf)[4], float* d_vol, const Ray& ray,
@@ -1211,7 +1399,9 @@ __device__ __forceinline__ float march_replay_slab(
   float P = 0.f;
   if (!NO_ERT && acc0 > li.thr) live = false;
   for (float i = 0.f; i < n; i = add(i, 1.f)) {
-    if (live) live = take_sample_slab<S, E>(a, g, sg, lut, ray, li, esl, i, q);
+    if (live) {
+      live = take_sample_slab<S, E, V>(a, g, sg, lut, ray, li, esl, i, q);
+    }
     if (!__any_sync(FULL_WARP, live)) break;
     bool adds = live;
     if constexpr (E == Esl::kOn) {

@@ -2,8 +2,8 @@
 //
 // Replaces volrt/renderers/pallas/diff_v3.py:_fwd_kernel in its unshaded,
 // diffuse and phong modes, each with ESL and without, and in its slab mode
-// (unshaded and diffuse, with ESL and without), over an f32 volume (saved
-// samples and bf16 storage are not ported yet). The TPU
+// (unshaded and diffuse, with ESL and without), over an f32 volume or, in
+// its fast mode, a bf16 one (saved samples are not ported). The TPU
 // kernel's ESL drops planned groups of samples; here each sample is tested
 // (Esl::kOn, march_common.cuh:esl_empty_cell). The TPU kernel gathers with
 // one-hot matrix products over planned window bricks because Mosaic has no
@@ -29,7 +29,15 @@
 // sample count i of the lattice k0 + i*step is carried as an f32 that
 // gains 1 a sample, exact below 2^24, in place of a conversion a sample.
 // The 16x16 pixel block keeps a warp's taps on few cache lines.
-// Moving to uint8 or bf16 storage, and TMA-staged bricks, is later work.
+// TMA-staged bricks are later work.
+//
+// The fast mode (Voxel::kBf16, volrt's fast=True) is an instance of each
+// of the above over a bf16 volume: half the bytes a tap, and a sample
+// taken as volrt's fast kernels take it (march_common.cuh: cell_at_fast
+// and the bf16 trilinear), with four more roundings (the (z, y) weight
+// products to bf16) and a widening a tap: 149 SASS instructions a sample
+// against 130. The kernel being issue-bound, the halved bytes do not pay:
+// 1.54 ms against 1.38 at 256^3 / 1024^2 (PERF.md section 6).
 //
 // It is the plain torch version's math (volrt_torch/renderers/
 // cuda/march.py:march_fwd_plain), op for op, every multiply and add rounded
@@ -58,7 +66,7 @@ namespace {
 
 using namespace volrt;
 
-template <Shade S, Esl E, Slab SL, bool NO_ERT>
+template <Shade S, Esl E, Slab SL, Voxel X, bool NO_ERT>
 __global__ void __launch_bounds__(TILE * TILE) march_fwd_kernel(MarchArgs a,
                                                                 float* out,
                                                                 EslArgs esl,
@@ -75,37 +83,56 @@ __global__ void __launch_bounds__(TILE * TILE) march_fwd_kernel(MarchArgs a,
   if (r < 0) return;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if constexpr (SL == Slab::kOn) acc[3] = sl.acc0[r];
+  using V = typename VoxelOf<X>::T;
   if (a.alive[r]) {
     if constexpr (SL == Slab::kOn) {
-      march_forward_slab<S, E, NO_ERT>(a, lut, esl, load_slab(a, sl),
-                                       load_ray(a, r), load_light(a), acc);
+      march_forward_slab<S, E, NO_ERT, V>(a, lut, esl, load_slab(a, sl),
+                                          load_ray(a, r), load_light(a), acc);
     } else {
-      march_forward<S, E, NO_ERT>(a, lut, esl, load_ray(a, r), load_light(a),
-                                  acc);
+      march_forward<S, E, NO_ERT, V>(a, lut, esl, load_ray(a, r),
+                                     load_light(a), acc);
     }
   }
   reinterpret_cast<float4*>(out)[r] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-template <Shade S, Esl E, Slab SL, bool NO_ERT>
+template <Shade S, Esl E, Slab SL, Voxel X, bool NO_ERT>
 void launch(const MarchArgs& a, float* out, const EslArgs& esl,
             const SlabArgs& sl, cudaStream_t stream) {
-  march_fwd_kernel<S, E, SL, NO_ERT>
+  march_fwd_kernel<S, E, SL, X, NO_ERT>
       <<<march_grid(a), dim3(TILE, TILE), 0, stream>>>(a, out, esl, sl);
 }
 
-template <Shade S, Esl E, Slab SL>
+template <Shade S, Esl E, Slab SL, Voxel X>
 void launch_ert(const MarchArgs& a, float* out, const EslArgs& esl,
                 const SlabArgs& sl, bool no_ert, cudaStream_t s) {
-  no_ert ? launch<S, E, SL, true>(a, out, esl, sl, s)
-         : launch<S, E, SL, false>(a, out, esl, sl, s);
+  no_ert ? launch<S, E, SL, X, true>(a, out, esl, sl, s)
+         : launch<S, E, SL, X, false>(a, out, esl, sl, s);
 }
 
-template <Shade S, Slab SL>
+template <Shade S, Slab SL, Voxel X>
 void launch_esl(const MarchArgs& a, float* out, const EslArgs& esl,
                 const SlabArgs& sl, bool no_ert, cudaStream_t s) {
-  esl.words ? launch_ert<S, Esl::kOn, SL>(a, out, esl, sl, no_ert, s)
-            : launch_ert<S, Esl::kOff, SL>(a, out, esl, sl, no_ert, s);
+  esl.words ? launch_ert<S, Esl::kOn, SL, X>(a, out, esl, sl, no_ert, s)
+            : launch_ert<S, Esl::kOff, SL, X>(a, out, esl, sl, no_ert, s);
+}
+
+template <Voxel X>
+int launch_mode(const MarchArgs& a, float* dst, const EslArgs& esl,
+                const SlabArgs& sl, int shade, bool no_ert, cudaStream_t s) {
+  if (sl.acc0) {
+    if (shade == 2) return static_cast<int>(cudaErrorInvalidValue);
+    shade ? launch_esl<Shade::kDiffuse, Slab::kOn, X>(a, dst, esl, sl, no_ert,
+                                                      s)
+          : launch_esl<Shade::kNone, Slab::kOn, X>(a, dst, esl, sl, no_ert, s);
+  } else if (shade == 2) {
+    launch_esl<Shade::kPhong, Slab::kOff, X>(a, dst, esl, sl, no_ert, s);
+  } else if (shade) {
+    launch_esl<Shade::kDiffuse, Slab::kOff, X>(a, dst, esl, sl, no_ert, s);
+  } else {
+    launch_esl<Shade::kNone, Slab::kOff, X>(a, dst, esl, sl, no_ert, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -116,30 +143,24 @@ void launch_esl(const MarchArgs& a, float* out, const EslArgs& esl,
 // voxels, or null and 0 to march every sample. `acc0` (f32[N]) is the slab
 // mode's seed and `full_d` the whole volume's depth, z_off in scal[5]; a
 // null `acc0` marches the volume whole. The slab mode has no phong (as in
-// volrt, diff_v3.py:1448): the wrapper refuses it. Shapes, types and
+// volrt, diff_v3.py:1448): the wrapper refuses it. `voxel` is the
+// volume's type: 0 f32, 1 bf16 (the fast mode). Shapes, types and
 // contiguity are checked by the Python wrapper.
 extern "C" int volrt_march_fwd(
     const void* o, const void* d, const void* k0, const void* kfar,
     const void* alive, const void* vol, int w, int h, int depth,
     const void* tf, const void* scal, void* out, int n, int width,
     float step, int max_steps, int shade, int no_ert, const void* esl_words,
-    int esl_block, const void* acc0, int full_d, void* stream) {
+    int esl_block, const void* acc0, int full_d, int voxel, void* stream) {
   const MarchArgs a = make_march_args(o, d, k0, kfar, alive, vol, w, h, depth,
                                       tf, scal, n, width, step, max_steps);
   const EslArgs esl = make_esl_args(esl_words, esl_block);
   const SlabArgs sl = make_slab_args(acc0, nullptr, full_d);
   float* dst = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (acc0) {
-    if (shade == 2) return static_cast<int>(cudaErrorInvalidValue);
-    shade ? launch_esl<Shade::kDiffuse, Slab::kOn>(a, dst, esl, sl, no_ert, s)
-          : launch_esl<Shade::kNone, Slab::kOn>(a, dst, esl, sl, no_ert, s);
-  } else if (shade == 2) {
-    launch_esl<Shade::kPhong, Slab::kOff>(a, dst, esl, sl, no_ert, s);
-  } else if (shade) {
-    launch_esl<Shade::kDiffuse, Slab::kOff>(a, dst, esl, sl, no_ert, s);
-  } else {
-    launch_esl<Shade::kNone, Slab::kOff>(a, dst, esl, sl, no_ert, s);
+  if (voxel == 1) {
+    return launch_mode<Voxel::kBf16>(a, dst, esl, sl, shade, no_ert != 0, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (voxel != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mode<Voxel::kF32>(a, dst, esl, sl, shade, no_ert != 0, s);
 }

@@ -12,7 +12,10 @@ for every view, also where ``volrt`` would fall back to a round-1 kernel;
 (``diff_tri``, ``diff_blocked``) as they do in ``volrt``. The round-1
 kernels march the accumulating lattice and the v3 kernels ``k0 + i*step``,
 so the routes agree to the lattice tolerance (2e-4 in the image), not to
-the bit.
+the bit. ``fast=True`` (``volrt``'s fast mode, the default of its trainer)
+is a mode of the v3 kernels, whose bf16 instances run it; ``volrt``'s
+round-1 kernels take ``fast`` as a matrix-unit precision only, which the
+round-1 routes here do not have (``ROADMAP.md``, queue 2).
 """
 from __future__ import annotations
 
@@ -47,8 +50,10 @@ def render_image_fused(scene: DiffScene, view: View,
     than 128 voxels with ``ValueError`` as the reference does.
     ``blocked=True``: the ``diff_blocked`` pair, any size. The round-1
     pairs are unshaded and have no ESL, in ``volrt`` too: ``shaded``,
-    ``phong`` and ``esl`` raise ``NotImplementedError`` there. ``fast``
-    raises everywhere, as in :func:`diff_v3.render_image_v3`.
+    ``phong`` and ``esl`` raise ``NotImplementedError`` there. ``fast=True``
+    renders ``volrt``'s fast mode on ``blocked=None`` (as
+    :func:`diff_v3.render_image_v3` does) and raises
+    ``NotImplementedError`` on the round-1 routes.
 
     ``need_tf_grad=False`` / ``need_density_grad=False`` render with that
     leaf detached: it gets no gradient and the backward kernel skips its
@@ -58,11 +63,10 @@ def render_image_fused(scene: DiffScene, view: View,
     base = scene.tf_base if need_tf_grad else scene.tf_base.detach()
     premult = tf_mod.premultiply(base)
     if blocked is None:
-        diff_v3.check_modes(fast)
         return diff_v3.render_view_v3(
             density, premult, scene.ray_step, view, ray_threshold,
             light_kd, shaded, phong,
-            diff_v3.scene_esl(scene) if esl else None)[0]
+            diff_v3.scene_esl(scene) if esl else None, fast)[0]
     if shaded or phong:
         raise NotImplementedError(
             "shading requires the v3 path (blocked=None): the round-1 "
@@ -71,7 +75,10 @@ def render_image_fused(scene: DiffScene, view: View,
         raise NotImplementedError(
             "esl=True requires the v3 path (blocked=None): the round-1 "
             "kernels have no ESL")
-    diff_v3.check_modes(fast)
+    if fast:
+        raise NotImplementedError(
+            "fast=True on the round-1 routes: volrt's is a matrix-unit "
+            "precision there, not ported (ROADMAP.md, queue 2, rows 4-9)")
     w = scene.density.shape[2]
     if w > X_LANES and not blocked:
         raise ValueError(
@@ -85,7 +92,8 @@ def l2_loss_fused(scene: DiffScene, view: View, target: torch.Tensor,
                   light_kd: float = 0.6, phong: bool = False,
                   esl: bool = False, need_tf_grad: bool = True,
                   need_density_grad: bool = True) -> torch.Tensor:
-    """MSE training loss through the march kernels, under autograd."""
+    """MSE training loss through the march kernels, under autograd
+    (``fast=True``: ``volrt``'s fast mode, as its trainer runs it)."""
     img = render_image_fused(scene, view, fast=fast, shaded=shaded,
                              light_kd=light_kd, phong=phong, esl=esl,
                              need_tf_grad=need_tf_grad,

@@ -110,7 +110,7 @@ def render_sharded(rc: Raycaster, mesh: Mesh, **kw) -> torch.Tensor:
 
 def l2_loss_grads_v3_sharded(scene: DiffScene, view: View,
                              target: torch.Tensor, mesh: Mesh,
-                             ray_threshold: float = 0.95, fast: bool = False,
+                             ray_threshold: float = 0.95, fast: bool = True,
                              window=None, flush=None,
                              shading: str | None = None,
                              light_kd: float = 0.6, plan=None,
@@ -127,18 +127,20 @@ def l2_loss_grads_v3_sharded(scene: DiffScene, view: View,
     the numbers of :func:`diff_v3.l2_loss_grads_v3_onepass` on the whole
     image, up to the order of the sums. ``shading`` is None,
     ``"diffuse"`` or ``"phong"``; ``esl=True`` skips empty space on the
-    live TF's grid. ``fast=True`` (bf16) raises ``NotImplementedError``;
-    ``window``, ``flush`` and ``plan`` have no role (the kernels plan
-    nothing)."""
+    live TF's grid. ``fast=True``, the default as in ``volrt``
+    (``volrt/dist/render.py:160``), steps on the density's bf16 copy (the
+    kernel's bf16 instance, the gradient f32); ``window``, ``flush`` and
+    ``plan`` have no role (the kernels plan nothing)."""
     del window, flush, plan
     shaded, phong = shading == "diffuse", shading == "phong"
-    diff_v3.check_modes(fast, shaded, phong)
+    diff_v3.check_modes(shaded, phong)
     w, h = view.dims
     scale = 2.0 / (float(h) * float(w) * 4.0)
     with torch.no_grad():
         base = scene.tf_base
+        density = scene.density.to(torch.bfloat16) if fast else scene.density
         args, kw = fwd_v3.ray_args(
-            view, scene.density, tf_mod.premultiply(base), scene.ray_step,
+            view, density, tf_mod.premultiply(base), scene.ray_step,
             ray_threshold, light_kd if (shaded or phong) else 0.0,
             loss_scale=scale, phong=phong,
             esl=diff_v3.scene_esl(scene) if esl else None)

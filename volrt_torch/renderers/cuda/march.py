@@ -2,7 +2,8 @@
 
 Hand-written CUDA kernels, one thread per ray. Three replace kernels of
 ``volrt/renderers/pallas/diff_v3.py`` (unshaded, diffuse and phong modes,
-each with ESL and without, f32):
+each with ESL and without, over an f32 volume or, in ``volrt``'s fast
+mode, a bf16 one: :func:`is_fast`):
 
 - :func:`march_fwd` (``csrc/march_fwd.cu``): ``_fwd_kernel``, the forward
   march, also in its slab mode (``slab=``: one Z-slab of a deeper volume,
@@ -105,14 +106,17 @@ _BLOCKED_ARGTYPES = _FWD_ARGTYPES[:-1] + [_I, _P]
 # The v3 kernels' ESL grid after their other arguments: words, block.
 _ESL_ARGTYPES = [_P, _I]
 # ..., out, n, width, step, max_steps, shade, no_ert, esl, acc0, full_d,
-# stream
-_V3_FWD_ARGTYPES = _FWD_ARGTYPES[:-1] + _ESL_ARGTYPES + [_P, _I, _P]
+# voxel, stream
+_V3_FWD_ARGTYPES = _FWD_ARGTYPES[:-1] + _ESL_ARGTYPES + [_P, _I, _I, _P]
 # ..., image in, image or cotangent, d_vol, d_tf, n, width, step,
-# max_steps, shade, no_ert, need_dtf, need_dvol, esl, stream
+# max_steps, shade, no_ert, need_dtf, need_dvol, esl, voxel, stream
 _GRAD_ARGTYPES = _RAY_ARGTYPES + [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
-                                  _I] + _ESL_ARGTYPES + [_P]
-# march_bwd's: ..., esl, acc0, dacc0, full_d, stream
-_BWD_ARGTYPES = _GRAD_ARGTYPES[:-1] + [_P, _P, _I, _P]
+                                  _I] + _ESL_ARGTYPES + [_I, _P]
+# march_bwd's: ..., esl, acc0, dacc0, full_d, voxel, stream
+_BWD_ARGTYPES = _GRAD_ARGTYPES[:-2] + [_P, _P, _I, _I, _P]
+# The v3 kernels' voxel types (csrc/march_common.cuh:Voxel): the
+# ``voxel`` argument is the index of the volume's dtype here.
+V3_VOXELS = (torch.float32, torch.bfloat16)
 
 
 def max_steps(ray_step: float) -> int:
@@ -160,11 +164,12 @@ def check_volume_shape(shape, any_size: bool) -> None:
 
 
 def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           volume_dtype: torch.dtype = torch.float32, shade: bool = False,
+           volume_dtype: torch.dtype | tuple = torch.float32,
+           shade: bool = False,
            phong: bool = False, esl=None, any_size: bool = False,
            slab=None, **images) -> None:
     """Refuse what the kernels do not take. ``density`` is the volume, of
-    ``volume_dtype``: under 2^31 voxels (32-bit voxel offsets), unless
+    ``volume_dtype`` (or of one of them, a tuple): under 2^31 voxels (32-bit voxel offsets), unless
     ``any_size`` (a kernel with a 64-bit instance, which takes any volume
     whose edges lie under 2^22 voxels and whose ``H * W`` slice under 2^31).
     ``shade`` and ``phong`` are the shading modes asked for, of which a
@@ -176,6 +181,11 @@ def _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
     target), by name."""
     if shade and phong:
         raise ValueError("phong composes with no diffuse tap (shade)")
+    if isinstance(volume_dtype, tuple):
+        if density.dtype not in volume_dtype:
+            raise TypeError(f"density must be one of {volume_dtype}, got "
+                            f"{density.dtype}")
+        volume_dtype = density.dtype
     n = o.shape[0] if o.dim() == 2 else -1
     if slab is not None:
         if phong:
@@ -262,23 +272,42 @@ def slab_cell(shape: tuple[int, int, int], slab: tuple[float, int],
     return i0, i1, frac
 
 
-def _cells(shape, slab):
+def is_fast(density: torch.Tensor) -> bool:
+    """Whether a v3 kernel samples ``density`` in ``volrt``'s fast mode:
+    a bf16 volume, sampled by :func:`sampling.cell_sample_fast` on the
+    cells of :func:`sampling.fast_cell`."""
+    return density.dtype == torch.bfloat16
+
+
+def _cells(shape, slab, fast: bool = False):
     """``pos -> cell`` of a volume of ``shape``, or of a slab of it
-    (:func:`slab_cell`) where ``slab`` is ``(z_off, full_d)``."""
+    (:func:`slab_cell`) where ``slab`` is ``(z_off, full_d)``; ``fast``,
+    the fast sample's (:func:`sampling.fast_cell`)."""
+    if fast:
+        return lambda pos: sampling.fast_cell(shape, pos, slab)
     if slab is None:
         return lambda pos: sampling.trilinear_cell(shape, pos)[1]
     return lambda pos: slab_cell(shape, slab, pos)
 
 
-def _classify_slab(density, premult_tf, pt, light_pos, kd, cells):
+def _cell_sample(density, cell):
+    """The sample of ``density`` over ``cell``: the fast one on a bf16
+    volume."""
+    if is_fast(density):
+        return sampling.cell_sample_fast(density, cell)
+    return sampling.cell_sample(density, cell)
+
+
+def _classify_cells(density, premult_tf, pt, light_pos, kd, cells):
     """``classify_and_shade`` of a density (trilinear, the lerped TF, the
     diffuse tap where ``light_pos`` is given) with the cells of ``cells``:
-    the slab mode's per-sample code, in the same operations."""
-    s = sampling.cell_sample(density, cells(pt))
+    the slab mode's and the fast mode's per-sample code, in the same
+    operations."""
+    s = _cell_sample(density, cells(pt))
     color = sampling.tf_lookup_linear(premult_tf, s)
     if light_pos is None:
         return color
-    s2 = sampling.cell_sample(density, cells(light_tap(pt, light_pos)))
+    s2 = _cell_sample(density, cells(light_tap(pt, light_pos)))
     return add_diffuse(color, s2 - s, kd)
 
 
@@ -315,6 +344,20 @@ class EslSkip:
         return skip
 
 
+def _count_launch(wrapper, density: torch.Tensor) -> None:
+    """Count one launch of ``wrapper``'s kernel: ``launches`` counts
+    every one, ``launches_bf16`` those of the bf16 instances."""
+    wrapper.launches += 1
+    wrapper.launches_bf16 += int(is_fast(density))
+
+
+def _grad_buffer(density: torch.Tensor) -> torch.Tensor:
+    """The zero-filled f32 buffer of the density's gradient: f32 for a
+    bf16 volume too, whose gradient is not rounded to bf16."""
+    return torch.zeros(density.shape, dtype=torch.float32,
+                       device=density.device)
+
+
 def _shade_mode(shade: bool, phong: bool) -> int:
     """The kernels' ``shade`` argument: 0 none, 1 the diffuse tap, 2 phong
     (``csrc/march_common.cuh:Shade``)."""
@@ -345,7 +388,9 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
       k0, kfar: ``f32[N]`` first-sample and exit ray parameters; samples
         lie at ``k0 + i*ray_step`` for ``k <= kfar``.
       alive: ``bool[N]``, rays that take any sample.
-      density: ``f32[D, H, W]`` volume.
+      density: ``f32[D, H, W]`` volume, or ``bf16[D, H, W]``: ``volrt``'s
+        fast mode (:func:`is_fast`), which the kernel's bf16 instance
+        samples, each (z, y) tap weight product rounded to bf16.
       premult_tf: ``f32[TF_SIZE, 4]`` premultiplied RGBA LUT.
       scal: ``f32[8]``: ERT threshold, light kd, light position xyz, one
         unused slot, the loss scale (read by :func:`l2_step` only), one
@@ -374,7 +419,8 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
     kernel, building it at first use, and raise if it cannot launch.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           shade=shade, phong=phong, esl=esl, slab=slab)
+           volume_dtype=V3_VOXELS, shade=shade, phong=phong,
+           esl=esl, slab=slab)
     if o.device.type == "cpu":
         return march_fwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal,
@@ -390,12 +436,12 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
             *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
             out.data_ptr(), n, width, ray_step, max_steps(ray_step),
             _shade_mode(shade, phong), int(no_ert), *_esl_pointers(esl),
-            acc0, full_d)
-    march_fwd.launches += 1
+            acc0, full_d, V3_VOXELS.index(density.dtype))
+    _count_launch(march_fwd, density)
     return out
 
 
-march_fwd.launches = 0
+march_fwd.launches = march_fwd.launches_bf16 = 0
 
 
 def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
@@ -419,7 +465,8 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
     out = torch.empty((o.shape[0], 4), dtype=torch.float32, device=o.device)
     steps = _plain_steps(k0, kfar, alive, ray_step, zs is not None)
     thr, kd, light_pos = scal[0], scal[1], scal[2:5]
-    cells = _cells(density.shape, zs)
+    fast = is_fast(density)
+    cells = _cells(density.shape, zs, fast)
     for lo in range(0, o.shape[0], PLAIN_CHUNK):
         sl = slice(lo, lo + PLAIN_CHUNK)
         oc, dc, kc, kf = o[sl], d[sl], k0[sl], kfar[sl]
@@ -437,14 +484,14 @@ def march_fwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, *,
             pt = oc + dc * k[:, None]
             if skip is not None:
                 active = active & ~skip(pt)
-            if zs is None:
+            if zs is None and not fast:
                 color = classify_and_shade(
                     density, premult_tf, pt,
                     light_pos=light_pos if shade else None, light_kd=kd)
             else:
-                color = _classify_slab(density, premult_tf, pt,
-                                       light_pos if shade else None, kd,
-                                       cells)
+                color = _classify_cells(density, premult_tf, pt,
+                                        light_pos if shade else None, kd,
+                                        cells)
             if phong:
                 color = phong_v3(density, color, pt, eye, light_pos, kd)[0]
             acc = torch.where(active[:, None], composite(acc, color), acc)
@@ -508,10 +555,11 @@ def phong_v3(density: torch.Tensor, color: torch.Tensor, pt: torch.Tensor,
         rgb = rgb (KA + kd max(n.L, 0)) + KS max((n.H) hinv, 0)^16 alpha
 
     where alpha > 0.05 and kd > 0.01; elsewhere, and in alpha, the colour
-    stays. The taps are :func:`sampling.gradient_cells`'. Differentiable
-    with respect to ``density`` and ``color``."""
-    cells = sampling.gradient_cells(density.shape, pt)
-    s = [sampling.cell_sample(density, c) for c in cells]
+    stays. The taps are :func:`sampling.gradient_cells`', sampled as the
+    volume's type has it (:func:`is_fast`). Differentiable with respect
+    to ``density`` and ``color``."""
+    cells = sampling.gradient_cells(density.shape, pt, is_fast(density))
+    s = [_cell_sample(density, c) for c in cells]
     g = torch.stack([s[0] - s[1], s[2] - s[3], s[4] - s[5]], -1)
     ginv = _rsqrt(_dot(g, g) + 1e-16)
     nrm = -g * ginv[:, None]
@@ -759,7 +807,9 @@ def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
               phong: bool = False, esl=None, slab=None) -> tuple:
     """The backward of :func:`march_fwd`
     -> ``(d_density f32[D, H, W], d_premult_tf f32[TF_SIZE, 4])``, and in
-    slab mode also ``dacc0 f32[N]``, the seed's cotangent.
+    slab mode also ``dacc0 f32[N]``, the seed's cotangent. ``d_density``
+    is f32 for a bf16 ``density`` too: the replay samples as the fast
+    forward does and scatters with f32 weights, as ``volrt`` does.
 
     The first eight arguments and the keywords are the forward's (``esl``
     too: the replay skips the forward's samples; ``slab`` the same
@@ -778,14 +828,15 @@ def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
     into with atomics, so two runs on the card differ by rounding.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           shade=shade, phong=phong, esl=esl, slab=slab, out=out, g=g)
+           volume_dtype=V3_VOXELS, shade=shade, phong=phong,
+           esl=esl, slab=slab, out=out, g=g)
     if o.device.type == "cpu":
         return march_bwd_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
             ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
             need_dtf=need_dtf, need_dvol=need_dvol, phong=phong, esl=esl,
             slab=slab)
-    d_density = torch.zeros_like(density)
+    d_density = _grad_buffer(density)
     d_tf = torch.zeros_like(premult_tf)
     n = o.shape[0]
     dacc0 = None if slab is None else torch.empty_like(slab[0])
@@ -800,12 +851,13 @@ def march_bwd(o, d, k0, kfar, alive, density, premult_tf, scal, out, g, *,
             d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
             _shade_mode(shade, phong), int(no_ert), int(need_dtf),
             int(need_dvol), *_esl_pointers(esl), acc0,
-            None if dacc0 is None else dacc0.data_ptr(), full_d)
-    march_bwd.launches += 1
+            None if dacc0 is None else dacc0.data_ptr(), full_d,
+            V3_VOXELS.index(density.dtype))
+    _count_launch(march_bwd, density)
     return grads
 
 
-march_bwd.launches = 0
+march_bwd.launches = march_bwd.launches_bf16 = 0
 
 
 class PlainReplay:
@@ -844,7 +896,9 @@ class PlainReplay:
         self.kd, self.light_pos = scal[1], scal[2:5]
         self.shade, self.in_range, self.phong = shade, in_range, phong
         self.need_dtf, self.need_dvol = need_dtf, need_dvol
-        self.d_density = torch.zeros_like(density)
+        # f32 whatever the volume's type: the fast mode's gradient is not
+        # rounded to bf16 (volrt's scatter weights are f32).
+        self.d_density = torch.zeros_like(density, dtype=torch.float32)
         # Every sample of every ray adds to a few of the LUT's 512 entries:
         # at 1024^2 rays that is 1e8 terms an entry, more than an f32
         # accumulator can take in without dropping the small ones. The
@@ -881,8 +935,9 @@ class PlainReplay:
                cells=None) -> torch.Tensor:
         """Replay the sample at ``pt (N, 3)`` for the rays that are
         ``active`` and return the opacity composited so far. ``cells``
-        (``pos -> cell``) gives a slab's cells (:func:`slab_cell`) in
-        place of the density's own."""
+        (``pos -> cell``, :func:`_cells`) gives a slab's cells
+        (:func:`slab_cell`) or the fast sample's in place of the
+        density's own."""
         density, premult_tf, gc = self.density, self.premult_tf, self.g
         flat_dv, flat_dtf = self.d_density.view(-1), self.d_tf.view(-1)
         kd = self.kd
@@ -893,8 +948,8 @@ class PlainReplay:
                 light_pos=self.light_pos if self.shade else None,
                 light_kd=kd)
         else:
-            s = sampling.cell_sample(density, cells(pt))
-            color = _classify_slab(
+            s = _cell_sample(density, cells(pt))
+            color = _classify_cells(
                 density, premult_tf, pt,
                 self.light_pos if self.shade else None, kd, cells)
         if self.phong:
@@ -985,7 +1040,9 @@ def march_bwd_plain(o, d, k0, kfar, alive, density, premult_tf, scal, out, g,
     zs = _slab_z(scal, slab)
     shape = density.shape if zs is None else (zs[1], *density.shape[1:])
     skip = None if esl is None else EslSkip(esl, shape)
-    cells = None if zs is None else _cells(density.shape, zs)
+    fast = is_fast(density)
+    cells = (None if zs is None and not fast
+             else _cells(density.shape, zs, fast))
     replay = PlainReplay(density, premult_tf, scal, shade=shade,
                          need_dtf=need_dtf, need_dvol=need_dvol,
                          in_range=True, phong=phong)
@@ -1030,14 +1087,16 @@ def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
     ``L = sum((out - tgt)^2) * scal[6] / 2`` (the image's mean square
     error when ``scal[6] = 2 / (H*W*4)``), and marches backward as
     :func:`march_bwd` does. ``tgt`` is the target, ``f32[N, 4]`` in raster
-    order; the other arguments are :func:`march_bwd`'s. The caller takes
-    the loss from ``out``.
+    order; the other arguments are :func:`march_bwd`'s (a bf16 ``density``
+    is the fast mode, its gradient f32). The caller takes the loss from
+    ``out``.
 
     CPU tensors take :func:`l2_step_plain`. CUDA tensors launch the
     kernel or raise.
     """
     _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           shade=shade, phong=phong, esl=esl, tgt=tgt)
+           volume_dtype=V3_VOXELS, shade=shade, phong=phong,
+           esl=esl, tgt=tgt)
     if o.device.type == "cpu":
         return l2_step_plain(
             o, d, k0, kfar, alive, density, premult_tf, scal, tgt,
@@ -1045,7 +1104,7 @@ def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
             need_dtf=need_dtf, need_dvol=need_dvol, phong=phong, esl=esl)
     n = o.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
-    d_density = torch.zeros_like(density)
+    d_density = _grad_buffer(density)
     d_tf = torch.zeros_like(premult_tf)
     if n == 0:
         return out, d_density, d_tf
@@ -1054,12 +1113,13 @@ def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
             tgt.data_ptr(), out.data_ptr(), d_density.data_ptr(),
             d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
             _shade_mode(shade, phong), int(no_ert), int(need_dtf),
-            int(need_dvol), *_esl_pointers(esl))
-    l2_step.launches += 1
+            int(need_dvol), *_esl_pointers(esl),
+            V3_VOXELS.index(density.dtype))
+    _count_launch(l2_step, density)
     return out, d_density, d_tf
 
 
-l2_step.launches = 0
+l2_step.launches = l2_step.launches_bf16 = 0
 
 
 def l2_step_plain(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
@@ -1085,9 +1145,14 @@ class MarchFunction(torch.autograd.Function):
     backward (the counterpart of ``render_tiles_v3``'s custom_vjp).
 
     ``MarchFunction.apply(density, premult_tf, o, d, k0, kfar, alive, scal,
-    ray_step, shade, no_ert, width[, phong, esl[, acc0, full_d]])`` returns
-    the image ``f32[N, 4]``; ``acc0`` and ``full_d`` are the slab mode's
-    (:func:`march_fwd`'s ``slab``).
+    ray_step, shade, no_ert, width[, phong, esl[, acc0, full_d[,
+    fast]]])`` returns the image ``f32[N, 4]``; ``acc0`` and ``full_d`` are
+    the slab mode's (:func:`march_fwd`'s ``slab``). ``fast``: the f32
+    ``density`` is copied to bf16 here and the kernels' bf16 instances
+    march the copy (saved for the backward in place of ``density``); the
+    gradient, f32, goes to the f32 leaf as it is. A bf16 tensor handed in
+    would have its f32 gradient cast to bf16 by autograd, rounding what
+    ``volrt`` does not.
     Gradients flow to ``density``, ``premult_tf`` and ``acc0`` only; a leaf
     that does not require one skips its scatter (``need_dtf`` /
     ``need_dvol``).
@@ -1096,11 +1161,13 @@ class MarchFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, density, premult_tf, o, d, k0, kfar, alive, scal,
                 ray_step, shade, no_ert, width, phong=False, esl=None,
-                acc0=None, full_d=None):
+                acc0=None, full_d=None, fast=False):
         slab = None if acc0 is None else (acc0, full_d)
         ctx.kw = dict(ray_step=ray_step, shade=shade, no_ert=no_ert,
                       width=width, phong=phong, esl=esl)
         ctx.full_d = full_d
+        if fast:
+            density = density.to(torch.bfloat16)
         out = march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal,
                         slab=slab, **ctx.kw)
         ctx.save_for_backward(o, d, k0, kfar, alive, density, premult_tf,
@@ -1117,4 +1184,4 @@ class MarchFunction(torch.autograd.Function):
         dacc0 = grads[2] if slab is not None else None
         return (grads[0] if need_dvol else None,
                 grads[1] if need_dtf else None) + (None,) * 12 + (
-                    dacc0, None)
+                    dacc0, None, None)

@@ -9,6 +9,10 @@ runs under autograd through :class:`MarchFunction` (forward kernel, then
 backward kernel), or, for the L2 step, through the one-launch
 :func:`l2_step`. None of the TPU kernels' planning arguments (``window``,
 ``flush``, ``plan``) exist here: a per-ray kernel has no windows to plan.
+``fast=True`` is ``volrt``'s fast mode everywhere it takes it: the density
+stored as bf16 (``diff_v3.py:_phase_volumes``) and sampled as its fast
+kernels sample it, by the kernels' bf16 instances; the gradient comes back
+to the f32 density in f32, and the ESL grid is the f32 density's.
 """
 from __future__ import annotations
 
@@ -24,14 +28,9 @@ from volrt_torch.renderers import fwd_v3
 from volrt_torch.renderers.cuda.march import MarchFunction, l2_step
 
 
-def check_modes(fast: bool, shaded: bool = False,
-                phong: bool = False) -> None:
-    """Refuse the modes the march kernels do not have yet, and ``shaded``
-    with ``phong``, which no kernel composes (``diff_v3.py:2608-2609``)."""
-    if fast:
-        raise NotImplementedError(
-            "fast (bf16) storage is not ported yet (ROADMAP.md, queue 2, "
-            "row 1)")
+def check_modes(shaded: bool = False, phong: bool = False) -> None:
+    """Refuse ``shaded`` with ``phong``, which no kernel composes
+    (``diff_v3.py:2608-2609``)."""
     if shaded and phong:
         raise ValueError("shaded and phong are mutually exclusive")
 
@@ -48,7 +47,7 @@ def scene_esl(scene: DiffScene) -> tuple[torch.Tensor, int]:
 def render_view_v3(density: torch.Tensor, premult_tf: torch.Tensor,
                    ray_step: float, view: View, ray_threshold: float = 0.95,
                    light_kd: float = 0.0, shaded: bool = False,
-                   phong: bool = False, esl=None
+                   phong: bool = False, esl=None, fast: bool = False
                    ) -> tuple[torch.Tensor, float]:
     """Premult-level render -> ``(f32[H, W, 4], overflow count)``,
     differentiable with respect to ``density`` ``f32[D, H, W]`` and
@@ -56,9 +55,11 @@ def render_view_v3(density: torch.Tensor, premult_tf: torch.Tensor,
     ``phong`` gradient Blinn-Phong, each with ``light_kd``. ``esl`` is
     ``None`` or the ESL grid ``(words, block)`` (:func:`scene_esl`):
     the kernels skip the samples whose cell lies in empty blocks, in the
-    forward and the backward alike. The overflow count is 0: the kernels
-    have no windows (see ``fwd_v3.render_float``)."""
-    check_modes(False, shaded, phong)
+    forward and the backward alike. ``fast``: the kernels' bf16 instances
+    on a bf16 copy of ``density`` made inside the autograd function, whose
+    gradient reaches ``density`` in f32. The overflow count is 0: the
+    kernels have no windows (see ``fwd_v3.render_float``)."""
+    check_modes(shaded, phong)
     args, kw = fwd_v3.ray_args(
         view, density, premult_tf, ray_step, ray_threshold,
         light_kd if (shaded or phong) else 0.0, phong=phong, esl=esl)
@@ -66,7 +67,7 @@ def render_view_v3(density: torch.Tensor, premult_tf: torch.Tensor,
     colors = MarchFunction.apply(
         density, premult_tf, o, d, knear, kfar, alive, scal,
         kw["ray_step"], kw["shade"], kw["no_ert"], kw["width"],
-        kw.get("phong", False), esl)
+        kw.get("phong", False), esl, None, None, fast)
     w, h = view.dims
     return colors.reshape(h, w, 4), 0.0
 
@@ -77,10 +78,9 @@ def render_image_v3_with_ovf(scene: DiffScene, view: View,
                              shaded: bool = False, phong: bool = False
                              ) -> tuple[torch.Tensor, float]:
     """As :func:`render_image_v3` but also returns the overflow count."""
-    check_modes(fast)
     return render_view_v3(scene.density, scene.premult_tf(), scene.ray_step,
                           view, ray_threshold, light_kd, shaded, phong,
-                          scene_esl(scene) if esl else None)
+                          scene_esl(scene) if esl else None, fast)
 
 
 def render_image_v3(scene: DiffScene, view: View,
@@ -102,8 +102,9 @@ def render_image_v3(scene: DiffScene, view: View,
     drops whole groups of them: the port skips those and more. The TF
     gradient that those samples would give the zero-opacity rows they
     read is dropped too (see ``diff.render.scene_empty_grid``). ``shaded`` with
-    ``phong`` raises ``ValueError``; ``fast`` raises
-    ``NotImplementedError``.
+    ``phong`` raises ``ValueError``. ``fast=True`` renders ``volrt``'s fast
+    mode (the density as bf16, each (z, y) tap weight product rounded to
+    bf16; see the module docstring), that of ``volrt``'s trainer and bench.
     """
     return render_image_v3_with_ovf(scene, view, ray_threshold, fast, esl,
                                     light_kd, shaded, phong)[0]
@@ -127,16 +128,21 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
     return zeros for it. ``shaded`` takes the diffuse tap, ``phong``
     gradient Blinn-Phong (not both), each with ``light_kd``. ``esl=True``
     skips as :func:`render_image_v3` does, on the grid of the live TF.
-    The TF gradient is chained from the premultiplied LUT's to
-    ``tf_base`` here, as ``volrt``'s does it in XLA.
+    ``fast=True`` steps on the density's bf16 copy (the kernel's bf16
+    instance; ``d_density`` stays f32), as ``volrt``'s trainer does. The
+    TF gradient is chained from the premultiplied LUT's to ``tf_base``
+    here, as ``volrt``'s does it in XLA.
     """
-    check_modes(fast, shaded, phong)
+    check_modes(shaded, phong)
     w, h = view.dims
     scale = 2.0 / (float(h) * float(w) * 4.0)
     with torch.no_grad():
         base = scene.tf_base
+        density = scene.density
+        if fast:
+            density = density.to(torch.bfloat16)
         args, kw = fwd_v3.ray_args(
-            view, scene.density, tf_mod.premultiply(base), scene.ray_step,
+            view, density, tf_mod.premultiply(base), scene.ray_step,
             ray_threshold, light_kd if (shaded or phong) else 0.0,
             loss_scale=scale, phong=phong,
             esl=scene_esl(scene) if esl else None)
@@ -232,11 +238,13 @@ def render_slab_v3(slab_density: torch.Tensor, premult_tf: torch.Tensor,
     whole-volume cell lies in empty blocks. Differentiable with respect to
     ``slab_density``, ``premult_tf`` and ``acc0`` (:class:`MarchFunction`:
     the backward kernel gives the seed's cotangent). ``window`` has no role
-    (the kernels plan none); ``fast`` raises ``NotImplementedError``. The
-    counterpart of ``volrt``'s ``render_slab_v3`` (``diff_v3.py:3292``),
-    but for the partition of the samples (:func:`slab_rays`)."""
+    (the kernels plan none). ``fast=True`` marches the slab's bf16 copy
+    (the kernels' bf16 instances, the slab's z coordinate clipped as
+    ``volrt``'s ``_geometry`` clips it). The counterpart of ``volrt``'s
+    ``render_slab_v3`` (``diff_v3.py:3292``), but for the partition of the
+    samples (:func:`slab_rays`)."""
     del window
-    check_modes(fast, shaded)
+    check_modes(shaded)
     sdl, h, w = slab_density.shape
     dev = slab_density.device
     o, d, k0, kend, alive = slab_rays(view, z_start, sdl - 2 * halo, full_d,
@@ -257,5 +265,5 @@ def render_slab_v3(slab_density: torch.Tensor, premult_tf: torch.Tensor,
     colors = MarchFunction.apply(
         slab_density, premult_tf.contiguous(), o, d, k0, kend, alive, scal,
         ray_step, kd > SHADE_KD_GATE, ray_threshold >= 1.0, wv, False, esl,
-        acc0.reshape(-1).contiguous(), full_d)
+        acc0.reshape(-1).contiguous(), full_d, fast)
     return colors.reshape(hv, wv, 4), 0.0

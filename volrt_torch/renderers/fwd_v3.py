@@ -4,8 +4,9 @@
 Trilinear sampling, the linearly interpolated TF, premultiplied
 front-to-back compositing with ERT, unshaded, with the reference's one-tap
 diffuse (reference: GPURenderer4.cu:41-87) or with v3's gradient
-Blinn-Phong (``shading="phong"``, BASELINE config 4's shading). Ray setup
-is torch ops; the march is
+Blinn-Phong (``shading="phong"``, BASELINE config 4's shading), over the
+f32 density or, with ``fast=True``, its bf16 copy (``volrt``'s fast mode).
+Ray setup is torch ops; the march is
 :func:`volrt_torch.renderers.cuda.march.march_fwd`.
 """
 from __future__ import annotations
@@ -40,19 +41,20 @@ def render_float(rc: Raycaster, fast: bool = False
     samples some opacity, it is not, in ``volrt`` too (ROADMAP.md, queue
     3). ``rc.shading == "phong"`` shades with gradient Blinn-Phong under
     ``rc.light_kd``, as ``volrt``'s rung 5 does.
-    ``fast=True`` (bf16 storage) raises ``NotImplementedError``.
+    ``fast=True`` is ``volrt``'s fast mode: the f32 density stored as bf16
+    and sampled as ``volrt``'s fast kernels sample it, by the kernel's
+    bf16 instance (:func:`march_args`).
     """
     if rc.interpolation != "trilinear":
         raise ValueError("pallas-v3 renders trilinear mode only")
-    check_modes(rc, fast, phong=True)
-    args, kw = march_args(rc)
+    check_modes(rc, phong=True)
+    args, kw = march_args(rc, fast)
     w, h = rc.view.dims
     colors = march_fwd(*args, **kw)
     return colors.reshape(h, w, 4), 0.0
 
 
-def check_modes(rc: Raycaster, fast: bool = False,
-                phong: bool = False) -> None:
+def check_modes(rc: Raycaster, phong: bool = False) -> None:
     """Refuse the modes no kernel of the port has (rungs 2-5). Only rung
     5's kernel has phong (``phong=True``): ``volrt``'s rungs 2-4 render
     the diffuse tap when asked for it, and the port's refuse instead."""
@@ -63,16 +65,16 @@ def check_modes(rc: Raycaster, fast: bool = False,
             "back to the diffuse tap there (ROADMAP.md, queue 1: Shading)")
     if rc.shading not in ("diffuse", "phong"):
         raise ValueError(f"unknown shading: {rc.shading}")
-    if fast:
-        raise NotImplementedError(
-            "fast (bf16) storage is not ported yet (ROADMAP.md, queue 2, row 1)")
 
 
-def march_args(rc: Raycaster) -> tuple[tuple, dict]:
+def march_args(rc: Raycaster, fast: bool = False) -> tuple[tuple, dict]:
     """The ray setup: ``(args, kwargs)`` of :func:`march_fwd` for ``rc``,
-    with the uint8 volume converted to an f32 density, and ESL's grid
-    when ``rc.esl``."""
+    with the uint8 volume converted to an f32 density (with ``fast``, that
+    density's bf16 copy, as ``volrt``'s ``fwd_v3.py:56`` and
+    ``_phase_volumes`` make it), and ESL's grid when ``rc.esl``."""
     density = rc.volume.data.to(torch.float32) / 255.0
+    if fast:
+        density = density.to(torch.bfloat16)
     return ray_args(rc.view, density, rc.transfer_fn, rc.ray_step,
                     rc.ray_threshold, rc.light_kd,
                     phong=rc.shading == "phong",
@@ -84,8 +86,9 @@ def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
              loss_scale: float = 0.0, esl_start=None,
              phong: bool = False, esl=None) -> tuple[tuple, dict]:
     """``(args, kwargs)`` of the march kernels' wrappers for one view of
-    a volume (an f32 ``density`` for rung 5 and the differentiable path)
-    under a premultiplied TF; both may require grad.
+    a volume (an f32 ``density`` for rung 5 and the differentiable path,
+    or its bf16 copy for the v3 kernels' fast mode) under a premultiplied
+    TF; both may require grad.
 
     Rays come from ``get_rays`` in raster order and march from ``knear``
     to ``kfar``, as ``volrt``'s ``prepare_ray_tiles_raw`` sets them up,

@@ -43,9 +43,9 @@ def l2_loss(scene: DiffScene, view: View, target: torch.Tensor
 def l2_loss_fused(scene: DiffScene, view: View, target: torch.Tensor
                   ) -> torch.Tensor:
     """L2 loss through the march kernels under autograd: one forward and
-    one backward launch (f32; ``volrt``'s runs its kernels with bf16
-    storage, which is not ported yet)."""
-    return fused_mod.l2_loss_fused(scene, view, target)
+    one backward launch, in ``volrt``'s fast mode (the density stored as
+    bf16, its gradient f32), as ``volrt``'s ``l2_loss_fused`` takes it."""
+    return fused_mod.l2_loss_fused(scene, view, target, fast=True)
 
 
 def make_optimizer(scene: DiffScene, lr: float = 1e-2
@@ -169,8 +169,10 @@ def fit(
     The views and targets live on the scene's device. ``fused=True``
     trains through the one-launch L2 step kernel
     (``l2_loss_grads_v3_onepass``), which skips the scatter of a frozen
-    leaf, as ``volrt``'s single-chip fused fit does; ``fused=False``
-    through autograd of the plain torch march (``render_diff_image``).
+    leaf, in ``volrt``'s fast mode (the density stored as bf16 for the
+    march, its gradient and the update f32), as ``volrt``'s single-chip
+    fused fit does; ``fused=False`` through autograd of the plain torch
+    march (``render_diff_image``), f32.
     ``shading`` is ``None``, ``"diffuse"`` or ``"phong"`` (gradient
     Blinn-Phong: ``volrt``'s v3 form in the kernel, the oracle's form
     through autograd).
@@ -195,7 +197,8 @@ def fit(
     same scene, views and targets) trains over its ranks. Without
     ``volume_sharded``, ray-row data parallelism: each rank takes a band of
     the image rows, through ``dist.render.l2_loss_grads_v3_sharded`` (the
-    one-launch step) with ``fused=True`` and through the oracle
+    one-launch step, fast as above) with ``fused=True`` and through the
+    oracle
     (:func:`l2_loss_grads_sharded`) without; the gradients are summed, so
     every rank makes the same update. With ``volume_sharded=True`` each
     rank keeps and updates only its Z-slab of the density (Adam on the
@@ -259,13 +262,13 @@ def fit(
 
             def loss_grads_fn(scene, view, target):
                 return l2_loss_grads_v3_sharded(
-                    scene, view, target, mesh, shading=shading,
+                    scene, view, target, mesh, fast=True, shading=shading,
                     light_kd=light_kd, esl=esl, need_dtf=train_tf,
                     need_dvol=train_density)
         elif fused:
             def loss_grads_fn(scene, view, target):
                 return l2_loss_grads_v3_onepass(
-                    scene, view, target, need_dtf=train_tf,
+                    scene, view, target, fast=True, need_dtf=train_tf,
                     need_dvol=train_density, esl=esl, shaded=shaded,
                     phong=phong, light_kd=light_kd)
         elif mesh is not None:
