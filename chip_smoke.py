@@ -210,7 +210,22 @@ Phases, each synchronised with the card, none catching its own failure:
     against the plain versions, images to the bit) and at 512^3 / 1024^2,
     each kernel's f32 and bf16 instances timed in turns beside their
     bounds, registers and SASS instructions a sample. Rows 1-3 of the
-    ``kernels`` line gain a ``bf16`` entry.
+    ``kernels`` line gain a ``bf16`` entry. Phases 21 and 22 share one
+    512^3 volume (``phase_volume512``);
+23. the loader on the host C++ library (``volrt_torch.native``, which
+    ``_build.py`` builds with ``g++``): the synthetic 256^3 volume written
+    as a DDS PVM in a temporary directory; ``cli render -f`` on it (rung 3,
+    the leap on), the launch counters reset before and read after (one
+    ``march_tri`` and one ``esl_start``), its PNG equal to the bit to the
+    frame ``cli render --synthetic 256`` renders from memory; the native
+    DDS decode equal to the plain numpy decoder byte for byte, both timed
+    (median of 3, host seconds); the native quantiser against the plain
+    one on a seeded 16-bit 256^3 volume, gradient-weighted and linear, the
+    voxels that differ printed (the two round some apart by 1, in
+    ``volrt`` too; at most 1 % may, by at most 1); the histogram equal to
+    ``np.bincount``; the ESL min/max scan equal to the corner of
+    ``build_min_max_grid`` on the card. No kernel of its own: the
+    ``kernels`` line is unchanged.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -249,7 +264,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from volrt_torch import _build, cli
+from volrt_torch import _build, cli, native
 from volrt_torch.bench import __main__ as headline
 from volrt_torch.bench.harness import (
     bench_diff_step, bench_fwd_step, bench_pose, crop_bench_scene,
@@ -260,11 +275,13 @@ from volrt_torch.constants import SHADE_ALPHA_GATE
 from volrt_torch.core import esl as esl_mod
 from volrt_torch.core import sampling
 from volrt_torch.core.tf import default_transfer_fn, premultiply
-from volrt_torch.core.types import Volume, default_ray_step, make_raycaster
+from volrt_torch.core.types import (
+    Volume, default_esl_block_dims, default_ray_step, make_raycaster)
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
 from volrt_torch.diff.render import (
     DiffScene, render_diff_image, scene_from_arrays, scene_from_volume)
+from volrt_torch.io import pvm
 from volrt_torch.dist import volume_sharded as vs
 from volrt_torch.dist.mesh import make_mesh, spawn, sub_mesh
 from volrt_torch.dist.render import (
@@ -3063,14 +3080,22 @@ def _dist_rank(rank: int, size: int, tmp: str) -> None:
             json.dump(every, f, default=float)
 
 
-def phase_dist(dev: torch.device, slab_off: dict | None = None) -> dict:
+def phase_volume512() -> np.ndarray:
+    """The synthetic 512^3 volume (uint8), built once for phases 21 and 22."""
+    return synthetic_volume(DIST_WIDE)
+
+
+def phase_dist(dev: torch.device, slab_off: dict | None = None,
+               wide: np.ndarray | None = None) -> dict:
     """Phase 21 -> the ``slab`` entries of rows 1 and 2 in the kernels
     line. ``slab_off``: the whole volume's ``march_fwd`` and ``march_bwd``
-    ms on the same pose (phases 4 and 7), printed beside the slabs'."""
+    ms on the same pose (phases 4 and 7), printed beside the slabs'.
+    ``wide``: :func:`phase_volume512`'s volume (built here if not given)."""
+    if wide is None:
+        wide = phase_volume512()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        vol512 = synthetic_volume(DIST_WIDE).astype(np.float32) / np.float32(
-            255.0)
+        vol512 = wide.astype(np.float32) / np.float32(255.0)
         np.save(os.path.join(tmp, "vol512.npy"), vol512)
         ref = {}
         with torch.no_grad():
@@ -3403,7 +3428,19 @@ def _fast_times(scene, view, target, dev) -> tuple:
     return times, args, fargs, kw, tgt
 
 
-def _fast_main(dev: torch.device, build: dict) -> dict:
+def _bench_scene_of(vol: np.ndarray, viewport: int, dev: torch.device):
+    """``diff_bench_scene``'s ``(scene, view, target)`` on a uint8 volume
+    already built: the same TF, ray step, zoomed camera and zero target."""
+    scene = scene_from_volume(vol, default_transfer_fn(dev),
+                              default_ray_step(vol.shape), device=dev)
+    cam = Camera(dims=(viewport, viewport))
+    cam.zoom(-1.0)
+    target = torch.zeros((viewport, viewport, 4), dtype=torch.float32,
+                         device=dev)
+    return scene, cam.view(dev), target
+
+
+def _fast_main(dev: torch.device, build: dict, wide: np.ndarray) -> dict:
     """The fast mode at full width -> the three kernels' ``bf16`` entries.
     The main paths in the fast mode, the counters reset before each and
     read after: rung 5's frame (``bench_fwd_step(fast=True)``), the
@@ -3490,7 +3527,7 @@ def _fast_main(dev: torch.device, build: dict) -> dict:
                                   grads=True)}
         for label, a in (("f32", args), ("bf16", fargs))}
     del scene, args, fargs, out, d_vol, b_vol, p_vol
-    big, view_b, target_b = diff_bench_scene(512, 1024, device=dev)
+    big, view_b, target_b = _bench_scene_of(wide, 1024, dev)
     with torch.no_grad():
         times_b, args_b, fargs_b, kw_b, _ = _fast_times(big, view_b,
                                                         target_b, dev)
@@ -3562,13 +3599,132 @@ def _fast_main(dev: torch.device, build: dict) -> dict:
     return entries
 
 
-def phase_fast(dev: torch.device, build: dict) -> dict:
+def phase_fast(dev: torch.device, build: dict,
+               wide: np.ndarray | None = None) -> dict:
     """The fast mode (bf16 density, volrt's fast=True) of the three v3
     kernels: at 32^3 / 64^2 against the plain versions
     (:func:`_fast_small`), then at full width (:func:`_fast_main`) -> the
-    three kernels' ``bf16`` entries."""
+    three kernels' ``bf16`` entries. ``wide``: :func:`phase_volume512`'s
+    volume (built here if not given)."""
     _fast_small(dev)
-    return _fast_main(dev, build)
+    return _fast_main(dev, build, phase_volume512() if wide is None else wide)
+
+
+# Phase 23: the synthetic volume written as a DDS PVM, and the seed of the
+# 16-bit volume's low bytes.
+NATIVE_SIZE = 256
+NATIVE_SEED = 14
+# The native and numpy quantisers round some voxels apart by 1 (glibc's pow
+# against numpy's vectorised power; volrt's two paths part alike): at most
+# this share of voxels may differ.
+NATIVE_QUANT_SPLIT = 0.01
+
+
+def _host_seconds(fn, calls: int) -> tuple:
+    """``(the last call's result, median host seconds of calls)``."""
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t)
+    return out, float(np.median(times))
+
+
+def phase_native(dev: torch.device) -> None:
+    """Phase 23: the loader on the host library (``volrt_torch.native``).
+    The synthetic 256^3 volume written as a DDS PVM in a temporary
+    directory; ``cli render -f`` on it (rung 3, the leap on), the counters
+    reset before and read after, its PNG equal to the bit to the same
+    frame rendered from the volume in memory (``--synthetic 256``); the
+    native DDS decode against the plain numpy decoder byte for byte, each
+    timed (median of 3, host seconds); the native quantiser against the
+    plain one on a seeded 16-bit 256^3 volume, gradient-weighted and
+    linear, the voxels that differ counted (at most 1 %, by at most 1);
+    the histogram against ``np.bincount``; the ESL min/max scan against
+    the corner of ``build_min_max_grid`` on the card."""
+    tag = f"[native] {NATIVE_SIZE}^3"
+    vol = synthetic_volume(NATIVE_SIZE)
+    with tempfile.TemporaryDirectory() as out_dir:
+        _native_phase_in(dev, tag, vol, out_dir)
+
+
+def _native_phase_in(dev: torch.device, tag: str, vol: np.ndarray,
+                     out_dir: str) -> None:
+    """:func:`phase_native`'s checks, its files written in ``out_dir``."""
+    path = os.path.join(out_dir, f"synthetic{NATIVE_SIZE}.pvm")
+    t = time.perf_counter()
+    pvm.write_pvm(path, vol, dds=True)
+    print(f"{tag} DDS PVM of {os.path.getsize(path)} bytes written by the "
+          f"numpy encoder in {time.perf_counter() - t:.2f} s")
+
+    pngs = {}
+    for label, src in (("file", ["-f", path]),
+                       ("memory", ["--synthetic", str(NATIVE_SIZE)])):
+        png = os.path.join(out_dir, f"native_{label}.png")
+        for fn in (*WRAPPERS, leap.esl_start):
+            fn.launches = 0
+        t = time.perf_counter()
+        code = cli.main(["render", *src, "--device", "cuda", "-o", png])
+        _sync()
+        wall = time.perf_counter() - t
+        launches = [fn.launches for fn in (*WRAPPERS, leap.esl_start)]
+        assert code == 0, f"cli render {src} returned {code}"
+        pngs[label] = _read_png(png)
+        print(f"{tag} cli render {' '.join(src[:1])} (rung 3, leap on): "
+              f"{wall:.3f} s wall, load included; launches (march_fwd, "
+              f"march_bwd, l2_step, march_tri, march_blocked, the round-1 "
+              f"four, esl_start) {launches}")
+        assert launches == [0, 0, 0, 1, 0, 0, 0, 0, 0, 1], launches
+    img = pngs["file"]
+    assert np.array_equal(img, pngs["memory"]), \
+        "the frame from the DDS file differs from the in-memory one"
+    assert img[..., 3].max() > 0 and len(np.unique(img)) > 16
+    print(f"{tag} the frame from the DDS file equals the in-memory frame to "
+          f"the bit: {img.shape}, {len(np.unique(img))} distinct values")
+
+    with open(path, "rb") as f:
+        body = f.read()[len(pvm.DDS_MAGIC_V1):]
+    got, native_s = _host_seconds(lambda: native.dds_decode(body), 3)
+    want, plain_s = _host_seconds(lambda: pvm.dds_decode(body), 3)
+    assert got == want, "native DDS decode differs from the plain decoder"
+    (data, _), load_s = _host_seconds(lambda: pvm.load_volume(path), 3)
+    assert np.array_equal(data, vol)
+    print(f"{tag} DDS decode of a {len(body)}-byte body to {len(got)} "
+          f"bytes: native {native_s:.4f} s, plain (numpy) {plain_s:.4f} s "
+          f"({plain_s / native_s:.1f}x), equal byte for byte; "
+          f"load_volume {load_s:.4f} s; medians of 3, host seconds")
+
+    rng = np.random.default_rng(NATIVE_SEED)
+    v16 = (vol.astype(np.uint16) << 8) | rng.integers(
+        0, 256, vol.shape, dtype=np.uint16)
+    raw16 = np.stack([(v16 >> 8).astype(np.uint8),
+                      (v16 & 255).astype(np.uint8)], axis=-1)
+    for linear in (False, True):
+        q, q_native_s = _host_seconds(
+            lambda: pvm.quantize16(raw16, linear=linear), 3)
+        p, q_plain_s = _host_seconds(
+            lambda: pvm.quantize16_plain(raw16, linear=linear), 1)
+        diff = np.abs(q.astype(np.int16) - p)
+        n_diff = int((diff > 0).sum())
+        print(f"{tag} quantize16 {'linear' if linear else 'gradient'}: "
+              f"native {q_native_s:.4f} s (median of 3), plain (numpy) "
+              f"{q_plain_s:.4f} s (one call); {n_diff} of {q.size} voxels "
+              f"differ, by at most {int(diff.max())}")
+        assert diff.max() <= 1 and n_diff <= NATIVE_QUANT_SPLIT * q.size
+
+    counts, hist_s = _host_seconds(lambda: native.histogram(vol), 3)
+    assert np.array_equal(counts, np.bincount(vol.reshape(-1),
+                                              minlength=256))
+    block = default_esl_block_dims(vol.shape)
+    (mn, mx), esl_s = _host_seconds(lambda: native.esl_minmax(vol, block), 3)
+    grid = esl_mod.build_min_max_grid(torch.from_numpy(vol).to(dev),
+                                      block).cpu().numpy()
+    gd, gh, gw = mn.shape
+    assert np.array_equal(mn, grid[:gd, :gh, :gw, 0])
+    assert np.array_equal(mx, grid[:gd, :gh, :gw, 1])
+    print(f"{tag} histogram equal to np.bincount ({hist_s:.4f} s); "
+          f"esl_minmax block {block} equal to the card's "
+          f"build_min_max_grid corner {mn.shape} ({esl_s:.4f} s)")
 
 
 def main() -> int:
@@ -3607,9 +3763,13 @@ def main() -> int:
     run(phase_checkpoint)
     run(phase_orbit)
     run(phase_suite)
+    vol512 = run(phase_volume512)
     slab = run(phase_dist, dev, {"march_fwd": fwd["ms"],
-                                 "march_bwd": step["march_bwd"]["ms"]})
-    fast = run(phase_fast, dev, build)
+                                 "march_bwd": step["march_bwd"]["ms"]},
+               vol512)
+    fast = run(phase_fast, dev, build, vol512)
+    del vol512
+    run(phase_native, dev)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"

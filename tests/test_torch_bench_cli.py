@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import ASSET_PATH
 from volrt import cli as jcli
 from volrt.bench import harness as jharness

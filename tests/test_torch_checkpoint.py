@@ -21,6 +21,7 @@ import optax
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.test_torch_diff import CPU, STEP, _pair
 from volrt.diff import render as jrender
 from volrt.train import checkpoint as jckpt

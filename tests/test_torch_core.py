@@ -28,6 +28,21 @@ ATOL = 1e-6
 CPU = "cpu"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread for each test module of the port (every
+    ``tests/test_torch_*.py`` imports this fixture). The suite runs six
+    worker processes on eight cores, and torch's default of a thread a
+    core makes each of its OpenMP regions wait for threads that other
+    workers hold: ``march_fwd_plain`` over 577,649 one-sample rays took
+    55.0 s on eight threads beside ten busy processes and 5.3 s on one
+    (1.4 s on eight threads alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

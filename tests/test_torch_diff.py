@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import synthetic_volume
 from volrt.core.tf import default_transfer_fn as j_default_tf
 from volrt.core.view import Camera as JCamera

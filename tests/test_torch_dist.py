@@ -37,6 +37,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests import torch_dist_world as world_mod
 from tests.conftest import synthetic_volume
 from volrt.core.tf import default_transfer_fn as jdefault_tf

@@ -12,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from volrt.core import esl as jesl
 from volrt.core import tf as jtf
 from volrt.core.types import Volume as JVolume

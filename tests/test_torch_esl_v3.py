@@ -28,6 +28,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from volrt.core.tf import default_transfer_fn as j_default_tf
 from volrt.core.types import Volume as JVolume
 from volrt.core.types import make_raycaster as j_make_raycaster

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.test_torch_diff import ATOL_GRAD, ATOL_IMG, _jax_image_loss_grads
 from tests.test_torch_diff import _pair
 from tests.test_torch_render import _rcs

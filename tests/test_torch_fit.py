@@ -25,6 +25,7 @@ import optax
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import ASSET_PATH
 from tests.test_torch_diff import CPU, STEP, _pair
 from volrt.diff import render as jrender

@@ -21,6 +21,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import synthetic_volume
 from volrt.core.types import View as JView
 from volrt.core.types import Volume as JVolume

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from volrt_torch.renderers.cuda.march import (
     MAX_STEPS_LIMIT, OFFSET_LIMIT, check_volume_shape, march_fwd_plain,
     max_steps, wide_offsets)
@@ -319,7 +320,10 @@ def test_shared_classification_of_a_density_is_the_plain_march(axis):
     against ``march_fwd_plain``'s colour of each sample, bit for bit, on
     the adversarial grid pose along each axis and on random rays. Each
     sample goes to the plain march as a ray of one sample (``k0 = kfar =
-    k``), whose image is the sample's colour: ``0 + c * (1 - 0)``."""
+    k``), whose image is the sample's colour: ``0 + c * (1 - 0)``. The
+    ray step only sets how many lockstep steps the plain march takes past
+    that sample, all of them masked; 4.0 makes it 3 where 0.1 made it
+    37."""
     rng = np.random.default_rng(21)
     vol = f32(rng.uniform(0, 1, SHAPE))
     vol.reshape(-1)[rng.choice(vol.size, 400, replace=False)] = 0.0
@@ -332,7 +336,7 @@ def test_shared_classification_of_a_density_is_the_plain_march(axis):
     n = o.shape[0]
     scal = torch.tensor([2.0, 0.0, 0.0, 0.0, 2.0, 0.0, 0.0, 0.0])
     got = march_fwd_plain(t(o), t(d), t(k), t(k), torch.ones(n, dtype=torch.bool),
-                          t(vol), t(tf), scal, ray_step=0.1, shade=False,
+                          t(vol), t(tf), scal, ray_step=4.0, shade=False,
                           no_ert=True, width=n).numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from volrt_torch.bench.step_ab import (
     KERNELS, OPCODE_CLASSES, VARIANT_ROWS, issue_ms, march_loop, parse_sass,
     ptxas_report, sass_counts, variant_name)

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import synthetic_volume
 from tests.test_torch_diff import (
     CPU, STEP, _jax_image_loss_grads, _pair, _torch_loss_grads)

@@ -4,6 +4,7 @@ one package writes the other reads."""
 import numpy as np
 import pytest
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import ASSET_PATH, synthetic_volume
 from volrt.io import pvm as jpvm
 from volrt_torch.io import pvm as tpvm
@@ -15,9 +16,13 @@ def test_asset_decodes_to_the_same_volume():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, synthetic_volume(32))
     assert ginfo == winfo
-    # The copy's numpy decoder gives the bytes of whichever decoder volrt
-    # used (its native one where it is built).
-    assert tpvm.read_dds(ASSET_PATH) == jpvm.read_dds(ASSET_PATH)
+    # The port's native decoder, and its plain numpy one, give the bytes
+    # of volrt's (its native one where it is built).
+    want = jpvm.read_dds(ASSET_PATH)
+    assert tpvm.read_dds(ASSET_PATH) == want
+    with open(ASSET_PATH, "rb") as f:
+        body = f.read()[len(tpvm.DDS_MAGIC_V1):]
+    assert tpvm.dds_decode(body) == want
     assert tpvm.read_dds(ASSET_PATH + ".missing") is None
 
 
@@ -42,18 +47,25 @@ def test_write_read_round_trip(tmp_path, shape, dds):
         vol.tobytes(), strip=shape[2])
 
 
-def test_sixteen_bit_quantisation(monkeypatch):
-    """The copy has ``volrt``'s numpy quantiser and no native one (which
-    rounds one value in a hundred the other way), so ``volrt`` is held to
-    its numpy path here."""
+@pytest.mark.parametrize("path", ["plain", "native"])
+def test_sixteen_bit_quantisation(monkeypatch, path):
+    """Each of the port's two quantisers against ``volrt``'s of the same
+    kind: the plain one (numpy) against ``volrt``'s numpy path, the native
+    one, which the loader takes, against ``volrt``'s native one. On this
+    input the two kinds round one voxel in 120 apart, in both packages
+    (``tests/test_torch_native.py``)."""
     from volrt import native
 
-    monkeypatch.setattr(native, "quantize16", lambda *a, **k: None)
     rng = np.random.default_rng(5)
     raw16 = rng.integers(0, 256, size=(6, 5, 4, 2), dtype=np.uint8)
+    mine = tpvm.quantize16_plain if path == "plain" else tpvm.quantize16
+    if path == "plain":
+        monkeypatch.setattr(native, "quantize16", lambda *a, **k: None)
+    else:
+        assert native.available(), "volrt's native library is not built"
     for linear in (False, True):
         np.testing.assert_array_equal(
-            tpvm.quantize16(raw16, linear=linear),
+            mine(raw16, linear=linear),
             jpvm.quantize16(raw16, linear=linear))
 
 

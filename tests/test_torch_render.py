@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import synthetic_volume
 from volrt.core.types import Volume as JVolume
 from volrt.core.types import make_raycaster as j_make_raycaster

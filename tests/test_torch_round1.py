@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.test_torch_diff import (
     CPU, STEP, _close, _jax_loss_grads, _pair, _torch_loss_grads)
 from volrt.core.tf import default_transfer_fn as j_default_tf

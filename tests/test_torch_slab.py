@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import synthetic_volume
 from volrt.core.tf import default_transfer_fn as jdefault_tf
 from volrt.core.view import Camera as JCamera

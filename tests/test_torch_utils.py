@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_core import one_torch_thread  # noqa: F401
 from tests.conftest import synthetic_volume
 from volrt.core import rays as jrays
 from volrt.core import tf as jtf

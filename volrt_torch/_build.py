@@ -7,6 +7,12 @@ library lands in ``volrt_torch/build/<hash>/``, where the hash covers the
 flags and every file under ``csrc/``, headers too, so an edited source or
 header builds anew and an unchanged tree is loaded from disk. The
 directory is created at first use and is listed in ``.gitignore``.
+
+Beside the kernels, :func:`load_native` builds the port's host C++ library
+(``native/volrt_native.cpp``: the DDS decoder, the 16-bit quantiser, the
+histogram and the ESL min/max grid) with the system C++ compiler into its
+own ``build/<hash>/``, the hash over that source and its flags. It needs no
+CUDA, so it builds, and the CPU tests run it, on any host with ``g++``.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -28,6 +35,9 @@ NVCC_FLAGS = (
 # What the hash covers: the kernels and the headers they share.
 SOURCE_GLOBS = ("*.cu", "*.cuh", "*.h")
 LIB_NAME = "libvolrt_torch_kernels.so"
+NATIVE_SRC = _PKG / "native" / "volrt_native.cpp"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+NATIVE_LIB_NAME = "libvolrt_torch_native.so"
 
 
 def _nvcc() -> str:
@@ -98,3 +108,41 @@ def _compile(lib: Path) -> None:
     if failed:
         raise RuntimeError("\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent build loses nothing
+
+
+def native_library_path() -> Path:
+    """Where the host library for the current source and flags lives."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(NATIVE_SRC.name.encode())
+    h.update(NATIVE_SRC.read_bytes())
+    return BUILD_DIR / h.hexdigest()[:16] / NATIVE_LIB_NAME
+
+
+@functools.cache
+def load_native() -> ctypes.CDLL:
+    """Compile the host library with ``g++`` if needed and load it (once
+    per process); raise with the compiler's output if it cannot be built."""
+    lib = native_library_path()
+    if not lib.exists():
+        _compile_native(lib)
+    return ctypes.CDLL(str(lib))
+
+
+def _compile_native(lib: Path) -> None:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(
+            "g++ not found on PATH; a C++ compiler is needed to build "
+            "volrt_torch's native library (the loader has no fallback)")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    # xdist workers and dist/ ranks may build at once: each compiles to a
+    # file of its own and moves it into place, which is atomic.
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}"
+                        f".tmp")
+    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{' '.join(cmd)} failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, lib)

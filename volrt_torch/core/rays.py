@@ -1,5 +1,5 @@
-"""Ray-bundle generation and AABB intersection, as torch ops
-(the counterparts of ``volrt/core/rays.py:17-67``)."""
+"""Ray-bundle generation and AABB intersection, as torch ops, and the
+march's step bound (the counterparts of ``volrt/core/rays.py:17-80``)."""
 from __future__ import annotations
 
 import torch
@@ -51,3 +51,14 @@ def intersect_aabb(
     knear = knear.clamp(min=0.0)
     hit = (knear < kfar) & (kfar > 0.0)
     return knear, kfar, hit
+
+
+def max_march_steps(ray_step: float, perspective: bool = False) -> int:
+    """Static upper bound on the number of march steps through the cube.
+
+    The chord of the ``[-1,1]^3`` cube is ``2*sqrt(3)``; for unnormalized
+    perspective directions the parametric length can only shrink (|dir|>=1 at
+    the principal ray and grows off-axis), so the orthographic bound is safe.
+    """
+    chord = 2.0 * (3.0 ** 0.5)
+    return int(chord / ray_step) + 2

@@ -218,6 +218,12 @@ def default_ray_step(dims: tuple[int, int, int]) -> float:
     return step - step / max_dim
 
 
+def ray_step_limits(dims: tuple[int, int, int]) -> tuple[float, float]:
+    """Legal ray-step range (reference: RaycasterBase.cpp:90-91)."""
+    step = default_ray_step(dims)
+    return (step / 3.0, step * 1.666)
+
+
 def make_raycaster(
     volume: Volume,
     view: View | None = None,

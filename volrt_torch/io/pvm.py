@@ -1,8 +1,13 @@
-"""PVM / DDS / RAW volume file I/O, pure Python + numpy.
+"""PVM / DDS / RAW volume file I/O.
 
 A copy of ``volrt/io/pvm.py`` that imports nothing of ``volrt`` (importing
-it would load jax): the numpy decode path only, without the optional native
-C++ decoder. ``tests/test_torch_pvm.py`` holds the two to the same bytes.
+it would load jax). As in ``volrt``, the loader decodes DDS bodies and
+quantises 16-bit voxels with the host C++ library (``volrt_torch.native``),
+but with no fallback: the numpy pipelines below (:func:`dds_decode`,
+:func:`quantize16_plain`) are the plain versions the tests and
+``chip_smoke.py`` hold the library to, and nothing on the loader's path
+takes them. ``tests/test_torch_pvm.py`` and ``tests/test_torch_native.py``
+hold the two packages to the same bytes.
 
 From-scratch reimplementation of the on-disk formats consumed by the
 reference's vendored loader (Stefan Roettger's ddsbase, reference:
@@ -36,6 +41,8 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from volrt_torch import native
 
 DDS_MAGIC_V1 = b"DDS v3d\n"
 DDS_MAGIC_V2 = b"DDS v3e\n"
@@ -95,7 +102,9 @@ def _dds_width_code(code: int) -> int:
 
 
 def dds_decode(payload: bytes, block: int = 0) -> bytes:
-    """Decode a DDS differential stream body (after the magic)."""
+    """Decode a DDS differential stream body (after the magic) with numpy:
+    the plain version of ``native.dds_decode``, which :func:`read_dds`
+    takes."""
     br = _BitReader(payload)
     skip = br.read(2) + 1
     strip = br.read(16) + 1
@@ -210,9 +219,9 @@ def read_dds(path: str) -> bytes | None:
     with open(path, "rb") as f:
         raw = f.read()
     if raw.startswith(DDS_MAGIC_V1):
-        return dds_decode(raw[len(DDS_MAGIC_V1) :], block=0)
+        return native.dds_decode(raw[len(DDS_MAGIC_V1) :], block=0)
     if raw.startswith(DDS_MAGIC_V2):
-        return dds_decode(
+        return native.dds_decode(
             raw[len(DDS_MAGIC_V2) :], block=DDS_INTERLEAVE_BLOCK
         )
     return raw
@@ -473,15 +482,29 @@ def read_raw(
 # ---------------------------------------------------------------------------
 
 
+def _voxels16(data: np.ndarray) -> np.ndarray:
+    """Big-endian byte pairs ``(D, H, W, 2)`` -> uint16 ``(D, H, W)``."""
+    return data[..., 0].astype(np.uint16) * 256 + data[..., 1].astype(np.uint16)
+
+
 def quantize16(data: np.ndarray, linear: bool = False) -> np.ndarray:
-    """Quantize big-endian 16-bit voxels ``(D, H, W, 2)`` to uint8 ``(D, H, W)``.
+    """Quantize big-endian 16-bit voxels ``(D, H, W, 2)`` to uint8
+    ``(D, H, W)`` with the host library (``native.quantize16``), as
+    ``volrt`` does when its library is built. :func:`quantize16_plain` is
+    the same algorithm in numpy; the two round a voxel apart now and then
+    (by 1), in ``volrt`` too."""
+    return native.quantize16(_voxels16(data), linear=linear)
+
+
+def quantize16_plain(data: np.ndarray, linear: bool = False) -> np.ndarray:
+    """:func:`quantize16` in numpy (``volrt``'s numpy path).
 
     Non-linear mode weights each 16-bit value by the cube root of its summed
     gradient magnitudes, iteratively caps outliers, and integrates the result
     into a monotone 16->8 bit mapping — the same algorithm as the reference
     (reference: ddsbase.cpp:475-558), vectorized with numpy.
     """
-    v = data[..., 0].astype(np.uint16) * 256 + data[..., 1].astype(np.uint16)
+    v = _voxels16(data)
     vmin, vmax = int(v.min()), int(v.max())
 
     if linear:
