@@ -137,9 +137,9 @@ def _fill(prof, times):
 
 
 def test_profiler_tables_match_volrt():
-    """The same samples give the same avg, max and samples tables, the
-    same roofline table from the same notes, and the same derived
-    metrics."""
+    """The same samples give the same avg, max and samples tables and the
+    same roofline table from the same notes; what nothing of the port
+    reads is not ported."""
     rng = np.random.default_rng(7)
     times = [((f"c{i % 3}", f"r{i % 4}"), float(rng.uniform(0.1, 9.0)))
              for i in range(40)]
@@ -153,13 +153,12 @@ def test_profiler_tables_match_volrt():
     assert t.print_roofline().splitlines()[1:] == (
         j.print_roofline().splitlines()[1:])
     assert tprof.MIN_SAMPLE_STAT == jprof.MIN_SAMPLE_STAT
-    assert tprof.derived_metrics(2.5, 100, 7) == jprof.derived_metrics(
-        2.5, 100, 7)
     for gone in ("print_mfu", "mfu", "chip_peak_flops",
-                 "windowed_kernel_flops"):
+                 "windowed_kernel_flops", "derived_metrics", "time_fn",
+                 "ring"):
         assert not hasattr(tprof, gone) and not hasattr(t, gone)
     t.reset()
-    assert not t.stats and not t.notes and not t.ring
+    assert not t.stats and not t.notes
 
 
 def test_profiler_waits_for_the_card(monkeypatch):
@@ -176,7 +175,8 @@ def test_profiler_waits_for_the_card(monkeypatch):
     assert calls == ["sync"]
     ms = prof.stop()
     assert calls == ["sync", "sync"] and ms >= 0.0
-    assert prof.stats["c"]["r"].samples == 1 and prof.ring == [ms]
+    assert prof.stats["c"]["r"].samples == 1
+    assert prof.stats["c"]["r"].total_ms == ms
 
 
 def test_bound_is_the_one_chip_smoke_uses():

@@ -174,11 +174,14 @@ def _flops_per_sample(rid: int, interpolation: str) -> int:
 
 def _trace(trace_dir: str | None, name: str):
     """A ``torch.profiler`` context that writes a Chrome trace of the
-    timed frames to ``trace_dir/<name>.json`` (nothing without a
-    directory)."""
+    timed frames, the program's spans among them, to
+    ``trace_dir/<name>.json`` (nothing without a directory), and then
+    drops the spans' records, which nothing else reads."""
     if not trace_dir:
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile
+
+    from volrt_torch.utils import trace
 
     os.makedirs(trace_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
@@ -187,6 +190,7 @@ def _trace(trace_dir: str | None, name: str):
 
     def write(prof):
         prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
+        trace.clear()
 
     return profile(activities=activities, on_trace_ready=write)
 

@@ -1,5 +1,6 @@
 """Where a step's time goes on the card: a ``torch.profiler`` trace of a
-few steps, summed by kernel name.
+few steps, the device's busy time in it and the program's spans
+(``volrt_torch.utils.trace``) of each step.
 
     python -m volrt_torch.bench.trace_step --route onepass --steps 10
 
@@ -18,10 +19,12 @@ route the frame ``cli render`` renders by default instead (the camera at
 distance 3, diffuse kd 0.6, ERT 0.95, the leading ESL leap, one launch of
 ``esl_leap_kernel`` a frame); ``--esl`` turns ESL on for the benchmark
 scene (rung 5's and the steps' ESL mode, the leap on rungs 2-4). Prints
-one JSON object: the
-card's name and power limit, device time per step by kernel name, the
-window's wall time and the card's idle share in it (one minus device time
-over wall time, the host synchronising only at the window's end).
+one JSON object: the card's name and power limit; per step, the window's
+wall time, the host's enqueue, the device's busy time (the union of its
+operations in time) and the card's idle share in the window (the host
+synchronising only at the window's end); the march wrappers' launches
+per step (their counters); and each span's host ms, stream ms (its
+device stages'), work and count per step.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
 from volrt_torch.renderers import diff_v3, get_renderer
+from volrt_torch.renderers.cuda import leap, march
 
 
 def make_step(route: str, volume_size: int, viewport: int,
@@ -78,43 +82,71 @@ def make_step(route: str, volume_size: int, viewport: int,
     return two_kernel
 
 
+def busy_us(intervals: list[tuple[float, float]]) -> float:
+    """The length of the union of ``(start, end)`` intervals: the time in
+    which any of them ran, overlapping ones counted once."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy if cur_e is None else busy + cur_e - cur_s
+
+
+def launches() -> dict[str, int]:
+    """The march wrappers' and the leap's launch counters as they stand
+    (``renderers/cuda/march.py``, ``renderers/cuda/leap.py``)."""
+    fns = (march.march_fwd, march.march_bwd, march.l2_step, march.march_tri,
+           march.march_blocked, leap.esl_start)
+    return {fn.__name__: fn.launches for fn in fns}
+
+
 def trace(step, steps: int) -> dict:
+    """Trace ``steps`` calls of ``step`` after two untraced ones: the
+    profiler records the device alone, so the host runs near its untraced
+    speed, and each call is one top-level span that the program's spans
+    nest in."""
     from torch.profiler import ProfilerActivity, profile
+
+    from volrt_torch.utils import trace as spans
 
     for _ in range(2):
         step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    spans.clear()
+    before = launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step()
+            with spans.span("step"):
+                step()
         t_enqueued = time.perf_counter()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((e.key, float(us), e.count))
-    device_us = sum(us for _, us, _ in rows)
-    if device_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    wall_us = (t1 - t0) * 1e6
-    rows.sort(key=lambda r: -r[1])
+    device = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        raise RuntimeError("the profiler recorded no device operation")
+    busy_ms = busy_us(device) / 1e3
+    wall_ms = (t1 - t0) * 1e3
+    launched = {k: (n - before[k]) / steps
+                for k, n in launches().items() if n > before[k]}
     return {
         "steps": steps,
-        "wall_ms_per_step": wall_us / steps / 1e3,
+        "wall_ms_per_step": wall_ms / steps,
         "host_enqueue_ms_per_step": (t_enqueued - t0) * 1e3 / steps,
-        "device_ms_per_step": device_us / steps / 1e3,
-        "idle_share": 1.0 - device_us / wall_us,
-        "kernels_per_step": sum(n for _, _, n in rows) / steps,
-        "by_name": [{"name": name[:100], "us_per_step": us / steps,
-                     "share": us / device_us, "calls_per_step": n / steps}
-                    for name, us, n in rows],
+        "device_busy_ms_per_step": busy_ms / steps,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "device_ops_per_step": len(device) / steps,
+        "launches_per_step": launched,
+        "spans_per_step": [
+            {"name": s.name, "host_ms": s.host_ms, "stream_ms": s.stream_ms,
+             "work": s.work, "unit": s.unit, "spans": s.spans / steps}
+            for s in spans.summary().values()],
     }
 
 

@@ -14,7 +14,8 @@ import torch
 from volrt_torch.constants import ESL_VOLUME_DIMS
 from volrt_torch.renderers import batched
 from volrt_torch.renderers.cuda.march import (
-    _F, _I, _P, _launch, check_tensors, max_steps)
+    _F, _I, _P, _launch, _rays, check_tensors, max_steps)
+from volrt_torch.utils import trace
 
 # o, d, knear, kfar, hit, dist, w, h, depth, block, bw xyz, min_bw, step,
 # max_rounds, n, k0, stream
@@ -50,22 +51,23 @@ def esl_start(o, d, knear, kfar, hit, dist, dims, block: int, block_size,
     CPU tensors take the plain version (``batched.esl_start_raw``). CUDA
     tensors launch the kernel or raise.
     """
-    _check(o, d, knear, kfar, hit, dist)
-    if o.device.type == "cpu":
-        return esl_start_plain(o, d, knear, kfar, hit, dist, dims, block,
-                               block_size, ray_step)
-    n = o.shape[0]
-    k0 = torch.empty_like(knear)
-    if n == 0:
+    with trace.span("leap", rays=_rays(o)):
+        _check(o, d, knear, kfar, hit, dist)
+        if o.device.type == "cpu":
+            return esl_start_plain(o, d, knear, kfar, hit, dist, dims, block,
+                                   block_size, ray_step)
+        n = o.shape[0]
+        k0 = torch.empty_like(knear)
+        if n == 0:
+            return k0
+        w, h, depth = dims
+        _launch("volrt_esl_start", _LEAP_ARGTYPES, o.device,
+                o.data_ptr(), d.data_ptr(), knear.data_ptr(),
+                kfar.data_ptr(), hit.data_ptr(), dist.data_ptr(), w, h,
+                depth, block, *block_size, min(block_size), ray_step,
+                max_steps(ray_step), n, k0.data_ptr())
+        esl_start.launches += 1
         return k0
-    w, h, depth = dims
-    _launch("volrt_esl_start", _LEAP_ARGTYPES, o.device,
-            o.data_ptr(), d.data_ptr(), knear.data_ptr(), kfar.data_ptr(),
-            hit.data_ptr(), dist.data_ptr(), w, h, depth, block,
-            *block_size, min(block_size), ray_step, max_steps(ray_step), n,
-            k0.data_ptr())
-    esl_start.launches += 1
-    return k0
 
 
 esl_start.launches = 0

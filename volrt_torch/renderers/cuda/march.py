@@ -74,6 +74,7 @@ from volrt_torch.renderers.common import (
     light_tap,
     normalize,
 )
+from volrt_torch.utils import trace
 
 # Pixel block edge of the kernels (csrc/march_common.cuh: TILE).
 TILE = 16
@@ -344,6 +345,11 @@ class EslSkip:
         return skip
 
 
+def _rays(o: torch.Tensor) -> int:
+    """The rays of ``o`` (``f32[N, 3]``) for a span, before its checks."""
+    return o.shape[0] if o.dim() else 0
+
+
 def _count_launch(wrapper, density: torch.Tensor) -> None:
     """Count one launch of ``wrapper``'s kernel: ``launches`` counts
     every one, ``launches_bf16`` those of the bf16 instances."""
@@ -418,27 +424,29 @@ def march_fwd(o, d, k0, kfar, alive, density, premult_tf, scal, *,
     CPU tensors take :func:`march_fwd_plain`. CUDA tensors launch the
     kernel, building it at first use, and raise if it cannot launch.
     """
-    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           volume_dtype=V3_VOXELS, shade=shade, phong=phong,
-           esl=esl, slab=slab)
-    if o.device.type == "cpu":
-        return march_fwd_plain(
-            o, d, k0, kfar, alive, density, premult_tf, scal,
-            ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            phong=phong, esl=esl, slab=slab)
-    n = o.shape[0]
-    out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
-    if n == 0:
+    with trace.span("march", rays=_rays(o)):
+        _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
+               volume_dtype=V3_VOXELS, shade=shade, phong=phong,
+               esl=esl, slab=slab)
+        if o.device.type == "cpu":
+            return march_fwd_plain(
+                o, d, k0, kfar, alive, density, premult_tf, scal,
+                ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
+                phong=phong, esl=esl, slab=slab)
+        n = o.shape[0]
+        out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
+        if n == 0:
+            return out
+        acc0, full_d = (None, 0) if slab is None else (slab[0].data_ptr(),
+                                                      slab[1])
+        _launch("volrt_march_fwd", _V3_FWD_ARGTYPES, o.device,
+                *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf,
+                               scal),
+                out.data_ptr(), n, width, ray_step, max_steps(ray_step),
+                _shade_mode(shade, phong), int(no_ert), *_esl_pointers(esl),
+                acc0, full_d, V3_VOXELS.index(density.dtype))
+        _count_launch(march_fwd, density)
         return out
-    acc0, full_d = (None, 0) if slab is None else (slab[0].data_ptr(),
-                                                  slab[1])
-    _launch("volrt_march_fwd", _V3_FWD_ARGTYPES, o.device,
-            *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
-            out.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            _shade_mode(shade, phong), int(no_ert), *_esl_pointers(esl),
-            acc0, full_d, V3_VOXELS.index(density.dtype))
-    _count_launch(march_fwd, density)
-    return out
 
 
 march_fwd.launches = march_fwd.launches_bf16 = 0
@@ -638,22 +646,24 @@ def march_tri(o, d, k0, kfar, alive, volume, premult_tf, scal, *,
     CPU tensors take :func:`march_tri_plain`. CUDA tensors launch the
     kernel, building it at first use, and raise if it cannot launch.
     """
-    _check(o, d, k0, kfar, alive, volume, premult_tf, scal, width)
-    if o.device.type == "cpu":
-        return march_tri_plain(
-            o, d, k0, kfar, alive, volume, premult_tf, scal,
-            ray_step=ray_step, nearest=nearest, shade=shade, no_ert=no_ert,
-            width=width)
-    n = o.shape[0]
-    out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
-    if n == 0:
+    with trace.span("march", rays=_rays(o)):
+        _check(o, d, k0, kfar, alive, volume, premult_tf, scal, width)
+        if o.device.type == "cpu":
+            return march_tri_plain(
+                o, d, k0, kfar, alive, volume, premult_tf, scal,
+                ray_step=ray_step, nearest=nearest, shade=shade,
+                no_ert=no_ert, width=width)
+        n = o.shape[0]
+        out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
+        if n == 0:
+            return out
+        _launch("volrt_march_tri", _TRI_ARGTYPES, o.device,
+                *_ray_pointers(o, d, k0, kfar, alive, volume, premult_tf,
+                               scal),
+                out.data_ptr(), n, width, ray_step, max_steps(ray_step),
+                int(nearest), int(shade), int(no_ert))
+        march_tri.launches += 1
         return out
-    _launch("volrt_march_tri", _TRI_ARGTYPES, o.device,
-            *_ray_pointers(o, d, k0, kfar, alive, volume, premult_tf, scal),
-            out.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            int(nearest), int(shade), int(no_ert))
-    march_tri.launches += 1
-    return out
 
 
 march_tri.launches = 0
@@ -1094,29 +1104,32 @@ def l2_step(o, d, k0, kfar, alive, density, premult_tf, scal, tgt, *,
     CPU tensors take :func:`l2_step_plain`. CUDA tensors launch the
     kernel or raise.
     """
-    _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
-           volume_dtype=V3_VOXELS, shade=shade, phong=phong,
-           esl=esl, tgt=tgt)
-    if o.device.type == "cpu":
-        return l2_step_plain(
-            o, d, k0, kfar, alive, density, premult_tf, scal, tgt,
-            ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
-            need_dtf=need_dtf, need_dvol=need_dvol, phong=phong, esl=esl)
-    n = o.shape[0]
-    out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
-    d_density = _grad_buffer(density)
-    d_tf = torch.zeros_like(premult_tf)
-    if n == 0:
+    with trace.span("march", rays=_rays(o)):
+        _check(o, d, k0, kfar, alive, density, premult_tf, scal, width,
+               volume_dtype=V3_VOXELS, shade=shade, phong=phong,
+               esl=esl, tgt=tgt)
+        if o.device.type == "cpu":
+            return l2_step_plain(
+                o, d, k0, kfar, alive, density, premult_tf, scal, tgt,
+                ray_step=ray_step, shade=shade, no_ert=no_ert, width=width,
+                need_dtf=need_dtf, need_dvol=need_dvol, phong=phong,
+                esl=esl)
+        n = o.shape[0]
+        out = torch.empty((n, 4), dtype=torch.float32, device=o.device)
+        d_density = _grad_buffer(density)
+        d_tf = torch.zeros_like(premult_tf)
+        if n == 0:
+            return out, d_density, d_tf
+        _launch("volrt_l2_step", _GRAD_ARGTYPES, o.device,
+                *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf,
+                               scal),
+                tgt.data_ptr(), out.data_ptr(), d_density.data_ptr(),
+                d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
+                _shade_mode(shade, phong), int(no_ert), int(need_dtf),
+                int(need_dvol), *_esl_pointers(esl),
+                V3_VOXELS.index(density.dtype))
+        _count_launch(l2_step, density)
         return out, d_density, d_tf
-    _launch("volrt_l2_step", _GRAD_ARGTYPES, o.device,
-            *_ray_pointers(o, d, k0, kfar, alive, density, premult_tf, scal),
-            tgt.data_ptr(), out.data_ptr(), d_density.data_ptr(),
-            d_tf.data_ptr(), n, width, ray_step, max_steps(ray_step),
-            _shade_mode(shade, phong), int(no_ert), int(need_dtf),
-            int(need_dvol), *_esl_pointers(esl),
-            V3_VOXELS.index(density.dtype))
-    _count_launch(l2_step, density)
-    return out, d_density, d_tf
 
 
 l2_step.launches = l2_step.launches_bf16 = 0

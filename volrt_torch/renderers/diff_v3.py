@@ -26,6 +26,7 @@ from volrt_torch.core.types import View
 from volrt_torch.diff.render import DiffScene, scene_empty_grid
 from volrt_torch.renderers import fwd_v3
 from volrt_torch.renderers.cuda.march import MarchFunction, l2_step
+from volrt_torch.utils import trace
 
 
 def check_modes(shaded: bool = False, phong: bool = False) -> None:
@@ -140,7 +141,9 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
         base = scene.tf_base
         density = scene.density
         if fast:
-            density = density.to(torch.bfloat16)
+            with trace.span("volume_copy", device=density.device,
+                            voxels=density.numel()):
+                density = density.to(torch.bfloat16)
         args, kw = fwd_v3.ray_args(
             view, density, tf_mod.premultiply(base), scene.ray_step,
             ray_threshold, light_kd if (shaded or phong) else 0.0,
@@ -149,14 +152,15 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
         tgt = target.to(torch.float32).reshape(-1, 4).contiguous()
         out, d_density, d_premult = l2_step(
             *args, tgt, need_dtf=need_dtf, need_dvol=need_dvol, **kw)
-        diff = out - tgt
-        loss = (diff * diff).sum() * (scale * 0.5)
-        # premult = (rgb * a, a): d_base.rgb = d_premult.rgb * a,
-        # d_base.a = d_premult.a + sum(d_premult.rgb * rgb).
-        d_rgb = d_premult[:, :3] * base[:, 3:4]
-        d_a = d_premult[:, 3:4] + (d_premult[:, :3] * base[:, :3]).sum(
-            -1, keepdim=True)
-        d_base = torch.cat([d_rgb, d_a], dim=-1)
+        with trace.span("loss", rays=w * h):
+            diff = out - tgt
+            loss = (diff * diff).sum() * (scale * 0.5)
+            # premult = (rgb * a, a): d_base.rgb = d_premult.rgb * a,
+            # d_base.a = d_premult.a + sum(d_premult.rgb * rgb).
+            d_rgb = d_premult[:, :3] * base[:, 3:4]
+            d_a = d_premult[:, 3:4] + (d_premult[:, :3] * base[:, :3]).sum(
+                -1, keepdim=True)
+            d_base = torch.cat([d_rgb, d_a], dim=-1)
     return loss, {"density": d_density, "tf_base": d_base}
 
 

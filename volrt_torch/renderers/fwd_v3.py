@@ -18,6 +18,7 @@ from volrt_torch.core import rays as rays_mod
 from volrt_torch.core import sampling
 from volrt_torch.core.types import Raycaster, View
 from volrt_torch.renderers.cuda.march import march_fwd
+from volrt_torch.utils import trace
 
 NAME = "pallas-v3"
 
@@ -45,13 +46,13 @@ def render_float(rc: Raycaster, fast: bool = False
     and sampled as ``volrt``'s fast kernels sample it, by the kernel's
     bf16 instance (:func:`march_args`).
     """
-    if rc.interpolation != "trilinear":
-        raise ValueError("pallas-v3 renders trilinear mode only")
-    check_modes(rc, phong=True)
-    args, kw = march_args(rc, fast)
     w, h = rc.view.dims
-    colors = march_fwd(*args, **kw)
-    return colors.reshape(h, w, 4), 0.0
+    with trace.span("render", rays=w * h):
+        if rc.interpolation != "trilinear":
+            raise ValueError("pallas-v3 renders trilinear mode only")
+        check_modes(rc, phong=True)
+        args, kw = march_args(rc, fast)
+        return march_fwd(*args, **kw).reshape(h, w, 4), 0.0
 
 
 def check_modes(rc: Raycaster, phong: bool = False) -> None:
@@ -72,9 +73,11 @@ def march_args(rc: Raycaster, fast: bool = False) -> tuple[tuple, dict]:
     with the uint8 volume converted to an f32 density (with ``fast``, that
     density's bf16 copy, as ``volrt``'s ``fwd_v3.py:56`` and
     ``_phase_volumes`` make it), and ESL's grid when ``rc.esl``."""
-    density = rc.volume.data.to(torch.float32) / 255.0
-    if fast:
-        density = density.to(torch.bfloat16)
+    data = rc.volume.data
+    with trace.span("volume_copy", device=data.device, voxels=data.numel()):
+        density = data.to(torch.float32) / 255.0
+        if fast:
+            density = density.to(torch.bfloat16)
     return ray_args(rc.view, density, rc.transfer_fn, rc.ray_step,
                     rc.ray_threshold, rc.light_kd,
                     phong=rc.shading == "phong",
@@ -103,35 +106,39 @@ def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
     ``(words, block)`` of their ESL mode, adds their ``esl`` keyword.
     """
     dev = density.device
-    origins, directions = rays_mod.get_rays(view)
-    o = origins.reshape(-1, 3).contiguous()
-    d = directions.reshape(-1, 3).contiguous()
-    knear, kfar, hit = rays_mod.intersect_aabb(o, d)
-    if esl_start is not None:
-        knear = esl_start(o, d, knear, kfar, hit)
-    alive = hit & (knear <= kfar)
-    # Built from fill kernels. A copy from the host (torch.tensor(...,
-    # device=), or item assignment) goes through pageable memory, and the
-    # host then waits for the queued work, the previous frame's march too.
-    f32 = dict(dtype=torch.float32, device=dev)
-    scal = torch.cat([torch.full((1,), ray_threshold, **f32),
-                      torch.full((1,), light_kd, **f32),
-                      view.light_pos.to(torch.float32),
-                      torch.zeros(1, **f32),
-                      torch.full((1,), loss_scale, **f32),
-                      torch.zeros(1, **f32)])
-    args = (o, d, knear, kfar, alive, density, premult_tf.contiguous(), scal)
-    kw = dict(
-        ray_step=ray_step,
-        # The tap contributes nothing unless kd passes its gate.
-        shade=light_kd > SHADE_KD_GATE,
-        # Opacity never exceeds 1, so a threshold >= 1 is never crossed.
-        no_ert=ray_threshold >= 1.0,
-        width=view.dims[0])
-    if phong:
-        kw.update(shade=False, phong=kw["shade"])
-    if esl is not None:
-        kw["esl"] = esl
+    w, h = view.dims
+    with trace.span("ray_setup", device=dev, rays=w * h):
+        origins, directions = rays_mod.get_rays(view)
+        o = origins.reshape(-1, 3).contiguous()
+        d = directions.reshape(-1, 3).contiguous()
+        knear, kfar, hit = rays_mod.intersect_aabb(o, d)
+        if esl_start is not None:
+            knear = esl_start(o, d, knear, kfar, hit)
+        alive = hit & (knear <= kfar)
+        # Built from fill kernels. A copy from the host (torch.tensor(...,
+        # device=), or item assignment) goes through pageable memory, and
+        # the host then waits for the queued work, the previous frame's
+        # march too.
+        f32 = dict(dtype=torch.float32, device=dev)
+        scal = torch.cat([torch.full((1,), ray_threshold, **f32),
+                          torch.full((1,), light_kd, **f32),
+                          view.light_pos.to(torch.float32),
+                          torch.zeros(1, **f32),
+                          torch.full((1,), loss_scale, **f32),
+                          torch.zeros(1, **f32)])
+        args = (o, d, knear, kfar, alive, density, premult_tf.contiguous(),
+                scal)
+        kw = dict(
+            ray_step=ray_step,
+            # The tap contributes nothing unless kd passes its gate.
+            shade=light_kd > SHADE_KD_GATE,
+            # Opacity never exceeds 1, so a threshold >= 1 is never crossed.
+            no_ert=ray_threshold >= 1.0,
+            width=view.dims[0])
+        if phong:
+            kw.update(shade=False, phong=kw["shade"])
+        if esl is not None:
+            kw["esl"] = esl
     return args, kw
 
 

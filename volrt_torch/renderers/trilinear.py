@@ -19,6 +19,7 @@ from volrt_torch.core.types import Raycaster
 from volrt_torch.renderers import fwd_v3
 from volrt_torch.renderers.cuda import leap
 from volrt_torch.renderers.cuda.march import march_tri
+from volrt_torch.utils import trace
 
 NAME = "pallas-trilinear"
 
@@ -53,11 +54,16 @@ def render_float(rc: Raycaster, shade: bool = True
     ``shade=False`` skips the diffuse light tap; with ``shade=True`` it is
     taken when ``rc.light_kd`` passes its gate, which gives the same image
     as evaluating the gated tap on every sample."""
-    if rc.interpolation != "trilinear":
-        raise ValueError("pallas-trilinear renders trilinear mode only")
-    args, kw = ladder_args(rc, rc.volume.data.to(torch.float32), shade)
     w, h = rc.view.dims
-    return march_tri(*args, nearest=False, **kw).reshape(h, w, 4), 0.0
+    with trace.span("render", rays=w * h):
+        if rc.interpolation != "trilinear":
+            raise ValueError("pallas-trilinear renders trilinear mode only")
+        data = rc.volume.data
+        with trace.span("volume_copy", device=data.device,
+                        voxels=data.numel()):
+            volume = data.to(torch.float32)
+        args, kw = ladder_args(rc, volume, shade)
+        return march_tri(*args, nearest=False, **kw).reshape(h, w, 4), 0.0
 
 
 def render(rc: Raycaster) -> torch.Tensor:

@@ -25,6 +25,7 @@ from volrt_torch.diff.render import DiffScene, render_diff, render_diff_image
 from volrt_torch.dist.mesh import Mesh
 from volrt_torch.dist.render import band_rows
 from volrt_torch.renderers.diff_v3 import l2_loss_grads_v3_onepass
+from volrt_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -121,24 +122,30 @@ def make_train_step(loss_fn: Callable = l2_loss, train_density: bool = True,
             return l2_loss_grads_sharded(scene, view, target, mesh)
 
     def step(state: TrainState, view: View, target: torch.Tensor):
-        scene = state.scene
-        scene.density.requires_grad_(train_density)
-        scene.tf_base.requires_grad_(train_tf)
-        if loss_grads_fn is not None:
-            loss, grads = loss_grads_fn(scene, view, target)
-            scene.density.grad = grads["density"] if train_density else None
-            scene.tf_base.grad = grads["tf_base"] if train_tf else None
-        else:
-            state.optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(scene, view, target)
-            if train_density or train_tf:
-                loss.backward()
-        state.optimizer.step()
-        with torch.no_grad():
-            scene.density.clamp_(0.0, 1.0)
-            scene.tf_base.clamp_(0.0, 1.0)
-        state.step += 1
-        return state, loss.detach()
+        w, h = view.dims
+        with trace.span("train_step", rays=w * h):
+            scene = state.scene
+            scene.density.requires_grad_(train_density)
+            scene.tf_base.requires_grad_(train_tf)
+            if loss_grads_fn is not None:
+                loss, grads = loss_grads_fn(scene, view, target)
+                scene.density.grad = (grads["density"] if train_density
+                                      else None)
+                scene.tf_base.grad = grads["tf_base"] if train_tf else None
+            else:
+                state.optimizer.zero_grad(set_to_none=True)
+                loss = loss_fn(scene, view, target)
+                if train_density or train_tf:
+                    loss.backward()
+            with trace.span("optimizer", device=scene.density.device,
+                            parameters=(scene.density.numel()
+                                        + scene.tf_base.numel())):
+                state.optimizer.step()
+                with torch.no_grad():
+                    scene.density.clamp_(0.0, 1.0)
+                    scene.tf_base.clamp_(0.0, 1.0)
+            state.step += 1
+            return state, loss.detach()
 
     return step
 

@@ -7,8 +7,9 @@ card (``torch.cuda.synchronize``) before they read the clock, so a sample
 is the wall time from the card's last completion to the timed work's, as
 the reference's ``cudaEventSynchronize`` has it (Profiler.cpp:64-66), not
 the host's enqueue. The stats keep the reference's shape, {samples, sum,
-max} per (config, renderer), with derived rays/s and rays*steps/s and a
-ring of recent frame times (Profiler.cpp:73-74).
+max} per (config, renderer). ``volrt``'s ring of recent frame times (a
+viewer's graph, Profiler.cpp:73-74), ``time_fn`` and ``derived_metrics``
+are not ported: nothing of the port reads them.
 
 Beside the times, a roofline table (:meth:`Profiler.print_roofline`): the
 least time the card could take for the nominal full march of a cell
@@ -33,7 +34,6 @@ from dataclasses import dataclass, field
 import torch
 
 MIN_SAMPLE_STAT = 8  # reference: Profiler.h:12
-RING_SIZE = 300      # reference: Profiler.h graph ring
 
 # Published peaks of one H100 SXM at its full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -132,7 +132,6 @@ class Profiler:
     notes: dict = field(
         default_factory=lambda: defaultdict(lambda: defaultdict(dict))
     )
-    ring: list = field(default_factory=list)
     _t0: float = 0.0
     _key: tuple = ()
 
@@ -151,19 +150,7 @@ class Profiler:
         ms = (time.perf_counter() - self._t0) * 1e3
         config, renderer = self._key
         self.stats[config][renderer].add(ms)
-        self.ring.append(ms)
-        if len(self.ring) > RING_SIZE:
-            self.ring.pop(0)
         return ms
-
-    def time_fn(self, config: str, renderer: str, fn, iters: int = 1):
-        """Time ``fn()`` ``iters`` times; returns the last result."""
-        result = None
-        for _ in range(iters):
-            self.start(config, renderer)
-            result = fn()
-            self.stop(result)
-        return result
 
     # --- reports (shape of reference print_avg/max/samples,
     #     Profiler.cpp:80-114) ---
@@ -221,13 +208,4 @@ class Profiler:
     def reset(self) -> None:
         self.stats.clear()
         self.notes.clear()
-        self.ring.clear()
 
-
-def derived_metrics(ms: float, n_rays: int, n_steps: int) -> dict:
-    s = ms / 1e3
-    return {
-        "ms": ms,
-        "rays_per_s": n_rays / s if s else 0.0,
-        "ray_steps_per_s": n_rays * n_steps / s if s else 0.0,
-    }
