@@ -15,7 +15,8 @@ Phases, each synchronised with the card, none catching its own failure:
 4. drive the serving path, rung 5's forward render
    (``fwd_v3.render_float``), at full width: the 256^3 synthetic volume,
    1024^2 rays, the benchmark's zoomed orthographic pose, ERT off,
-   unshaded. The launch counter is reset just before and read just after.
+   unshaded. The launch counters are reset just before and read just
+   after (the march's, and the ray setup's: one a frame).
    The image is held against the plain march, and the kernel, the plain
    march and the whole render are timed;
 5. render the CLI's default look (diffuse, ERT 0.95, angles 30 20 0) at
@@ -225,7 +226,24 @@ Phases, each synchronised with the card, none catching its own failure:
     ``volrt`` too; at most 1 % may, by at most 1); the histogram equal to
     ``np.bincount``; the ESL min/max scan equal to the corner of
     ``build_min_max_grid`` on the card. No kernel of its own: the
-    ``kernels`` line is unchanged.
+    ``kernels`` line is unchanged;
+24. the ray setup's kernel (``renderers/cuda/rays.py:ray_setup``,
+    ``csrc/ray_setup.cu``) against its plain version, ``get_rays`` +
+    ``intersect_aabb`` + ``scal``'s fills, its six outputs equal to the
+    bit (signed zeros included) on the suite's 8 poses at distances 3 and
+    2, at 3840x2160 and 1024^2; the kernel (its device time in
+    torch.profiler's trace) and the plain version (CUDA events) timed on
+    the 45/45-degree pose beside the bound (33 B a ray). Then the launch
+    counters reset before and read after the CLI's 4K frame (rung 3, the
+    leap: one ``march_tri``, one ``esl_start``, one ``ray_setup``), rung
+    5's frame and its phong ESL frame (one ``march_fwd``, one
+    ``ray_setup``); on the 4K frame and rung 5's, ``ray_args``' rays,
+    ``alive`` and ``scal`` equal to the plain chain's to the bit (the
+    leap's start and ``hit & (k0 <= kfar)`` on the 4K frame), so the
+    march comparisons of the other phases, which take their rays from
+    ``ray_args``, hold the marches on the plain chain's rays; the
+    one-launch L2 step, one ray setup a step. The ray setup has a line
+    of its own in the ``kernels`` line.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -267,8 +285,8 @@ import torch.distributed as dist
 from volrt_torch import _build, cli, native
 from volrt_torch.bench import __main__ as headline
 from volrt_torch.bench.harness import (
-    bench_diff_step, bench_fwd_step, bench_pose, crop_bench_scene,
-    diff_bench_scene, synthetic_volume, time_cuda)
+    bench_diff_step, bench_fwd_step, bench_pose, bench_views,
+    crop_bench_scene, diff_bench_scene, synthetic_volume, time_cuda)
 from volrt_torch.bench.step_ab import (
     VARIANT_ROWS, cuobjdump_sass, ptxas_report, sass_counts)
 from volrt_torch.constants import SHADE_ALPHA_GATE
@@ -288,7 +306,7 @@ from volrt_torch.dist.render import (
     l2_loss_grads_v3_sharded, render_float_sharded)
 from volrt_torch.renderers import (
     batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
-from volrt_torch.renderers.cuda import leap
+from volrt_torch.renderers.cuda import leap, rays
 from volrt_torch.train import checkpoint as ckpt_mod
 from volrt_torch.renderers.cuda.march import (
     EslSkip, div255_mismatches, l2_step, l2_step_plain, march_blocked,
@@ -499,13 +517,14 @@ def _bound(args, kw, flops_per_sample: int, images: int,
 
 def phase_main(dev: torch.device) -> dict:
     rc = bench_pose(256, 1024, dev)
-    march_fwd.launches = 0
+    march_fwd.launches = rays.ray_setup.launches = 0
     img, ovf = fwd_v3.render_float(rc)
     _sync()
     launches = march_fwd.launches
     print(f"[main] 256^3/1024^2 render_float: {launches} kernel launch(es), "
-          f"overflow {ovf}")
+          f"{rays.ray_setup.launches} of the ray setup, overflow {ovf}")
     assert launches >= 1, "the main path did not go through the kernel"
+    assert rays.ray_setup.launches == 1, "not one ray setup a frame"
     assert img.shape == (1024, 1024, 4) and torch.isfinite(img).all()
     alpha = img[..., 3]
     assert alpha.min().item() >= 0.0 and alpha.max().item() <= 1.0 + 1e-6
@@ -1317,10 +1336,11 @@ def phase_ladder_main(dev: torch.device, fwd_frame: dict,
     view = Camera(dims=(1024, 1024)).view(dev)
     look = make_raycaster(vol, view, interpolation="trilinear")
     assert look.esl and look.light_kd == 0.6 and look.ray_threshold == 0.95
-    march_tri.launches = 0
+    march_tri.launches = rays.ray_setup.launches = 0
     got, _ = trilinear.render_float(look)
     _sync()
     assert march_tri.launches == 1, "not one march launch per frame"
+    assert rays.ray_setup.launches == 1, "not one ray setup per frame"
     t0 = time.perf_counter()
     want = batched.render_float(look)
     _sync()
@@ -2310,12 +2330,12 @@ def _leap_main(dev: torch.device) -> dict:
     look = make_raycaster(vol, Camera(dims=(1024, 1024)).view(dev),
                           interpolation="trilinear")
     assert look.esl
-    for fn in (*WRAPPERS, leap.esl_start):
+    for fn in (*WRAPPERS, leap.esl_start, rays.ray_setup):
         fn.launches = 0
     trilinear.render_float(look)
     _sync()
-    got = [fn.launches for fn in (*WRAPPERS, leap.esl_start)]
-    assert got == [0, 0, 0, 1, 0, 0, 0, 0, 0, 1], got
+    got = [fn.launches for fn in (*WRAPPERS, leap.esl_start, rays.ray_setup)]
+    assert got == [0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 1], got
     entry = None
     for pose, rc in (("cli look", look),
                      ("benchmark pose", bench_pose(256, 1024, dev).replace(
@@ -3727,6 +3747,133 @@ def _native_phase_in(dev: torch.device, tag: str, vol: np.ndarray,
           f"build_min_max_grid corner {mn.shape} ({esl_s:.4f} s)")
 
 
+# The ray setup's scalars in phase 24: threshold, kd, loss scale.
+RAY_SETUP_ARGS = (0.95, 0.6, 1.25e-7)
+
+
+def _bit_mismatches(got, want) -> list:
+    """Elements of each output that differ from the plain version's in
+    their bits (a float's sign of zero included)."""
+    out = []
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (g.shape, w.shape)
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        out.append(int((g != w).sum()))
+    return out
+
+
+def _kernel_ms(fn, kernel: str, iters: int) -> list:
+    """Device ms of the launches of the kernel whose name holds ``kernel``
+    over ``iters`` calls of ``fn``, one a call, from torch.profiler's device
+    trace: CUDA events around a call this short time its host side too.
+    The trace may drop a few records late in a long process (96 of 100
+    once, after phases 1-23), so it returns those it holds."""
+    fn()
+    _sync()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        _sync()
+    ms = [(e.time_range.end - e.time_range.start) / 1e3
+          for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    assert 0 < len(ms) <= iters, (kernel, len(ms))
+    return ms
+
+
+def phase_rays(dev: torch.device) -> dict:
+    """The ray setup's kernel against its plain version, timed, and on the
+    main paths -> its entry of the ``kernels`` line."""
+    tag = "[rays]"
+    entry = {"max_abs_err": 0.0, "library_ms": None}
+    for dims in ((3840, 2160), (1024, 1024)):
+        views = bench_views(dims, 3.0, dev) + bench_views(dims, 2.0, dev)
+        for i, view in enumerate(views):
+            bad = _bit_mismatches(
+                rays.ray_setup(view, *RAY_SETUP_ARGS),
+                rays.ray_setup_plain(view, *RAY_SETUP_ARGS))
+            assert not any(bad), f"{tag} {dims} view {i}: {bad} differ"
+        w, h = dims
+        # o, d, knear, kfar and hit written, 33 B a ray; the view's five
+        # vectors read and scal written. Its some 40 operations a ray take
+        # a twentieth of the bytes' time.
+        limit = bound(33 * w * h + 5 * 12 + 8 * 4, 0)
+        key = "" if dims == (3840, 2160) else "_1024"
+        # The 45/45-degree pose at distance 3, orthographic then
+        # perspective.
+        for view, proj in zip(views[6:8], ("ortho", "persp")):
+            times = _kernel_ms(
+                lambda: rays.ray_setup(view, *RAY_SETUP_ARGS),
+                "ray_setup_kernel", 100)
+            plain = time_cuda(
+                lambda: rays.ray_setup_plain(view, *RAY_SETUP_ARGS), 20)
+            print(f"{tag} {w}x{h} {proj}: kernel (device trace) "
+                  f"{_spread(times)}; plain (CUDA events, a call) "
+                  f"{_spread(plain)}; bound {limit['bound_ms']:.4f} ms by "
+                  f"{limit['bound_by']}")
+            if proj == "ortho":
+                entry.update({f"ms{key}": float(np.median(times)),
+                              f"plain_ms{key}": float(np.median(plain)),
+                              f"bound_ms{key}": limit["bound_ms"]})
+        entry.setdefault("bound_by", limit["bound_by"])
+        print(f"{tag} {w}x{h}: the kernel's six outputs equal the plain "
+              f"version's to the bit on {len(views)} views (the suite's 8 "
+              f"poses at distances 3 and 2)")
+
+    # One launch a frame or step on the main paths, and the marches' rays
+    # the plain chain's to the bit: the other phases hold each march to
+    # its plain version on rays from ray_args.
+    vol = Volume.from_numpy(synthetic_volume(256), dev)
+    cli4k = make_raycaster(vol, Camera(dims=(3840, 2160)).view(dev),
+                           interpolation="trilinear")
+    rung5 = bench_pose(256, 1024, dev)
+    phong = rung5.replace(light_kd=0.6, shading="phong", esl=True)
+    counters = (*WRAPPERS, leap.esl_start, rays.ray_setup)
+    for label, render, state, want in (
+            ("cli 4k frame (rung 3, the leap)", trilinear.render_float,
+             cli4k, {"march_tri": 1, "esl_start": 1}),
+            ("rung 5 frame", fwd_v3.render_float, rung5, {"march_fwd": 1}),
+            ("rung 5 phong ESL frame", fwd_v3.render_float, phong,
+             {"march_fwd": 1})):
+        for fn in counters:
+            fn.launches = 0
+        render(state)
+        _sync()
+        got = {fn.__name__: fn.launches for fn in counters if fn.launches}
+        assert got == {**want, "ray_setup": 1}, (label, got)
+        print(f"{tag} {label}: launches {got}")
+    entry["launches"] = 1
+    for label, state in (("cli 4k frame", cli4k), ("rung 5 frame", rung5)):
+        o, d, knear, kfar, hit, scal = rays.ray_setup_plain(
+            state.view, state.ray_threshold, state.light_kd)
+        if state.esl:
+            args, _ = trilinear.ladder_args(state, state.volume.data)
+            knear = leap.esl_start(o, d, knear, kfar, hit, state.esl_dist,
+                                   state.volume.dims, state.esl_block_dims,
+                                   state.esl_block_size, state.ray_step)
+        else:
+            args, _ = fwd_v3.march_args(state)
+        bad = _bit_mismatches(
+            (*args[:5], args[7]),
+            (o, d, knear, kfar, hit & (knear <= kfar), scal))
+        assert not any(bad), f"{tag} {label}: {bad} differ"
+        print(f"{tag} {label}: ray_args' rays, alive and scal equal the "
+              f"plain chain's to the bit")
+    for fn in counters:
+        fn.launches = 0
+    step = bench_diff_step(256, 1024, iters=5, fused=True, onepass=True,
+                           device=dev)
+    _sync()
+    assert rays.ray_setup.launches == l2_step.launches == 6, (
+        rays.ray_setup.launches, l2_step.launches)
+    print(f"{tag} the one-launch L2 step: {l2_step.launches} steps, as many "
+          f"ray setups; median {step['ms']:.4f} ms")
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -3770,6 +3917,7 @@ def main() -> int:
     fast = run(phase_fast, dev, build, vol512)
     del vol512
     run(phase_native, dev)
+    ray_setup = run(phase_rays, dev)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -3813,6 +3961,10 @@ def main() -> int:
          "source": "volrt_torch/csrc/esl_leap.cu",
          "replaces": "volrt/renderers/batched.py:41 (XLA ops: no Pallas "
                      "kernel)", **esl["leap"]},
+        {"name": "ray_setup", "route": "cuda",
+         "source": "volrt_torch/csrc/ray_setup.cu",
+         "replaces": "volrt/core/rays.py:17-80 (XLA ops: no Pallas kernel)",
+         **ray_setup},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

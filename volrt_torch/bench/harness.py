@@ -195,6 +195,20 @@ def _trace(trace_dir: str | None, name: str):
     return profile(activities=activities, on_trace_ready=write)
 
 
+def bench_views(dims: tuple[int, int], distance: float = 3.0,
+                device: torch.device | str | None = None) -> list:
+    """The suite's eight poses as views of ``dims`` (W, H) at ``distance``:
+    each of ``BENCH_ANGLES`` orthographic, then perspective."""
+    camera, views = Camera(dims=dims), []
+    for angles in BENCH_ANGLES:
+        for persp in (False, True):
+            camera.perspective = persp
+            camera.toggle_perspective(update_mode=True)
+            camera.set_camera_position(angles, distance)
+            views.append(camera.view(device))
+    return views
+
+
 def run_suite(
     configs: list[BenchConfig] | None = None,
     renderers=(0, 1, 2, 3, 4, 5),
@@ -230,20 +244,13 @@ def run_suite(
         else:
             data = synthetic_volume(cfg.volume_size)
         volume = Volume.from_numpy(data, device)
-        camera = Camera(dims=(cfg.viewport, cfg.viewport))
-        poses = []
-        for angles in BENCH_ANGLES:
-            for persp in (False, True):
-                camera.perspective = persp
-                camera.toggle_perspective(update_mode=True)
-                camera.set_camera_position(angles)
-                poses.append(camera.view(device))
+        poses = bench_views((cfg.viewport, cfg.viewport), device=device)
 
         for rid in renderers:
             if rid == 0 and (cfg.volume_size > 64 or cfg.viewport > 256
                              or cfg.file):
                 continue
-            rc0 = make_raycaster_for(cfg, volume, camera, device)
+            rc0 = make_raycaster_for(cfg, volume, device=device)
             fns = renderer_fns(rc0, [rid])
             if not fns:
                 continue

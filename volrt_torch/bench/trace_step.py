@@ -22,9 +22,9 @@ scene (rung 5's and the steps' ESL mode, the leap on rungs 2-4). Prints
 one JSON object: the card's name and power limit; per step, the window's
 wall time, the host's enqueue, the device's busy time (the union of its
 operations in time) and the card's idle share in the window (the host
-synchronising only at the window's end); the march wrappers' launches
-per step (their counters); and each span's host ms, stream ms (its
-device stages'), work and count per step.
+synchronising only at the window's end); the launches per step of the
+march wrappers, the leap and the ray setup (their counters); and each
+span's host ms, stream ms (its device stages'), work and count per step.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ from volrt_torch.core.types import Volume, make_raycaster
 from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
 from volrt_torch.renderers import diff_v3, get_renderer
-from volrt_torch.renderers.cuda import leap, march
+from volrt_torch.renderers.cuda import leap, march, rays
 
 
 def make_step(route: str, volume_size: int, viewport: int,
@@ -97,10 +97,11 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
 
 
 def launches() -> dict[str, int]:
-    """The march wrappers' and the leap's launch counters as they stand
-    (``renderers/cuda/march.py``, ``renderers/cuda/leap.py``)."""
+    """The march wrappers', the leap's and the ray setup's launch counters
+    as they stand (``renderers/cuda/march.py``, ``leap.py``,
+    ``rays.py``)."""
     fns = (march.march_fwd, march.march_bwd, march.l2_step, march.march_tri,
-           march.march_blocked, leap.esl_start)
+           march.march_blocked, leap.esl_start, rays.ray_setup)
     return {fn.__name__: fn.launches for fn in fns}
 
 

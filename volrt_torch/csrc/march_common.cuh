@@ -4,8 +4,8 @@
 // cell and its clamp-addressed taps, nearest mode's voxel, the TF lerp from
 // padded rows, the one-tap diffuse, gradient Blinn-Phong and its backward
 // chain, the composite with its ERT latch, the warp-level scatter of the
-// analytic backward, the v3 kernels' ESL test and the leading leap of
-// rungs 2-4 (esl_leap.cu).
+// analytic backward, the v3 kernels' ESL test, the leading leap of
+// rungs 2-4 (esl_leap.cu) and the ray setup (ray_setup.cu).
 //
 // One copy, so that the backward's replay takes exactly the forward's
 // samples, opens the shade gate on the same samples and crosses the ERT
@@ -1519,6 +1519,95 @@ __device__ __forceinline__ float leap_start(const LeapArgs& a, int r) {
     k = add(add(k, fmaxf(face, ball)), a.step);
   }
   return k;
+}
+
+// The ray setup of every march (ray_setup.cu), four neighbouring rays a
+// thread: get_rays and intersect_aabb (volrt_torch/core/rays.py), each
+// multiply, add, subtract and divide rounded on its own in their order,
+// and the reductions over the axes in torch's order on the card.
+constexpr int RAYS_A_THREAD = 4;
+
+struct RayArgs {
+  const float* origin;     // f32[3] each: the view's vectors
+  const float* direction;
+  const float* right;
+  const float* up;
+  const float* light;
+  int w, h, perspective;
+  float lo, hi;            // the cube's faces on every axis
+  float threshold, kd, loss_scale;
+  float* o;                // [N, 3]
+  float* d;                // [N, 3]
+  float* knear;            // [N]
+  float* kfar;             // [N]
+  bool* hit;               // [N]
+  float* scal;             // [8]
+};
+
+struct SetupRay {
+  float o[3], d[3], knear, kfar;
+  bool hit;
+};
+
+// torch's max and min over the last axis (amax, amin) on the card: the
+// first element against the third, then that against the second, the
+// right one kept where they are equal. Only the sign of a zero shows it:
+// amax(-0, 0, -4) is +0 and amin(4, 0, -0) is +0 there (torch 2.11;
+// the CPU keeps the first of equal elements).
+__device__ __forceinline__ float amax3(float a, float b, float c) {
+  const float m = a > c ? a : c;
+  return m > b ? m : b;
+}
+
+__device__ __forceinline__ float amin3(float a, float b, float c) {
+  const float m = a < c ? a : c;
+  return m < b ? m : b;
+}
+
+// The ray of pixel (x, y): get_rays, then intersect_aabb's slab test.
+__device__ __forceinline__ SetupRay make_ray(const RayArgs& a,
+                                             const float* org,
+                                             const float* dir,
+                                             const float* rt, const float* up,
+                                             int x, int y) {
+  SetupRay r;
+  const float px = static_cast<float>(x - a.w / 2);
+  const float py = static_cast<float>(y - a.h / 2);
+  float lo_k[3], hi_k[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float plane = add(mul(rt[c], px), mul(up[c], py));
+    r.o[c] = a.perspective ? org[c] : add(org[c], plane);
+    r.d[c] = a.perspective ? add(dir[c], plane) : dir[c];
+    // A direction component of exactly 0 (either sign) divides as 1e-5.
+    const float dd = r.d[c] == 0.f ? 1e-5f : r.d[c];
+    const float k1 = __fdiv_rn(sub(a.lo, r.o[c]), dd);
+    const float k2 = __fdiv_rn(sub(a.hi, r.o[c]), dd);
+    lo_k[c] = fminf(k1, k2);
+    hi_k[c] = fmaxf(k1, k2);
+  }
+  // clamp(min=0) is torch's fmaxf(v, 0) on the card: -0 gives +0.
+  r.knear = fmaxf(amax3(lo_k[0], lo_k[1], lo_k[2]), 0.f);
+  r.kfar = amin3(hi_k[0], hi_k[1], hi_k[2]);
+  r.hit = r.knear < r.kfar && r.kfar > 0.f;
+  return r;
+}
+
+// A warp's 128 rays of o (or d) as 96 float4s: each lane puts its four
+// rays' 48 B in shared memory, then the warp stores 1536 contiguous bytes,
+// lane by lane, so that every store of the warp fills whole sectors.
+__device__ __forceinline__ void store_warp_xyz(
+    float4* stage, float* out, const SetupRay (&r)[RAYS_A_THREAD], bool dir,
+    int lane) {
+  auto v = [&](int i, int c) { return dir ? r[i].d[c] : r[i].o[c]; };
+  stage[3 * lane] = make_float4(v(0, 0), v(0, 1), v(0, 2), v(1, 0));
+  stage[3 * lane + 1] = make_float4(v(1, 1), v(1, 2), v(2, 0), v(2, 1));
+  stage[3 * lane + 2] = make_float4(v(2, 2), v(3, 0), v(3, 1), v(3, 2));
+  __syncwarp();
+  float4* g = reinterpret_cast<float4*>(out);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) g[lane + 32 * j] = stage[lane + 32 * j];
+  __syncwarp();
 }
 
 // Clears the block's shared dTF accumulator, `copies` of [TF_SIZE][4].

@@ -27,8 +27,9 @@ as rungs 0-1 do instead of ``k0 + i*step``:
   volume, converted on fetch.
 
 The four kernels of the round-1 differentiable routes have their wrappers
-in ``round1.py`` beside this file, and the leading ESL leap of rungs 2-4
-in ``leap.py``, on this file's helpers.
+in ``round1.py`` beside this file, the leading ESL leap of rungs 2-4 in
+``leap.py`` and the ray setup of every march in ``rays.py``, on this
+file's helpers.
 
 On CUDA tensors a wrapper launches its kernel (built at first use) or
 raises; on CPU tensors it runs its plain version (``*_plain``), a lockstep

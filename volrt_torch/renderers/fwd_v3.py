@@ -6,7 +6,8 @@ front-to-back compositing with ERT, unshaded, with the reference's one-tap
 diffuse (reference: GPURenderer4.cu:41-87) or with v3's gradient
 Blinn-Phong (``shading="phong"``, BASELINE config 4's shading), over the
 f32 density or, with ``fast=True``, its bf16 copy (``volrt``'s fast mode).
-Ray setup is torch ops; the march is
+The ray setup is one kernel,
+:func:`volrt_torch.renderers.cuda.rays.ray_setup`; the march is
 :func:`volrt_torch.renderers.cuda.march.march_fwd`.
 """
 from __future__ import annotations
@@ -14,9 +15,9 @@ from __future__ import annotations
 import torch
 
 from volrt_torch.constants import SHADE_KD_GATE
-from volrt_torch.core import rays as rays_mod
 from volrt_torch.core import sampling
 from volrt_torch.core.types import Raycaster, View
+from volrt_torch.renderers.cuda import rays
 from volrt_torch.renderers.cuda.march import march_fwd
 from volrt_torch.utils import trace
 
@@ -93,10 +94,11 @@ def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
     or its bf16 copy for the v3 kernels' fast mode) under a premultiplied
     TF; both may require grad.
 
-    Rays come from ``get_rays`` in raster order and march from ``knear``
-    to ``kfar``, as ``volrt``'s ``prepare_ray_tiles_raw`` sets them up,
-    without its 16x16 tile packing: the kernels' blocks are pixel patches
-    of the raster image already. ``esl_start(o, d, knear, kfar, hit)``, when
+    Rays come from :func:`rays.ray_setup` (``get_rays``'s raster order,
+    in one kernel on the card) and march from ``knear`` to ``kfar``, as
+    ``volrt``'s ``prepare_ray_tiles_raw`` sets them up, without its 16x16
+    tile packing: the kernels' blocks are pixel patches of the raster image
+    already. ``esl_start(o, d, knear, kfar, hit)``, when
     given, returns each ray's start after the leading empty-space leap in
     place of ``knear``. ``loss_scale`` goes to ``scal[6]``, which only the
     one-launch L2 step reads. ``phong=True`` shades with gradient
@@ -108,24 +110,14 @@ def ray_args(view: View, density: torch.Tensor, premult_tf: torch.Tensor,
     dev = density.device
     w, h = view.dims
     with trace.span("ray_setup", device=dev, rays=w * h):
-        origins, directions = rays_mod.get_rays(view)
-        o = origins.reshape(-1, 3).contiguous()
-        d = directions.reshape(-1, 3).contiguous()
-        knear, kfar, hit = rays_mod.intersect_aabb(o, d)
+        o, d, knear, kfar, hit, scal = rays.ray_setup(
+            view, ray_threshold, light_kd, loss_scale)
+        # A ray that meets the cube has knear < kfar: it marches unless
+        # the leap takes it past kfar.
+        alive = hit
         if esl_start is not None:
             knear = esl_start(o, d, knear, kfar, hit)
-        alive = hit & (knear <= kfar)
-        # Built from fill kernels. A copy from the host (torch.tensor(...,
-        # device=), or item assignment) goes through pageable memory, and
-        # the host then waits for the queued work, the previous frame's
-        # march too.
-        f32 = dict(dtype=torch.float32, device=dev)
-        scal = torch.cat([torch.full((1,), ray_threshold, **f32),
-                          torch.full((1,), light_kd, **f32),
-                          view.light_pos.to(torch.float32),
-                          torch.zeros(1, **f32),
-                          torch.full((1,), loss_scale, **f32),
-                          torch.zeros(1, **f32)])
+            alive = hit & (knear <= kfar)
         args = (o, d, knear, kfar, alive, density, premult_tf.contiguous(),
                 scal)
         kw = dict(

@@ -3,7 +3,8 @@
 
 Trilinear sampling with CUDA-texture semantics and the linearly
 interpolated TF (reference: GPURenderer4.cu:53-87), after the leading
-empty-space leap. Ray setup is torch ops; the leap is
+empty-space leap. The ray setup is
+:func:`volrt_torch.renderers.cuda.rays.ray_setup`, the leap
 :func:`volrt_torch.renderers.cuda.leap.esl_start` and the march
 :func:`volrt_torch.renderers.cuda.march.march_tri` over the volume as f32
 raw values. The TPU kernel's ``(wz, wy)`` windows, its ``window=`` argument
