@@ -53,6 +53,8 @@ from volrt_torch.dist import mesh as mesh_mod
 from volrt_torch.dist import volume_sharded as vs
 from volrt_torch.dist.render import render_float_sharded
 from volrt_torch.renderers import diff_v3, get_renderer
+from portbench import reference as pref
+from portbench import reference_vsharded as rvs
 
 CPU = "cpu"
 N = 16
@@ -84,8 +86,45 @@ def _data() -> dict:
     data = dict(synthetic=synthetic_volume(N),
                 uniform=np.full((N, N, N), 40, np.uint8), fit=fit_init,
                 tf=tf, steps=dict(synthetic=1.0 / N, uniform=0.125,
-                                  fit=1.0 / N))
+                                  fit=1.0 / N), vsharded=_vsharded_data())
     return data
+
+
+def _vsharded_data() -> dict:
+    """The volume-sharded trainer's inputs, as the benchmark's cell makes
+    them (``portbench/reference_vsharded.py``): a seeded 32^3 density,
+    the default TF, two views (oblique along z, the slabs one behind the
+    other; perspective along y, whose rays cross the slabs in both orders)
+    and their targets, the reference's renders of a volume of other
+    noise."""
+    n, seed = world_mod.VS_N, 2**31 + 2021
+    step = pref.default_ray_step((n, n, n))
+    views = [pref.pose((25.0, 10.0, 0.0), False, 2.0, world_mod.VS_DIMS),
+             pref.pose((-90.0, 0.0, 0.0), True, 2.0, world_mod.VS_DIMS)]
+    tf = pref.default_tf_base(CPU)
+    targets = rvs.render(rvs.density_rows(n, 0, n, seed, CPU, stream=1), tf,
+                         views, ray_step=step, thr=world_mod.VS_THR)
+    return dict(density=rvs.density_rows(n, 0, n, seed, CPU).numpy(),
+                tf=tf.numpy(), views=views, ray_step=step,
+                targets=[t.numpy() for t in targets])
+
+
+def _reference_vsharded(data) -> dict:
+    """``portbench/reference_vsharded.py``'s unsharded step of the whole
+    volume: the first step's loss and gradients, and the readings of both
+    steps (losses; each leaf's first gradient and change norms)."""
+    d = data["vsharded"]
+    dens, tf = torch.from_numpy(d["density"]), torch.from_numpy(d["tf"])
+    targets = [torch.from_numpy(t) for t in d["targets"]]
+    kw = dict(ray_step=d["ray_step"], thr=world_mod.VS_THR, points=1 << 14)
+    r = pref.v3_rays(d["views"][0], CPU)
+    grad = torch.zeros(dens.numel())
+    loss, d_tf = rvs.march_loss(dens, tf, r, targets[0].reshape(-1, 4),
+                                r["o"].shape[0], grad=grad, **kw)
+    readings = rvs.first_steps(dens.clone(), tf, d["views"], targets,
+                               lr=world_mod.VS_LR, n_slabs=4, **kw)
+    return dict(loss=loss, d_density=grad.reshape(dens.shape).numpy(),
+                d_tf=d_tf.numpy(), readings=readings)
 
 
 def _jview(pose, dims=world_mod.DIMS):
@@ -190,7 +229,8 @@ def world():
             join=False, start_method="spawn")
         refs = dict(sharded=_volrt_sharded(data), step=_volrt_step(data),
                     fit=_volrt_fit(data),
-                    fit_fused=_volrt_fit(data, fused=True), data=data)
+                    fit_fused=_volrt_fit(data, fused=True), data=data,
+                    vsharded=_reference_vsharded(data))
         while not ctx.join():
             pass
         found = {f[:-4]: dict(np.load(os.path.join(tmp, f)))
@@ -359,6 +399,110 @@ def test_fit_over_a_mesh(world, case):
     assert state.step == world_mod.FIT_STEPS
     np.testing.assert_array_equal(state.scene.density.detach().numpy(),
                                   got["density"])
+
+
+def test_fit_from_own_rows_is_the_fit_from_the_whole_scene(world):
+    """``fit(volume_sharded=True, full_d=)`` from each rank's own rows alone
+    gives ``fit(volume_sharded=True)``'s losses and trained density, from
+    the whole scene on every rank, to the bit; its checkpoint holds the
+    whole density."""
+    from volrt_torch.train import checkpoint as ckpt
+
+    found, _, where = world
+    own, whole = found["fit-volume-4-own"], found["fit-volume-4"]
+    np.testing.assert_array_equal(own["losses"], whole["losses"])
+    np.testing.assert_array_equal(own["density"], whole["density"])
+    state = ckpt.load(os.path.join(where, "fit-volume-4-own.ckpt.npz"),
+                      device=CPU)
+    np.testing.assert_array_equal(state.scene.density.detach().numpy(),
+                                  whole["density"])
+
+
+@pytest.mark.parametrize("part", ["loss", "slabs", "planes", "tf",
+                                  "change"])
+def test_volume_sharded_trainer_against_the_reference(world, part):
+    """Two steps of ``make_sharded_trainer`` (the trainer factory that
+    ``fit(volume_sharded=True)`` and the benchmark's multi-card trainer
+    call) on four ranks, each from its own rows, against the benchmark's
+    plain reference of the unsharded step of the whole volume
+    (``portbench/reference_vsharded.py``), within 1e-5 relative: both
+    steps' losses; the first gradient (Adam's first moment over ``1 -
+    beta1``) of each slab's rows, of the rows within two of a slab plane
+    (where a lost halo fold would show) and of the TF, each against that
+    part's largest entry (or a thousandth of the whole gradient's, where
+    the part sees next to none); the change after the first step by the
+    norm of each of those leaves."""
+    found, refs, _ = world
+    got, want = found["vsharded"], refs["vsharded"]
+    leaves = rvs.leaf_rows(world_mod.VS_N, 4)
+    if part == "loss":
+        assert float(got["loss"][0]) == pytest.approx(want["loss"],
+                                                      rel=1e-5)
+        np.testing.assert_allclose(got["loss"], want["readings"]["loss"],
+                                   rtol=1e-5)
+        return
+    if part == "change":
+        norms = [np.sqrt(s) for s in rvs.sq_norms_at(
+            torch.from_numpy(got["change"]), 0, leaves)]
+        norms.append(float(np.linalg.norm(got["change_tf"])))
+        wanted = want["readings"]["change"]
+        assert max(wanted) > 0
+        np.testing.assert_allclose(norms, wanted, rtol=1e-5,
+                                   atol=1e-5 * max(wanted))
+        return
+    if part == "tf":
+        _close_rel(got["d_tf"], want["d_tf"], 1e-5, "d_tf")
+        return
+    top = np.abs(want["d_density"]).max()
+    assert top > 0
+    rows = leaves[:-1] if part == "slabs" else [leaves[-1]]
+    for ranges in rows:
+        idx = np.concatenate([np.arange(a, b) for a, b in ranges])
+        g, w = got["d_density"][idx], want["d_density"][idx]
+        np.testing.assert_allclose(
+            g, w, rtol=0, atol=1e-5 * max(np.abs(w).max(), 1e-3 * top),
+            err_msg=f"rows {ranges}")
+
+
+@pytest.mark.parametrize("angles, persp", [((0.0, 0.0, 0.0), False),
+                                           ((45.0, 45.0, 0.0), True)])
+def test_reference_slab_lattice_is_where_the_slab_kernels_sample(angles,
+                                                                 persp):
+    """The benchmark reference's samples on the slabs' lattices
+    (``reference_vsharded._slab_lattice``) lie where the slab kernels take
+    them, to the bit: each slab's ``k0 + i * step`` from
+    ``diff_v3.slab_rays``, for every sample up to its ``kfar``, at 1792^3
+    (where that rounding parts from the whole lattice's ``knear + j *
+    step``), on an axis view and an oblique perspective one."""
+    from volrt_torch.core.types import View
+
+    n, slabs = 1792, 4
+    sd = n // slabs
+    step = pref.default_ray_step((n, n, n))
+    v = pref.pose(angles, persp, 2.0, (24, 18))
+    r = pref.v3_rays(v, CPU)
+    view = View.from_arrays(v["origin"], v["direction"], v["right"], v["up"],
+                            v["light"], v["dims"], v["perspective"], CPU)
+    span = pref._span_steps(r, slice(None), step)
+    whole = r["k0"][:, None] + (torch.arange(span, dtype=torch.float32)
+                                * step)[None, :]
+    placed = rvs._slab_lattice(r, whole, step, slabs, n)
+    parted = 0
+    for s in range(slabs):
+        o, d, k0, kend, alive = diff_v3.slab_rays(view, s * sd, sd, n, step,
+                                                  CPU)
+        torch.testing.assert_close(o, r["o"], rtol=0, atol=0)
+        torch.testing.assert_close(d, r["d"], rtol=0, atol=0)
+        j_in, _ = rvs.slab_range(r, s * sd, sd, n, step)
+        for ray in torch.nonzero(alive).flatten().tolist():
+            a = int(j_in[ray])
+            i = torch.arange(span - a, dtype=torch.float32)
+            k = k0[ray] + i * torch.tensor(step, dtype=torch.float32)
+            k = k[k <= kend[ray]]
+            assert k.numel() > 0
+            assert torch.equal(placed[ray, a:a + k.numel()], k)
+            parted += int((whole[ray, a:a + k.numel()] != k).sum())
+    assert parted > 0
 
 
 @pytest.mark.parametrize("mode", ["rays", "volume"])

@@ -247,14 +247,16 @@ def test_fit_refuses_what_is_not_ported(problem, tmp_path):
                               "esl_refresh_every"])
 def test_fit_takes_volrts_checkpoint_and_refresh_parameters(problem, kw):
     """(f) ``volrt``'s ``fit`` parameters for checkpoints and ESL refresh
-    sit in its order; each runs (``checkpoint_every`` and ``resume``
-    without a ``checkpoint_path``, like the ESL refresh without ``esl``,
-    change nothing, as in ``volrt``); their defaults fit as before."""
+    sit in its order, and after them the port's one parameter of its own
+    (``full_d``: a rank's own rows in volume-sharded mode); each runs
+    (``checkpoint_every`` and ``resume`` without a ``checkpoint_path``,
+    like the ESL refresh without ``esl``, change nothing, as in ``volrt``);
+    their defaults fit as before."""
     (name, _), = kw.items()
     want = [p for p in inspect.signature(jfit).parameters
             if p not in ("window", "flush")]
     got = list(inspect.signature(tfit_mod.fit).parameters)
-    assert got == want
+    assert got == want + ["full_d"]
     assert inspect.signature(tfit_mod.fit).parameters[name].default in (
         0, False)
     scene = trender.scene_from_arrays(*_init(problem, "both"), STEP,

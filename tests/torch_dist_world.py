@@ -15,18 +15,21 @@ import numpy as np
 import torch
 
 from volrt_torch import cli, graft
-from volrt_torch.core.types import Volume, make_raycaster
+from volrt_torch.core.types import View, Volume, make_raycaster
 from volrt_torch.core.view import Camera
-from volrt_torch.diff.render import render_diff_image, scene_from_volume
+from volrt_torch.diff.render import (
+    DiffScene, render_diff_image, scene_from_volume)
 from volrt_torch.dist import volume_sharded as vs
 from volrt_torch.dist.mesh import make_mesh, sub_mesh
 from volrt_torch.dist.render import (
     l2_loss_grads_v3_sharded, render_float_sharded)
 from volrt_torch.renderers import diff_v3, get_renderer
-from volrt_torch.train.fit import fit
+from volrt_torch.train.fit import fit, make_sharded_trainer
 
 CPU = "cpu"
 DIMS = (16, 16)
+# The fit cases' volume edge (test_torch_dist.py's data["fit"]).
+N_FIT = 16
 POSE = (25.0, 10.0, 0.0)
 # (name, ranks, backend, shading, pose, ray_threshold, esl, volume)
 SHARDED = [
@@ -64,6 +67,13 @@ STEPS = [
 ]
 FIT_STEPS = 3
 FIT_LR = 0.02
+# The volume-sharded trainer's two steps (make_sharded_trainer): a 32^3
+# density, 24 x 18 rays, unshaded, ERT 0.95, Adam lr 1e-2; its inputs are
+# made in the test's process (data["vsharded"]) from portbench's reference.
+VS_N = 32
+VS_DIMS = (24, 18)
+VS_THR = 0.95
+VS_LR = 1e-2
 
 
 def view_of(pose, dims=DIMS):
@@ -201,15 +211,26 @@ def _fits(mesh, meshes, data, out):
     for name, n, kw in (("rays-2", 2, {}), ("rays-4-fused", 4,
                                             dict(fused=True)),
                         ("volume-2", 2, dict(volume_sharded=True)),
-                        ("volume-4", 4, dict(volume_sharded=True))):
+                        ("volume-4", 4, dict(volume_sharded=True)),
+                        ("volume-4-own", 4, dict(volume_sharded=True,
+                                                 full_d=N_FIT))):
         m = meshes[n]
         if m is None:
             continue
         scene = _scene(data, "fit")
+        if "full_d" in kw:
+            # This rank's own rows alone.
+            sd = N_FIT // m.size
+            scene = DiffScene(scene.density.detach()[m.rank * sd:
+                                                     (m.rank + 1) * sd],
+                              scene.tf_base.detach(), scene.ray_step)
         ckpt = os.path.join(out, f"fit-{name}.ckpt.npz")
         scene, losses = fit(scene, [(view, target)], steps=FIT_STEPS,
                             lr=FIT_LR, mesh=m, checkpoint_path=ckpt, **kw)
         dens = m.all_gather(scene.density.detach())
+        if "full_d" in kw:
+            dens = dens.reshape(1, N_FIT, *dens.shape[2:]).expand(
+                m.size, -1, -1, -1)
         if m.rank == 0:
             _save(out, "fit-" + name, losses=np.asarray(losses),
                   density=dens[0], spread=(dens - dens[0]).abs().max())
@@ -221,6 +242,36 @@ def _fits(mesh, meshes, data, out):
     mesh.barrier()
 
 
+def _vsharded(mesh, data, out):
+    """Two steps of the volume-sharded trainer, each rank from its own
+    rows: the losses, the first gradient as Adam holds it and the change
+    after the first step, every rank's rows gathered."""
+    d = data["vsharded"]
+    whole = torch.from_numpy(d["density"])
+    sd = VS_N // mesh.size
+    z0 = mesh.rank * sd
+    views = [View.from_arrays(v["origin"], v["direction"], v["right"],
+                              v["up"], v["light"], v["dims"],
+                              v["perspective"], CPU) for v in d["views"]]
+    tf = torch.from_numpy(d["tf"])
+    state, step = make_sharded_trainer(whole[z0:z0 + sd], VS_N, tf,
+                                       d["ray_step"], mesh, lr=VS_LR)
+    scene, opt = state.scene, state.optimizer
+    state, loss1 = step(state, views[0], torch.from_numpy(d["targets"][0]))
+    b1 = opt.param_groups[0]["betas"][0]
+    grad = opt.state[scene.density]["exp_avg"] / (1 - b1)
+    grad_tf = opt.state[scene.tf_base]["exp_avg"] / (1 - b1)
+    change = scene.density.detach() - whole[z0:z0 + sd]
+    change_tf = scene.tf_base.detach() - tf
+    state, loss2 = step(state, views[1], torch.from_numpy(d["targets"][1]))
+    grads = mesh.all_gather(grad).reshape(whole.shape)
+    changes = mesh.all_gather(change).reshape(whole.shape)
+    if mesh.rank == 0:
+        _save(out, "vsharded", loss=np.array([float(loss1), float(loss2)]),
+              d_density=grads, d_tf=grad_tf, change=changes,
+              change_tf=change_tf)
+
+
 def _cli(mesh, out):
     for dist_mode in ("rays", "volume"):
         ckpt = os.path.join(out, f"cli-{dist_mode}.npz")
@@ -230,6 +281,14 @@ def _cli(mesh, out):
         codes = mesh.all_gather(torch.tensor([float(code)]))
         if mesh.rank == 0:
             _save(out, "cli-" + dist_mode, codes=codes)
+
+
+def raise_on_rank_one(rank: int, size: int) -> None:
+    """A rank that raises at once while the others wait for it in a
+    collective (``test_torch_dist_spawn.py``)."""
+    if rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    make_mesh(CPU).barrier()
 
 
 def run(rank: int, size: int, data: dict, out: str) -> None:
@@ -245,6 +304,7 @@ def run(rank: int, size: int, data: dict, out: str) -> None:
     _rows(mesh, meshes, data, out)
     _steps(mesh, meshes, data, out)
     _fits(mesh, meshes, data, out)
+    _vsharded(mesh, data, out)
     _cli(mesh, out)
     graft.dryrun_multichip(size, device=CPU)
     mesh.barrier()

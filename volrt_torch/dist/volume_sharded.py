@@ -32,6 +32,14 @@ cotangents flow back through the scan into the upstream slabs' prepasses.
 The slabs' own rows' gradients, laid end to end, are the unsharded
 gradient.
 
+Spans (``utils/trace.py``, while a profiler records): ``halo_refresh``
+(the halo'd slab's copy in :func:`refresh_halos`) and ``halo_fold`` (the
+gradient's copy and the folded planes in :class:`FoldHalo`), device stages
+whose work is the slab's voxels; ``slab_march``, each call of the march
+kernels' slab mode, whose work is the rays and whose tag the pass
+(``prepass`` or ``seeded``). The collectives are the mesh's (``collective``)
+and lie outside the halo spans.
+
 Two backends, under ``volrt``'s names: ``"xla"``, the slab march as torch
 ops under autograd (:func:`_slab_march`: unshaded, diffuse, phong), and
 ``"pallas"``, the march kernels in their slab mode (rows 1-2:
@@ -56,6 +64,7 @@ from volrt_torch.constants import (
     SHADE_LIGHT_OFFSET,
 )
 from volrt_torch.core import esl as esl_mod
+from volrt_torch.core import rays as rays_mod
 from volrt_torch.core import sampling
 from volrt_torch.core import tf as tf_mod
 from volrt_torch.core.types import View, default_esl_block_dims
@@ -63,6 +72,7 @@ from volrt_torch.diff.render import CHECKPOINT_CHUNK, DiffScene
 from volrt_torch.dist.mesh import Mesh
 from volrt_torch.renderers.cuda.march import max_steps, slab_cell
 from volrt_torch.renderers.diff_v3 import render_slab_v3, slab_rays
+from volrt_torch.utils import trace
 
 BACKENDS = ("xla", "pallas")
 
@@ -151,12 +161,14 @@ def refresh_halos(own: torch.Tensor, mesh: Mesh, halo: int, full_d: int
                          f"not {sd}")
     edges = mesh.all_gather(torch.cat([own[:halo], own[sd - halo:]]))
     r, n = mesh.rank, mesh.size
-    below = (edges[r - 1, halo:] if r > 0
-             else own[:1].detach().expand(halo, -1, -1))
-    above = (edges[r + 1, :halo] if r < n - 1
-             else own[sd - 1:].detach().expand(halo, -1, -1))
-    return Slab(torch.cat([below, own, above]).contiguous(), z0, full_d,
-                halo)
+    with trace.span("halo_refresh", device=own.device,
+                    voxels=(sd + 2 * halo) * own[0].numel()):
+        below = (edges[r - 1, halo:] if r > 0
+                 else own[:1].detach().expand(halo, -1, -1))
+        above = (edges[r + 1, :halo] if r < n - 1
+                 else own[sd - 1:].detach().expand(halo, -1, -1))
+        slab = torch.cat([below, own, above]).contiguous()
+    return Slab(slab, z0, full_d, halo)
 
 
 class FoldHalo(torch.autograd.Function):
@@ -179,17 +191,18 @@ class FoldHalo(torch.autograd.Function):
         z0, full_d, halo, mesh = ctx.geom
         sd = g.shape[0] - 2 * halo
         planes = mesh.all_gather(torch.cat([g[:halo], g[halo + sd:]]))
-        out = g.clone()
-        out[:halo] = 0.0
-        out[halo + sd:] = 0.0
-        for k in range(mesh.size):
-            zk = k * sd
-            rows = list(range(zk - halo, zk)) + list(range(zk + sd,
-                                                           zk + sd + halo))
-            for j, row in enumerate(rows):
-                row = min(max(row, 0), full_d - 1)
-                if z0 <= row < z0 + sd:
-                    out[halo + row - z0] += planes[k, j]
+        with trace.span("halo_fold", device=g.device, voxels=g.numel()):
+            out = g.clone()
+            out[:halo] = 0.0
+            out[halo + sd:] = 0.0
+            for k in range(mesh.size):
+                zk = k * sd
+                rows = list(range(zk - halo, zk)) + list(
+                    range(zk + sd, zk + sd + halo))
+                for j, row in enumerate(rows):
+                    row = min(max(row, 0), full_d - 1)
+                    if z0 <= row < z0 + sd:
+                        out[halo + row - z0] += planes[k, j]
         return out, None, None, None, None
 
 
@@ -222,18 +235,24 @@ class SumSegments(torch.autograd.Function):
         return g, None
 
 
-def _exclusive_scan(alpha: torch.Tensor, reverse: bool) -> torch.Tensor:
+def _exclusive_scan(alpha: torch.Tensor, reverse) -> torch.Tensor:
     """``alpha (n, ...)`` in slab order -> the opacity in front of each
-    slab in march order (first slab 0, or slab n-1 when ``reverse``):
-    the exclusive scan of ``a + b (1 - a)``."""
-    order = range(alpha.shape[0] - 1, -1, -1) if reverse else range(
-        alpha.shape[0])
-    out = [None] * alpha.shape[0]
-    p = alpha[0] * 0.0  # a function of alpha, for the backward's grad
-    for k in order:
-        out[k] = p
-        p = p + alpha[k] * (1.0 - p)
-    return torch.stack(out)
+    slab in march order (first slab 0, or slab n-1 where ``reverse``):
+    the exclusive scan of ``a + b (1 - a)``. ``reverse`` is a bool for
+    every ray, or a bool tensor of ``alpha``'s trailing shape, each ray's
+    own order."""
+    def scan(order):
+        out = [None] * alpha.shape[0]
+        p = alpha[0] * 0.0  # a function of alpha, for the backward's grad
+        for k in order:
+            out[k] = p
+            p = p + alpha[k] * (1.0 - p)
+        return torch.stack(out)
+
+    down = range(alpha.shape[0] - 1, -1, -1)
+    if isinstance(reverse, bool):
+        return scan(down if reverse else range(alpha.shape[0]))
+    return torch.where(reverse, scan(down), scan(range(alpha.shape[0])))
 
 
 class OpacityScan(torch.autograd.Function):
@@ -241,7 +260,8 @@ class OpacityScan(torch.autograd.Function):
     opacities: one ``all_gather`` of the ``(H, W)`` planes, the exclusive
     scan locally. The backward all-gathers the cotangents of every rank's
     upstream opacity and forms this rank's ``dA`` through the scan.
-    ``OpacityScan.apply(alpha, mesh, reverse)``."""
+    ``OpacityScan.apply(alpha, mesh, reverse)``, ``reverse`` as
+    :func:`_exclusive_scan` takes it."""
 
     @staticmethod
     def forward(ctx, alpha, mesh, reverse):
@@ -277,7 +297,7 @@ def _safe_normalize(v: torch.Tensor) -> torch.Tensor:
 
 def _slab_march(slab, z_start, full_d, tf_base, ray_step, view,
                 ray_threshold, acc0_alpha=None, alpha_only=False, halo=1,
-                shading=None, light_kd=0.0) -> torch.Tensor:
+                shading=None, light_kd=0.0, rays=None) -> torch.Tensor:
     """March one slab's samples as torch ops under autograd -> the RGBA
     accumulator ``f32[H, W, 4]``, whose alpha continues from
     ``acc0_alpha (H, W)`` when given. The counterpart of ``volrt``'s
@@ -285,11 +305,11 @@ def _slab_march(slab, z_start, full_d, tf_base, ray_step, view,
     ``slab_rays``. ``alpha_only`` skips the colour (the prepass);
     ``shading`` (``"diffuse"`` or ``"phong"``) shades as ``volrt``'s does,
     its taps inside the slab when ``halo >= shading_halo(full_d,
-    shading)``."""
+    shading)``. ``rays``: the view's ``get_rays(view)``."""
     dev = slab.device
     sd = slab.shape[0] - 2 * halo
     o, d, k0, kend, alive = slab_rays(view, z_start, sd, full_d, ray_step,
-                                      dev)
+                                      dev, rays)
     wv, hv = view.dims
     premult = tf_mod.premultiply(tf_base)
     light_pos = view.light_pos.to(torch.float32)
@@ -408,7 +428,10 @@ def render_volume_sharded(
 
     ``ray_threshold`` is the ERT threshold, honoured across slabs (2.0
     turns it off). ``front_to_back`` is the march order of the slabs (rank
-    0's first): by default from the sign of the view direction's z.
+    0's first) for every ray: by default each ray's own, from the sign of
+    its direction's z, since a perspective view's rays can cross the slabs
+    in both orders (``volrt`` takes the view direction's for all, which
+    composites the slabs of the other rays in the wrong order).
     ``slabs``: this rank's :class:`Slab` (:func:`shard_slabs_to_devices`,
     :func:`refresh_halos`, built with ``halo=shading_halo(D, shading)``
     when shading); otherwise each rank cuts its own rows from the whole
@@ -434,8 +457,14 @@ def render_volume_sharded(
         raise NotImplementedError(
             "esl in volume-sharded mode uses the pallas backend (the "
             "kernels' ESL mode; the torch slab march has none)")
+    # The view's rays, once a step: each slab pass takes its samples from
+    # them, and each ray its slab order from the sign of its z.
+    view_rays = rays_mod.get_rays(view)
     if front_to_back is None:
-        front_to_back = bool(view.direction[2] >= 0)
+        w, h = view.dims
+        reverse = view_rays[1].reshape(h, w, 3)[..., 2] < 0.0
+    else:
+        reverse = not front_to_back
     if slabs is None:
         full_d = scene.density.shape[0]
         halo = shading_halo(full_d, shading)
@@ -452,22 +481,28 @@ def render_volume_sharded(
             eg = slab_empty_grid(slabs.slab[halo:halo + slabs.depth], z0,
                                  full_d, scene.tf_base, mesh)
         shaded = shading == "diffuse"
+        rays = view.dims[0] * view.dims[1]
         # The prepass is unshaded: shading moves RGB only.
-        a_i = render_slab_v3(slab, premult, step, view, z0, full_d,
-                             ray_threshold=2.0, esl_grid=eg,
-                             halo=halo)[0][..., 3]
-        p_i = OpacityScan.apply(a_i, mesh, not front_to_back)
-        acc = render_slab_v3(slab, premult, step, view, z0, full_d,
-                             ray_threshold=ray_threshold, acc0=p_i,
-                             esl_grid=eg, halo=halo, shaded=shaded,
-                             light_kd=light_kd if shaded else 0.0)[0]
+        with trace.span("slab_march", tag="prepass", rays=rays):
+            a_i = render_slab_v3(slab, premult, step, view, z0, full_d,
+                                 ray_threshold=2.0, esl_grid=eg,
+                                 halo=halo, rays=view_rays)[0][..., 3]
+        p_i = OpacityScan.apply(a_i, mesh, reverse)
+        with trace.span("slab_march", tag="seeded", rays=rays):
+            acc = render_slab_v3(slab, premult, step, view, z0, full_d,
+                                 ray_threshold=ray_threshold, acc0=p_i,
+                                 esl_grid=eg, halo=halo, shaded=shaded,
+                                 light_kd=light_kd if shaded else 0.0,
+                                 rays=view_rays)[0]
     else:
         a_i = _slab_march(slab, z0, full_d, tf_base, step, view, 2.0,
-                          alpha_only=True, halo=halo)[..., 3]
-        p_i = OpacityScan.apply(a_i, mesh, not front_to_back)
+                          alpha_only=True, halo=halo,
+                          rays=view_rays)[..., 3]
+        p_i = OpacityScan.apply(a_i, mesh, reverse)
         acc = _slab_march(slab, z0, full_d, tf_base, step, view,
                           ray_threshold, acc0_alpha=p_i, halo=halo,
-                          shading=shading, light_kd=light_kd)
+                          shading=shading, light_kd=light_kd,
+                          rays=view_rays)
     seg = acc - torch.cat([torch.zeros_like(acc[..., :3]), p_i[..., None]],
                           -1)
     return SumSegments.apply(seg, mesh)

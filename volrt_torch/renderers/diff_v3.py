@@ -165,7 +165,7 @@ def l2_loss_grads_v3_onepass(scene: DiffScene, view: View,
 
 
 def slab_rays(view: View, z_start: int, slab_d: int, full_d: int,
-              ray_step: float, device: torch.device
+              ray_step: float, device: torch.device, rays=None
               ) -> tuple[torch.Tensor, ...]:
     """The rays of one Z-slab, rows ``z_start .. z_start + slab_d - 1`` of a
     volume ``full_d`` deep -> ``(o, d, k0, kfar, alive)`` for the march
@@ -186,8 +186,10 @@ def slab_rays(view: View, z_start: int, slab_d: int, full_d: int,
     as ``k0 = knear + J_in*ray_step`` and ``kfar = min(kfar, k0 + (J_out -
     J_in - 1)*ray_step)``, the last sample's parameter in the kernels' own
     rounding, so the kernels' test ``k <= kfar`` stops at the count and
-    compares no two floats at a plane."""
-    origins, directions = rays_mod.get_rays(view)
+    compares no two floats at a plane. ``rays``: the view's
+    ``get_rays(view)``, when the caller has them."""
+    origins, directions = rays if rays is not None else rays_mod.get_rays(
+        view)
     o = origins.reshape(-1, 3).contiguous()
     d = directions.reshape(-1, 3).contiguous()
     knear, kfar, hit = rays_mod.intersect_aabb(o, d)
@@ -224,7 +226,7 @@ def render_slab_v3(slab_density: torch.Tensor, premult_tf: torch.Tensor,
                    ray_threshold: float = 0.95,
                    acc0: torch.Tensor | None = None, window=None,
                    fast: bool = False, esl_grid=None, halo: int = 1,
-                   shaded: bool = False, light_kd: float = 0.0
+                   shaded: bool = False, light_kd: float = 0.0, rays=None
                    ) -> tuple[torch.Tensor, float]:
     """March one Z-slab's samples of the whole volume's lattice through the
     march kernels in their slab mode -> ``(f32[H, W, 4], overflow 0)``.
@@ -244,15 +246,16 @@ def render_slab_v3(slab_density: torch.Tensor, premult_tf: torch.Tensor,
     the backward kernel gives the seed's cotangent). ``window`` has no role
     (the kernels plan none). ``fast=True`` marches the slab's bf16 copy
     (the kernels' bf16 instances, the slab's z coordinate clipped as
-    ``volrt``'s ``_geometry`` clips it). The counterpart of ``volrt``'s
-    ``render_slab_v3`` (``diff_v3.py:3292``), but for the partition of the
-    samples (:func:`slab_rays`)."""
+    ``volrt``'s ``_geometry`` clips it). ``rays``: the view's
+    ``get_rays(view)``, when the caller has them. The counterpart of
+    ``volrt``'s ``render_slab_v3`` (``diff_v3.py:3292``), but for the
+    partition of the samples (:func:`slab_rays`)."""
     del window
     check_modes(shaded)
     sdl, h, w = slab_density.shape
     dev = slab_density.device
     o, d, k0, kend, alive = slab_rays(view, z_start, sdl - 2 * halo, full_d,
-                                      ray_step, dev)
+                                      ray_step, dev, rays)
     wv, hv = view.dims
     if acc0 is None:
         acc0 = torch.zeros(hv * wv, dtype=torch.float32, device=dev)

@@ -150,6 +150,60 @@ def make_train_step(loss_fn: Callable = l2_loss, train_density: bool = True,
     return step
 
 
+def make_sharded_step(mesh: Mesh, full_d: int, shading: str | None = None,
+                      light_kd: float = 0.6, esl: bool = False,
+                      train_density: bool = True, train_tf: bool = True
+                      ) -> Callable:
+    """The volume-sharded train step ``(state, view, target) -> (state,
+    loss)`` of one rank of ``mesh``, whose ``state.scene.density`` holds
+    the rank's own Z-slab rows of a volume ``full_d`` deep
+    (``dist/volume_sharded.py:slab_geometry``): each step refreshes the
+    halo rows from the neighbours (``refresh_halos``), renders through
+    ``render_volume_sharded`` (its kernel backend ``"pallas"`` unshaded
+    and diffuse, with ESL there; its torch backend for phong) and takes
+    the mean square over the whole image, the same on every rank, under
+    :func:`make_train_step`."""
+    from volrt_torch.dist import volume_sharded as vs
+
+    halo = vs.shading_halo(full_d, shading)
+    backend = "xla" if shading == "phong" else "pallas"
+
+    def loss_fn(scene, view, target):
+        img = vs.render_volume_sharded(
+            scene, view, mesh,
+            slabs=vs.refresh_halos(scene.density, mesh, halo, full_d),
+            backend=backend, shading=shading, light_kd=light_kd, esl=esl)
+        return torch.mean((img - target) ** 2)
+
+    return make_train_step(loss_fn, train_density, train_tf)
+
+
+def make_sharded_trainer(own_rows: torch.Tensor, full_d: int,
+                         tf_base: torch.Tensor, ray_step: float, mesh: Mesh,
+                         lr: float = 1e-2, shading: str | None = None,
+                         light_kd: float = 0.6, esl: bool = False,
+                         train_density: bool = True, train_tf: bool = True
+                         ) -> tuple[TrainState, Callable]:
+    """One rank's volume-sharded trainer -> ``(state, step)``: the state
+    holds a scene of a copy of ``own_rows`` (this rank's ``D/n`` rows of a
+    volume ``full_d`` deep, rank ``r`` rows ``r*D/n ..``) and ``tf_base``,
+    and its Adam (:func:`make_optimizer`); ``step`` is
+    :func:`make_sharded_step`'s. No rank holds more of the density than its
+    own rows and two halos. What ``fit(volume_sharded=True)`` trains, and
+    what the benchmark's multi-card trainer steps."""
+    from volrt_torch.dist import volume_sharded as vs
+
+    sd, _ = vs.slab_geometry(full_d, mesh, vs.shading_halo(full_d, shading))
+    if own_rows.shape[0] != sd:
+        raise ValueError(f"rank {mesh.rank} holds {own_rows.shape[0]} rows, "
+                         f"not the {sd} of a volume {full_d} deep over "
+                         f"{mesh.size} ranks")
+    scene = DiffScene(own_rows, tf_base, ray_step)
+    state = init_state(scene, make_optimizer(scene, lr))
+    return state, make_sharded_step(mesh, full_d, shading, light_kd, esl,
+                                    train_density, train_tf)
+
+
 def fit(
     scene: DiffScene,
     views_and_targets: list[tuple[View, torch.Tensor]],
@@ -170,6 +224,7 @@ def fit(
     light_kd: float = 0.6,
     esl: bool = False,
     esl_refresh_every: int = 0,
+    full_d: int | None = None,
 ) -> tuple[DiffScene, list[float]]:
     """Fit the scene to targets; returns ``(scene, per-step losses)``.
 
@@ -213,12 +268,18 @@ def fit(
     neighbours each step, and renders through
     ``dist.volume_sharded.render_volume_sharded``: its kernel backend
     (``"pallas"``; ESL there) unshaded and diffuse, its torch backend for
-    phong; ``fused`` changes nothing there. At the end every rank's scene
-    holds the whole trained density. Checkpoints go to one ``.npz`` in
+    phong; ``fused`` changes nothing there (:func:`make_sharded_trainer`).
+    At the end every rank's scene holds the whole trained density. With
+    ``full_d`` (volume-sharded only) ``scene.density`` holds only this
+    rank's own rows of a volume ``full_d`` deep (rank ``r`` rows ``r*D/n
+    ..``), so that no rank ever holds the whole volume; the scene returned
+    holds them trained, and the whole density is gathered, on the host,
+    only to write a checkpoint. Checkpoints go to one ``.npz`` in
     ``volrt``'s format, written by rank 0 (the density and its moments
     gathered on the host in volume-sharded mode); every rank resumes from
-    it. ``volume_sharded`` without a mesh raises ``ValueError``, a mesh of
-    another type ``TypeError``.
+    it. ``volume_sharded`` without a mesh raises ``ValueError``, as does
+    ``full_d`` without ``volume_sharded``; a mesh of another type raises
+    ``TypeError``.
 
     ``grad_chunks`` is not ported (ROADMAP.md, "Do not port"): a value
     above 1 raises ``NotImplementedError``.
@@ -228,6 +289,9 @@ def fit(
                         f"{type(mesh).__name__}")
     if volume_sharded and mesh is None:
         raise ValueError("volume_sharded=True requires a mesh")
+    if full_d is not None and not volume_sharded:
+        raise ValueError("full_d (a rank's own rows) needs "
+                         "volume_sharded=True")
     if grad_chunks and grad_chunks > 1:
         raise NotImplementedError(
             'fit(grad_chunks) is not ported (ROADMAP.md, "Do not port": '
@@ -241,29 +305,11 @@ def fit(
     shaded, phong = shading == "diffuse", shading == "phong"
     kd = light_kd if shading else 0.0
 
-    slabs = None
-    if volume_sharded:
-        from volrt_torch.dist import volume_sharded as vs
-
-        full_d = scene.density.shape[0]
-        halo = vs.shading_halo(full_d, shading)
-        sd, z0 = vs.slab_geometry(full_d, mesh, halo)
-        slabs = DiffScene(scene.density.detach()[z0:z0 + sd].clone(),
-                          scene.tf_base.detach().clone(), scene.ray_step)
-        backend = "xla" if phong else "pallas"
-
     def build_step(esl: bool) -> Callable:
         loss_grads_fn = None
         if volume_sharded:
-            def loss_fn(s, view, target):
-                img = vs.render_volume_sharded(
-                    s, view, mesh,
-                    slabs=vs.refresh_halos(s.density, mesh, halo, full_d),
-                    backend=backend, shading=shading, light_kd=light_kd,
-                    esl=esl)
-                return torch.mean((img - target) ** 2)
-
-            return make_train_step(loss_fn, train_density, train_tf)
+            return make_sharded_step(mesh, depth, shading, light_kd, esl,
+                                     train_density, train_tf)
         if fused and mesh is not None:
             from volrt_torch.dist.render import l2_loss_grads_v3_sharded
 
@@ -292,19 +338,32 @@ def fit(
         return make_train_step(loss_fn, train_density, train_tf,
                                loss_grads_fn)
 
-    train_step = build_step(esl)
-    refresh_step = (build_step(False) if esl and esl_refresh_every
-                    else None)
-    trained = scene if slabs is None else slabs
-    state = init_state(trained, make_optimizer(trained, lr))
+    slabs = None
     # Volume-sharded checkpoints hold the whole density: gathered from the
     # slabs to write, cut to this rank's rows to resume.
     gather, rows = None, slice(None)
-    if slabs is not None:
+    if volume_sharded:
+        from volrt_torch.dist import volume_sharded as vs
+
+        depth = scene.density.shape[0] if full_d is None else full_d
+        sd, z0 = vs.slab_geometry(depth, mesh,
+                                  vs.shading_halo(depth, shading))
+        own = (scene.density if full_d is not None
+               else scene.density[z0:z0 + sd])
+        state, train_step = make_sharded_trainer(
+            own, depth, scene.tf_base, scene.ray_step, mesh, lr, shading,
+            light_kd, esl, train_density, train_tf)
+        slabs = state.scene
+
         def gather(t):
             return vs.gather_density(t, mesh)
 
         rows = slice(z0, z0 + sd)
+    else:
+        train_step = build_step(esl)
+        state = init_state(scene, make_optimizer(scene, lr))
+    refresh_step = (build_step(False) if esl and esl_refresh_every
+                    else None)
     writes = mesh is None or mesh.rank == 0
 
     def save():
@@ -335,7 +394,8 @@ def fit(
         save()
     if slabs is not None:
         with torch.no_grad():
-            scene.density.copy_(torch.from_numpy(gather(slabs.density)))
+            scene.density.copy_(slabs.density if full_d is not None else
+                                torch.from_numpy(gather(slabs.density)))
             scene.tf_base.copy_(slabs.tf_base)
     # The step freezes a leaf by turning its requires_grad off.
     scene.density.requires_grad_(True)

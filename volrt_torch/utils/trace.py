@@ -19,7 +19,8 @@ a span
 - keeps a :class:`Record` of it in memory: its name, its parent span's
   record and the top-level call it belongs to (the spans of one frame or
   step share a call), the host's start and end from ``time.time_ns()``,
-  and its work (rays, voxels or elements);
+  its work (rays, voxels or elements) and an optional tag that tells
+  apart calls of one span (the slab march's prepass and seeded pass);
 - with ``device=`` a CUDA device (a device stage), records a pair of
   timing events on that device's current stream at entry and at exit.
   The stream's milliseconds between them (:attr:`Record.stream_ms`) hold
@@ -57,15 +58,16 @@ class Record:
     """One span, and the context that records it: ``name``, ``parent``
     (the enclosing span's record, None for none), ``call`` (the top-level
     call's index), ``start_ns`` and ``end_ns`` (``time.time_ns()``;
-    ``end_ns`` is None while the span is open), ``unit`` and ``work``, and
-    ``events`` (the stream's start and end events of a device stage, else
-    None)."""
+    ``end_ns`` is None while the span is open), ``unit`` and ``work``,
+    ``tag`` (a string or None), and ``events`` (the stream's start and end
+    events of a device stage, else None)."""
 
     __slots__ = ("name", "parent", "call", "start_ns", "end_ns", "unit",
-                 "work", "events", "_device", "_fn", "_stream")
+                 "work", "tag", "events", "_device", "_fn", "_stream")
 
-    def __init__(self, name: str, device, work: dict):
-        self.name, self._device = PREFIX + name, device
+    def __init__(self, name: str, device, work: dict,
+                 tag: str | None = None):
+        self.name, self._device, self.tag = PREFIX + name, device, tag
         if work:
             (self.unit, self.work), = work.items()
         else:
@@ -163,16 +165,18 @@ class _Off:
 _OFF = _Off()
 
 
-def span(name: str, device: torch.device | None = None, **work):
+def span(name: str, device: torch.device | None = None,
+         tag: str | None = None, **work):
     """A context that marks ``name`` (``"volrt_torch." + name`` on the
     timeline) while a profiler records, and does nothing otherwise.
 
     ``work`` is at most one keyword, the span's work in its unit (``rays=``,
     ``voxels=``, ``parameters=``, ...). ``device``, a CUDA device, makes
-    the span a device stage (stream events on its current stream)."""
+    the span a device stage (stream events on its current stream). ``tag``
+    is kept on the record (:attr:`Record.tag`)."""
     if not _profiler._is_profiler_enabled:
         return _OFF
-    return Record(name, device, work)
+    return Record(name, device, work, tag)
 
 
 def records() -> list[Record]:
