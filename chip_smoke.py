@@ -243,7 +243,23 @@ Phases, each synchronised with the card, none catching its own failure:
     march comparisons of the other phases, which take their rays from
     ``ray_args``, hold the marches on the plain chain's rays; the
     one-launch L2 step, one ray setup a step. The ray setup has a line
-    of its own in the ``kernels`` line.
+    of its own in the ``kernels`` line;
+25. the trainer's update kernel (``train/adam.py:adam_step``,
+    ``csrc/adam.cu``: Adam and the [0, 1] clamp in one pass) against its
+    plain version (``torch.optim.Adam``'s single-tensor step and
+    ``clamp_``) on the host copy, one step from the same state at 256^3
+    and on a 1792 x 1792 x 8-row slice (steps 1 and 7, clamp on and
+    off): moments equal to the bit, the leaf equal to the bit wherever
+    the host's square root is correctly rounded and within 3 ulps of the
+    larger of the leaf and its step elsewhere (``ADAM_STEP_ULPS``); the
+    kernel timed (torch.profiler's
+    device time, median of 50 launches) at 256^3 and at the 448 x 1792^2
+    slab beside its bound (28 B an element), the plain chain on the card
+    and, as the yardstick (``library_ms``), ``torch.optim.Adam``
+    (foreach) and one ``clamp_``, both by CUDA events a call; its
+    registers; then one launch a trained leaf a step through
+    ``make_train_step`` at 256^3 / 1024^2. The update has a line of its own in the
+    ``kernels`` line.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes it must move (each input read once, each
@@ -307,6 +323,7 @@ from volrt_torch.dist.render import (
 from volrt_torch.renderers import (
     batched, blocked, diff_v3, fwd_v3, get_renderer, trilinear)
 from volrt_torch.renderers.cuda import leap, rays
+from volrt_torch.train import adam
 from volrt_torch.train import checkpoint as ckpt_mod
 from volrt_torch.renderers.cuda.march import (
     EslSkip, div255_mismatches, l2_step, l2_step_plain, march_blocked,
@@ -3874,6 +3891,142 @@ def phase_rays(dev: torch.device) -> dict:
     return entry
 
 
+# The update's state in phase 25: (step, clamp).
+ADAM_CASES = ((1, (0.0, 1.0)), (7, (0.0, 1.0)), (7, None))
+# Ulps of the larger of the leaf and its step by which the kernel's leaf
+# may part from the plain version's where the host's square root is an ulp
+# off: 3 is the worst this phase read (an H100's host, torch 2.11), past
+# the 2 the kernel was asked to keep, for the reason that
+# tests/test_torch_adam.py:STEP_ULPS gives.
+ADAM_STEP_ULPS = 3
+
+
+def _adam_state(shape, step: int, seed: int, dev) -> list:
+    """A leaf in [-0.3, 1.3] (the clamp bites), a gradient with a NaN
+    entry and, past the first step, moments of an earlier step: f32 on
+    ``dev``."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    kw = dict(generator=gen, device=dev)
+    p = torch.rand(shape, **kw) * 1.6 - 0.3
+    g = torch.randn(shape, **kw) * 0.1
+    g.view(-1)[g.numel() // 3] = float("nan")
+    m = torch.randn(shape, **kw) * 0.05 if step > 1 else torch.zeros_like(p)
+    v = torch.rand(shape, **kw) * 1e-2 if step > 1 else torch.zeros_like(p)
+    return [p, g, m, v]
+
+
+def _adam_held(got, want, before) -> dict:
+    """The kernel's leaf and moments (``got``, host copies) against the
+    plain version's (``want``) after one step from ``before``'s leaf ->
+    counts: moments' differing bits (a NaN on both sides equal, whatever
+    its payload: the card's is canonical), the leaf's where the host's square
+    root is correctly rounded, the share of elements where it is not, and
+    the leaf's widest gap there in ulps of the larger of the leaf and its
+    step."""
+    v = want[2].numpy()
+    rounded = torch.from_numpy(v).sqrt().numpy() == np.sqrt(v)
+    a, b, p0 = got[0].numpy(), want[0].numpy(), before.numpy()
+    both_nan = np.isnan(a) & np.isnan(b)
+    bits = (a.view(np.int32) != b.view(np.int32)) & ~both_nan
+    scale = np.spacing(np.maximum.reduce([np.abs(b), np.abs(p0),
+                                          np.abs(b - p0)]))
+    with np.errstate(invalid="ignore"):
+        gap = np.where(both_nan, 0.0, np.abs(a - b) / scale)
+    return {"moment_bits": sum(int(((g.view(torch.int32) != w.view(
+                torch.int32)) & ~(g.isnan() & w.isnan())).sum())
+                               for g, w in zip(got[1:], want[1:])),
+            "leaf_bits_rounded": int(bits[rounded].sum()),
+            "sqrt_off_share": float(1.0 - rounded.mean()),
+            "leaf_step_ulps": float(gap.max())}
+
+
+def _adam_registers(log: str) -> int:
+    """The registers ptxas gave ``adam_kernel`` (phase 2's build log)."""
+    chunk = next(c for c in log.split("Compiling entry function")[1:]
+                 if "adam_kernel" in c.split("\n")[0])
+    return int(re.search(r"Used (\d+) registers", chunk).group(1))
+
+
+def phase_adam(dev: torch.device) -> dict:
+    """The update kernel against its plain version, timed, and on the
+    trainer's path -> its entry of the ``kernels`` line."""
+    tag = "[adam]"
+    lr = 0.01
+    for shape in ((256, 256, 256), (8, 1792, 1792)):
+        for seed, (step, clamp) in enumerate(ADAM_CASES):
+            state = _adam_state(shape, step, seed, dev)
+            host = [t.cpu() for t in state]
+            before = host[0].clone()
+            adam.adam_step(*state, lr, step, clamp)
+            adam.adam_step_plain(*host, lr, step, clamp)
+            held = _adam_held([state[0].cpu(), state[2].cpu(),
+                               state[3].cpu()],
+                              [host[0], host[2], host[3]], before)
+            print(f"{tag} {shape} step {step} clamp {clamp}: {held}")
+            assert held["moment_bits"] == 0 and held[
+                "leaf_bits_rounded"] == 0, held
+            assert held["leaf_step_ulps"] <= ADAM_STEP_ULPS, held
+            del state, host
+    log = (_build.library_path().parent / "build.log").read_text()
+    entry = {"registers": _adam_registers(log)}
+    for shape, key in (((256, 256, 256), "_256"), ((448, 1792, 1792), "")):
+        p, g, m, v = _adam_state(shape, 2, 99, dev)
+        g.view(-1)[g.numel() // 3] = 0.0
+        n = p.numel()
+        limit = bound(28 * n, 0)
+        times = _kernel_ms(lambda: adam.adam_step(p, g, m, v, lr, 5,
+                                                  (0.0, 1.0)),
+                           "adam_kernel", 50)
+        plain = time_cuda(lambda: adam.adam_step_plain(p, g, m, v, lr, 5,
+                                                       (0.0, 1.0)), 10)
+        leaf = torch.nn.Parameter(p)
+        leaf.grad = g
+        lib = torch.optim.Adam([leaf], lr=lr, foreach=True)
+
+        def library():
+            lib.step()
+            with torch.no_grad():
+                leaf.clamp_(0.0, 1.0)
+
+        library_ms = time_cuda(library, 10)
+        del lib, leaf
+        ms = float(np.median(times))
+        print(f"{tag} {shape} ({n} elements): kernel (device trace) "
+              f"{_spread(times)}, {limit['bound_ms'] / ms:.1%} of the bound "
+              f"{limit['bound_ms']:.4f} ms by {limit['bound_by']}; plain "
+              f"(CUDA events, a call) {_spread(plain)}; torch.optim.Adam "
+              f"foreach + clamp_ {_spread(library_ms)}")
+        entry.update({f"ms{key}": ms, f"plain_ms{key}": float(
+            np.median(plain)), f"library_ms{key}": float(
+            np.median(library_ms)), f"bound_ms{key}": limit["bound_ms"]})
+        del p, g, m, v
+    entry["bound_by"] = "bytes"
+    assert entry["bound_ms"] / entry["ms"] >= 0.8, entry
+
+    # One launch a trained leaf a step through make_train_step at the fit
+    # cells' 256^3 / 1024^2, a frozen leaf clamped without one.
+    from volrt_torch.train import fit as tfit
+
+    vol = torch.from_numpy(synthetic_volume(256)).to(dev) / 255.0
+    scene = DiffScene(vol, default_transfer_fn(dev), default_ray_step(
+        (256, 256, 256)))
+    view = Camera(dims=(1024, 1024)).view(dev)
+    target = torch.zeros((1024, 1024, 4), device=dev)
+    state = tfit.init_state(scene, tfit.make_optimizer(scene, lr))
+    adam.adam_step.launches = 0
+    for train_tf in (True, True, False):
+        step = tfit.make_train_step(
+            loss_grads_fn=lambda s, vw, t: diff_v3.l2_loss_grads_v3_onepass(
+                s, vw, t, need_dtf=train_tf), train_tf=train_tf)
+        state, _ = step(state, view, target)
+    _sync()
+    assert adam.adam_step.launches == 5, adam.adam_step.launches
+    print(f"{tag} make_train_step: 2 steps training both leaves and 1 the "
+          f"density alone, {adam.adam_step.launches} launches")
+    entry["launches"] = 1
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it checks the port on the card",
@@ -3918,6 +4071,7 @@ def main() -> int:
     del vol512
     run(phase_native, dev)
     ray_setup = run(phase_rays, dev)
+    update = run(phase_adam, dev)
     jax_like = sorted(m for m in set(sys.modules) - _MODULES_AT_START
                       if m.split(".")[0] in ("jax", "jaxlib", "volrt"))
     assert not jax_like, f"the run imported {jax_like[:5]}"
@@ -3965,6 +4119,10 @@ def main() -> int:
          "source": "volrt_torch/csrc/ray_setup.cu",
          "replaces": "volrt/core/rays.py:17-80 (XLA ops: no Pallas kernel)",
          **ray_setup},
+        {"name": "adam", "route": "cuda",
+         "source": "volrt_torch/csrc/adam.cu",
+         "replaces": "volrt/train/fit.py:47, 98-99 (optax.adam and "
+                     "jnp.clip: no Pallas kernel)", **update},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

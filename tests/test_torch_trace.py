@@ -221,7 +221,7 @@ def test_trace_step_counts_overlapping_device_time_once():
 
     assert set(launches()) == {"march_fwd", "march_bwd", "l2_step",
                                "march_tri", "march_blocked", "esl_start",
-                               "ray_setup"}
+                               "ray_setup", "adam_step"}
     assert busy_us([]) == 0.0
     assert busy_us([(5.0, 9.0), (0.0, 2.0), (1.0, 3.0), (8.0, 8.5)]) == 7.0
     assert busy_us([(0.0, 10.0), (2.0, 3.0)]) == 10.0

@@ -23,8 +23,9 @@ one JSON object: the card's name and power limit; per step, the window's
 wall time, the host's enqueue, the device's busy time (the union of its
 operations in time) and the card's idle share in the window (the host
 synchronising only at the window's end); the launches per step of the
-march wrappers, the leap and the ray setup (their counters); and each
-span's host ms, stream ms (its device stages'), work and count per step.
+march wrappers, the leap, the ray setup and the update (their counters);
+and each span's host ms, stream ms (its device stages'), work and count
+per step.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from volrt_torch.core.view import Camera
 from volrt_torch.diff.fused import render_image_fused
 from volrt_torch.renderers import diff_v3, get_renderer
 from volrt_torch.renderers.cuda import leap, march, rays
+from volrt_torch.train import adam
 
 
 def make_step(route: str, volume_size: int, viewport: int,
@@ -97,11 +99,12 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
 
 
 def launches() -> dict[str, int]:
-    """The march wrappers', the leap's and the ray setup's launch counters
-    as they stand (``renderers/cuda/march.py``, ``leap.py``,
-    ``rays.py``)."""
+    """The march wrappers', the leap's, the ray setup's and the update's
+    launch counters as they stand (``renderers/cuda/march.py``,
+    ``leap.py``, ``rays.py``, ``train/adam.py``)."""
     fns = (march.march_fwd, march.march_bwd, march.l2_step, march.march_tri,
-           march.march_blocked, leap.esl_start, rays.ray_setup)
+           march.march_blocked, leap.esl_start, rays.ray_setup,
+           adam.adam_step)
     return {fn.__name__: fn.launches for fn in fns}
 
 

@@ -155,12 +155,16 @@ def l2_loss_grads_v3_sharded(scene: DiffScene, view: View,
         # The padded rows are dead with a zero target: they add nothing.
         diff = out - t_band
         sq = (diff * diff).sum()
-        total = mesh.all_reduce(torch.cat([sq.reshape(1), d_premult.reshape(
-            -1), d_density.reshape(-1)]))
-        loss = total[0] * (scale * 0.5)
+        # The LUT's 512 floats first, so that the density's gradient starts
+        # 16-byte aligned in the summed buffer, as the update's kernel
+        # reads it.
+        total = mesh.all_reduce(torch.cat([d_premult.reshape(-1),
+                                           d_density.reshape(-1),
+                                           sq.reshape(1)]))
+        loss = total[-1] * (scale * 0.5)
         n_tf = d_premult.numel()
-        d_premult = total[1:1 + n_tf].reshape(d_premult.shape)
-        d_density = total[1 + n_tf:].reshape(d_density.shape)
+        d_premult = total[:n_tf].reshape(d_premult.shape)
+        d_density = total[n_tf:-1].reshape(d_density.shape)
         d_rgb = d_premult[:, :3] * base[:, 3:4]
         d_a = d_premult[:, 3:4] + (d_premult[:, :3] * base[:, :3]).sum(
             -1, keepdim=True)

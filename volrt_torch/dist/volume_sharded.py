@@ -192,7 +192,10 @@ class FoldHalo(torch.autograd.Function):
         sd = g.shape[0] - 2 * halo
         planes = mesh.all_gather(torch.cat([g[:halo], g[halo + sd:]]))
         with trace.span("halo_fold", device=g.device, voxels=g.numel()):
-            out = g.clone()
+            # The own rows' gradient, a view of ``out`` from ``halo`` rows
+            # on, starts 16-byte aligned, as the update's kernel reads it.
+            pad = -halo * g[0].numel() % 4
+            out = g.new_empty(pad + g.numel())[pad:].view_as(g).copy_(g)
             out[:halo] = 0.0
             out[halo + sd:] = 0.0
             for k in range(mesh.size):

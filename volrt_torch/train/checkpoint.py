@@ -5,13 +5,14 @@ resumes from the other's file.
 The file holds the scene's leaves, the step counter, ``meta`` (JSON bytes:
 ``ray_step`` and ``n_opt_leaves``) and the optimizer state as ``opt_0``
 ... ``opt_4`` in ``optax.adam``'s leaf order: ``count`` (int32), then
-``mu`` and ``nu`` of ``(density, tf_base)``. Torch's Adam keeps a ``step``,
-``exp_avg`` and ``exp_avg_sq`` per parameter: ``exp_avg`` is ``mu`` and
+``mu`` and ``nu`` of ``(density, tf_base)``. The port's Adam
+(``train/adam.py``), as torch's, keeps a ``step``, ``exp_avg`` and
+``exp_avg_sq`` per parameter: ``exp_avg`` is ``mu`` and
 ``exp_avg_sq`` is ``nu``, and both parameters' ``step`` is ``count``,
 which ``volrt``'s single counter advances every step. A frozen leaf:
 ``volrt`` feeds its optimizer a zero gradient, so its moments stay zero
 while ``count`` advances; the port turns its ``requires_grad`` off, so
-torch's Adam keeps no state for it, and its moments are written as zeros
+its Adam keeps no state for it, and its moments are written as zeros
 and read back as zeros at ``count``.
 
 ``volrt``'s other format, an orbax directory, is JAX's; a path that does

@@ -25,13 +25,14 @@ from volrt_torch.diff.render import DiffScene, render_diff, render_diff_image
 from volrt_torch.dist.mesh import Mesh
 from volrt_torch.dist.render import band_rows
 from volrt_torch.renderers.diff_v3 import l2_loss_grads_v3_onepass
+from volrt_torch.train.adam import Adam
 from volrt_torch.utils import trace
 
 
 @dataclasses.dataclass
 class TrainState:
     scene: DiffScene
-    optimizer: torch.optim.Optimizer
+    optimizer: Adam
     step: int = 0
 
 
@@ -49,16 +50,14 @@ def l2_loss_fused(scene: DiffScene, view: View, target: torch.Tensor
     return fused_mod.l2_loss_fused(scene, view, target, fast=True)
 
 
-def make_optimizer(scene: DiffScene, lr: float = 1e-2
-                   ) -> torch.optim.Optimizer:
+def make_optimizer(scene: DiffScene, lr: float = 1e-2) -> Adam:
     """Adam as ``optax.adam(lr)`` has it: betas (0.9, 0.999), eps 1e-8
-    added outside the square root, no weight decay."""
-    return torch.optim.Adam([scene.density, scene.tf_base], lr=lr,
-                            betas=(0.9, 0.999), eps=1e-8)
+    added outside the square root, no weight decay (``train/adam.py``:
+    one kernel launch a trained leaf on the card)."""
+    return Adam([scene.density, scene.tf_base], lr)
 
 
-def init_state(scene: DiffScene, optimizer: torch.optim.Optimizer
-               ) -> TrainState:
+def init_state(scene: DiffScene, optimizer: Adam) -> TrainState:
     return TrainState(scene, optimizer, 0)
 
 
@@ -95,11 +94,15 @@ def l2_loss_grads_sharded(scene: DiffScene, view: View,
             got = torch.autograd.grad(sq, [leaves[i] for i in wanted])
             for i, g in zip(wanted, got):
                 grads[i] = g
-    total = mesh.all_reduce(torch.cat([sq.detach().reshape(1)]
-                                      + [g.reshape(-1) for g in grads]))
-    n_vol = grads[0].numel()
-    return total[0], {"density": total[1:1 + n_vol].reshape(grads[0].shape),
-                      "tf_base": total[1 + n_vol:].reshape(grads[1].shape)}
+    # The TF's 512 floats first, so that both gradients start 16-byte
+    # aligned in the summed buffer, as the update's kernel reads them.
+    total = mesh.all_reduce(torch.cat([grads[1].reshape(-1),
+                                       grads[0].reshape(-1),
+                                       sq.detach().reshape(1)]))
+    n_tf, n_vol = grads[1].numel(), grads[0].numel()
+    return total[-1], {
+        "density": total[n_tf:n_tf + n_vol].reshape(grads[0].shape),
+        "tf_base": total[:n_tf].reshape(grads[1].shape)}
 
 
 def make_train_step(loss_fn: Callable = l2_loss, train_density: bool = True,
@@ -113,9 +116,9 @@ def make_train_step(loss_fn: Callable = l2_loss, train_density: bool = True,
     is given and supplies the gradients itself (the one-launch step). With
     ``mesh`` and no ``loss_grads_fn`` the step is :func:`l2_loss`'s with
     the image rows split over the mesh (:func:`l2_loss_grads_sharded`). A
-    frozen leaf gets no gradient and so no update; after the update both
-    leaves, a frozen one too, are clamped to [0, 1] in place, as
-    ``volrt`` clips them.
+    frozen leaf gets no gradient and so no update; both leaves, a frozen
+    one too, are clamped to [0, 1] in place, as ``volrt`` clips them: a
+    trained leaf in its update's launch (``Adam.step(clamp=)``).
     """
     if mesh is not None and loss_grads_fn is None:
         def loss_grads_fn(scene, view, target):
@@ -140,10 +143,7 @@ def make_train_step(loss_fn: Callable = l2_loss, train_density: bool = True,
             with trace.span("optimizer", device=scene.density.device,
                             parameters=(scene.density.numel()
                                         + scene.tf_base.numel())):
-                state.optimizer.step()
-                with torch.no_grad():
-                    scene.density.clamp_(0.0, 1.0)
-                    scene.tf_base.clamp_(0.0, 1.0)
+                state.optimizer.step(clamp=(0.0, 1.0))
             state.step += 1
             return state, loss.detach()
 
